@@ -1,0 +1,182 @@
+"""The weight bridge between the JAX package and the port.
+
+Parameters keep the JAX pytree's structure and layouts (conv kernels
+[K, C_in, C_out], per-layer decoder parameters stacked [L, ...]); only the
+leaves change from numpy arrays to torch tensors.  On disk they are one
+flat ``.npz`` keyed ``params/a/b/c`` and ``state/a/b/c`` (list entries by
+index), written by ``save_npz`` (or tools/export_torch_npz.py from an orbax
+checkpoint) and read by ``load_npz``.
+
+``random_params_np`` builds a tree with the JAX shapes and init limits from
+a numpy seed (models/vqvae.py:46-74, encoders.py:38-46, 104-122,
+wavenet.py:35-81, ops/conv.py:30-41), so the port can run at full width
+without jax.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+# the parameter groups the voice-conversion path reads
+_PARAM_KEYS = ("encoder", "vq", "speaker_embedding", "cond_conv", "decoder")
+_STATE_KEYS = ("encoder",)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def to_torch(tree, device=None):
+    """numpy (or array-like) leaves -> torch tensors."""
+    return _map(tree, lambda x: torch.as_tensor(np.array(x), device=device))
+
+
+def from_jax_tree(params, state=None, device=None):
+    """A JAX (params, model_state) pair with numpy leaves -> the port's
+    (params, state) of torch tensors, keeping the groups the port uses:
+    encoder, vq, speaker_embedding, cond_conv and decoder parameters, and
+    the encoder's batch-norm statistics."""
+    p = {k: to_torch(params[k], device) for k in _PARAM_KEYS
+         if params.get(k) is not None}
+    s = {k: to_torch(state[k], device) for k in _STATE_KEYS
+         if state is not None and state.get(k) is not None}
+    return p, s
+
+
+def _flatten(tree, prefix, out):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}/{k}", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}/{i}", out)
+    elif tree is not None:
+        out[prefix] = (tree.detach().cpu().numpy()
+                       if isinstance(tree, torch.Tensor) else np.asarray(tree))
+
+
+def _unflatten(flat):
+    root: dict = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
+
+
+def save_npz(path: str, params, state) -> None:
+    """Write (params, state) -- torch or numpy leaves -- as one flat npz."""
+    flat: dict = {}
+    _flatten(params, "params", flat)
+    _flatten(state, "state", flat)
+    np.savez(path, **flat)
+
+
+def load_npz(path: str, device=None):
+    """Read a ``save_npz`` file -> (params, state) of torch tensors."""
+    with np.load(path) as z:
+        tree = _unflatten({k: z[k] for k in z.files})
+    return (to_torch(tree.get("params", {}), device),
+            to_torch(tree.get("state", {}), device))
+
+
+def lc_channels(cfg, num_speakers: Optional[int]) -> int:
+    """Local-condition width (models/vqvae.py:37-43)."""
+    base = 128 if cfg.condition_upsample else cfg.latent_dim
+    if num_speakers is None or cfg.condition_upsample:
+        return base
+    gc = cfg.speaker_embedding if cfg.speaker_embedding > 0 else num_speakers
+    return cfg.latent_dim + gc
+
+
+def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):
+    """A random (params, state) tree in the JAX shapes and init limits for
+    a ModelConfig with Encoder_64.  Leaves are float32 numpy arrays."""
+    if cfg.encoder != "64":
+        raise NotImplementedError("random_params_np covers Encoder_64 only")
+    rng = np.random.default_rng(seed)
+
+    def uniform(shape, limit):
+        return rng.uniform(-limit, limit, size=shape).astype(np.float32)
+
+    def glorot(shape):                                   # encoders.py:38-46
+        if len(shape) == 3:
+            fan_in, fan_out = shape[0] * shape[1], shape[0] * shape[2]
+        else:
+            fan_in, fan_out = shape[0], shape[-1]
+        return uniform(shape, np.sqrt(6.0 / (fan_in + fan_out)))
+
+    def uus(shape, factor=1.0):                          # ops/conv.py:30-41
+        fan = float(np.prod(shape[:-1])) if len(shape) > 1 else float(shape[0])
+        return uniform(shape, factor * np.sqrt(3.0 / fan))
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    # Encoder_64: 6 x conv k=5 f=768 (encoders.py:104-122)
+    filters, c_in = 768, 1
+    convs, bn, bn_state = [], [], []
+    for _ in range(6):
+        convs.append({"kernel": glorot((5, c_in, filters)),
+                      "bias": zeros(filters)})
+        c_in = filters
+    for c in [filters] * 6 + [cfg.latent_dim]:
+        bn.append({"scale": np.ones(c, np.float32), "bias": zeros(c)})
+        bn_state.append({"mean": zeros(c), "var": np.ones(c, np.float32)})
+    params = {"encoder": {"convs": convs,
+                          "out": {"kernel": glorot((1, filters, cfg.latent_dim)),
+                                  "bias": zeros(cfg.latent_dim)},
+                          "bn": bn}}
+    state = {"encoder": {"bn": bn_state}}
+    if cfg.use_vq:
+        params["vq"] = {"embedding": uus((cfg.k, cfg.latent_dim), 1.7)}
+    if num_speakers is not None and cfg.speaker_embedding > 0:
+        params["speaker_embedding"] = uus(
+            (num_speakers, cfg.speaker_embedding), 2.0)
+    c_lc = lc_channels(cfg, num_speakers)
+    if cfg.condition_upsample:
+        gc = 0 if num_speakers is None else (
+            cfg.speaker_embedding if cfg.speaker_embedding > 0
+            else num_speakers)
+        params["cond_conv"] = {"kernel": glorot((3, cfg.latent_dim + gc, 128)),
+                               "bias": zeros(128)}
+
+    # WaveNet decoder (wavenet.py:35-81)
+    w = cfg.wavenet
+    L, K = w.num_layers, w.kernel_size
+    R, D, S = w.residual_filters, w.dilation_filters, w.skip_filters
+    Q, PK, PF = (w.quantization_channels, w.preprocess_kernel_size,
+                 w.preprocess_filters)
+
+    def stack(shape):
+        return np.stack([uus(shape) for _ in range(L)])
+
+    params["decoder"] = {
+        "preprocess": {"kernel": uus((PK, 1, PF)), "bias": zeros(PF)},
+        "skip_start": {"kernel": uus((1, PF, S)), "bias": zeros(S)},
+        "layers": {"kernel": stack((K, R, 2 * D)), "bias": zeros(L, 2 * D),
+                   "skip_kernel": stack((D, S)), "skip_bias": zeros(L, S),
+                   "res_kernel": stack((D, R)), "res_bias": zeros(L, R),
+                   "lc_kernel": stack((c_lc, 2 * D))},
+        "postprocess1": {"kernel": uus((1, S, S)), "bias": zeros(S),
+                         "lc_kernel": uus((c_lc, S))},
+        "postprocess2": {"kernel": uus((1, S, Q)), "bias": zeros(Q)},
+    }
+    return params, state
