@@ -5,9 +5,11 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device  torch/CUDA versions and the card's name and power limit;
-  2. build   compile csrc/vq_argmin.cu and csrc/gen_wavenet.cu with nvcc;
-  3. vq      the VQ kernel against its plain twin at N = 384 and 65,536
-             (k = 512, d = 64);
+  2. build   compile the five sources under vqvae_wavenet_torch/csrc with
+             nvcc, one process each, all at once (ptxas registers/spills
+             of the training kernels are printed);
+  3. vq      the VQ kernel against its plain twin at N = 384 (generation),
+             832 (training: B=8 x 104 frames) and 65,536 (k = 512, d = 64);
   4. gen     the generation kernel against its plain twin at the shipped
              wavenet_parameters.json widths with C = 128: teacher-forced
              logits (f32 and bf16), a greedy f32 clip, and sample-mode
@@ -16,7 +18,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              on a random full-width model_parameters.json model and a
              synthetic 8,192-sample wav, speakers p225 p226 None, in bf16
              and f32, greedy and sample; both kernels' launch counters are
-             reset before and read after.
+             reset before and read after;
+  6. train-stack     the stack forward and backward kernels against their
+             plain twins at the shipped widths and the full training
+             shape (B=8, T=6656, 104 frames), f32 and bf16, tanh_first,
+             and at B=2, T=1024 with sigmoid_first and a global condition;
+  7. train-epilogue  the loss-head kernel (both entries) against its
+             plain twin at the same shape, f32 and bf16;
+  8. train-e2e       the training entry point (vqvae_wavenet_torch.train)
+             at -length 6656 -batch 8 on a synthetic VCTK-layout corpus
+             with the shipped config in f32 and in bf16, six steps each,
+             then vqvae_wavenet_torch.generate from the bf16 checkpoint;
+             the launch counters are reset before each run and read after.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and
 prints no result.  Outputs go under build/chip_smoke/ (gitignored).
@@ -25,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,12 +52,30 @@ VQ_SOURCE = "vqvae_wavenet_torch/csrc/vq_argmin.cu"
 GEN_SOURCE = "vqvae_wavenet_torch/csrc/gen_wavenet.cu"
 VQ_REPLACES = "vqvae_wavenet_tpu/ops/vq_pallas.py:32"
 GEN_REPLACES = "vqvae_wavenet_tpu/ops/gen_pallas.py:346"
+SOURCES = ("vq_argmin", "gen_wavenet", "train_stack_fwd", "train_stack_bwd",
+           "train_epilogue")
+TRAIN = {   # name -> (source, the TPU kernel it replaces)
+    "train_stack_fwd": ("vqvae_wavenet_torch/csrc/train_stack_fwd.cu",
+                        "vqvae_wavenet_tpu/ops/train_pallas.py:1196"),
+    "train_stack_bwd": ("vqvae_wavenet_torch/csrc/train_stack_bwd.cu",
+                        "vqvae_wavenet_tpu/ops/train_pallas.py:735"),
+    "train_epilogue_fwd": ("vqvae_wavenet_torch/csrc/train_epilogue.cu",
+                           "vqvae_wavenet_tpu/ops/train_pallas.py:1981"),
+    "train_epilogue_bwd": ("vqvae_wavenet_torch/csrc/train_epilogue.cu",
+                           "vqvae_wavenet_tpu/ops/train_pallas.py:2008"),
+}
+
+# the H100 SXM's published peaks: bf16 tensor cores, f32 outside the
+# tensor cores, HBM3
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
 
 # tolerances (reasons in the phase docstrings)
 F32_LOGIT_TOL = 1e-3
 BF16_LOGIT_TOL = 5e-2
 VQ_TIE_REL = 1e-5
 GREEDY_TIE = 1e-4
+TRAIN_TOL = {"f32": 1e-3, "bf16": 2e-2}
 
 
 def log(msg: str) -> None:
@@ -79,13 +111,36 @@ def phase_device():
     return card
 
 
+def bound(flops: float, nbytes: float, dtype: str):
+    """(bound_ms, bound_by): the larger of the operations over the peak
+    for their type and the bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_build():
     from vqvae_wavenet_torch.ops import _build
     t0 = time.perf_counter()
-    for name in ("vq_argmin", "gen_wavenet"):
+    _build.build(SOURCES)
+    for name in SOURCES:
         _build.load(name)
     log(f"[build] {time.perf_counter() - t0:.2f}s total; nvcc seconds per "
-        f"source: {json.dumps({k: round(v, 2) for k, v in _build.build_seconds.items()})}")
+        f"source (in parallel): "
+        f"{json.dumps({k: round(v, 2) for k, v in _build.build_seconds.items()})}")
+    for name in SOURCES[2:]:
+        info = _build.ptxas_info.get(name, "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", info)]
+        spills = sum(int(b) for b in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", info))
+        if regs:
+            log(f"[build] {name}: {len(regs)} kernels, {min(regs)}-"
+                f"{max(regs)} registers per thread, {spills} bytes of "
+                f"spill stores and loads (ptxas)")
 
 
 def phase_vq():
@@ -100,7 +155,7 @@ def phase_vq():
     emb = ((torch.rand((k, d), generator=g) * 2 - 1)
            * 1.7 * (3.0 / k) ** 0.5).to(dev)
     result = {}
-    for n in (384, 65536):
+    for n in (384, 832, 65536):     # generation; training (B=8 x 104); large
         z = (torch.randn((n, d), generator=g) * 0.1).to(dev)
         got = vk.vq_nearest_cuda(z, emb)
         ref = vk.vq_nearest_plain(z, emb)
@@ -113,13 +168,15 @@ def phase_vq():
                      - dist.gather(1, ref[:, None])).abs().max())
         ms = cuda_ms(lambda: vk.vq_nearest_cuda(z, emb), 50)
         plain_ms = cuda_ms(lambda: vk.vq_nearest_plain(z, emb), 50)
+        b_ms, b_by = bound(2.0 * n * k * d, nbytes(z, emb) + 4 * n, "f32")
         log(f"[vq] N={n} k={k} d={d}: mismatches {int((got != ref).sum())} "
             f"(outside ties {int(bad.sum())}), max |dist(kernel) - "
             f"dist(plain)| {err:.3g}; kernel {ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us")
         if bad.any():
             raise AssertionError(f"VQ kernel disagrees with plain at N={n}")
-        result[n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        result[n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     return result[384]
 
 
@@ -268,6 +325,18 @@ def phase_gen(card: str):
                 f"{kern * 1e3:.1f} us/sample, plain {plain * 1e3:.1f} "
                 f"us/sample  ({card})")
     out["ms"], out["plain_ms"] = times[("bfloat16", 3)]
+    # per sample at B=3, bf16: the weights read once per clip (2,048
+    # samples) and every layer's products for 3 rows
+    L, K, R, D, S, Q, C, PK = w.dims
+    macs = (L * (2 * D * (K * R + C) + (S + R) * D) + PK * R + S * R
+            + S * (S + C) + Q * S)
+    wb = gk.pack_gen_params(dec, wcfg, torch.bfloat16, dev)
+    weight_bytes = nbytes(wb.w_a, wb.b_a, wb.w_sr, wb.b_sr, wb.w_pre,
+                          wb.b_pre, wb.w_ss, wb.b_ss, wb.w_h1, wb.b_h1,
+                          wb.w_pp2, wb.b_pp2)
+    out["bound_ms"], out["bound_by"] = bound(
+        2.0 * 3 * macs, weight_bytes / 2048, "bf16")
+    out["library_ms"] = None
     return out
 
 
@@ -324,6 +393,301 @@ def phase_e2e(card: str):
     return launches
 
 
+def _leaf_err(got, ref) -> float:
+    """max |got - ref| / max |ref| (float64)."""
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _check_leaves(tag, dtype, pairs):
+    tol = TRAIN_TOL[dtype]
+    errs = {k: _leaf_err(a, b) for k, (a, b) in pairs.items()}
+    log(f"[{tag}] {dtype}: max |kernel - plain| / max |plain| per leaf: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tolerance {tol})")
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{tag} {dtype}: kernel disagrees with plain: "
+                             f"{bad}")
+    return max(errs.values())
+
+
+def _stack_inputs(B, T, F, dtype, gate_gc: bool, seed: int):
+    """Shipped-width stack operands: random full-width decoder layers from
+    a seed, x0 [B, T, R], the folded condition lc_encb [L, F, B, 2D] (with
+    a random global condition folded in when gate_gc), dskip [B, T, S].
+    The conv and residual biases, which random_params_np sets to zero as
+    the initialiser does, are drawn at random here, so that the kernel's
+    per-layer bias reads are checked too."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.params import random_params_np, to_torch
+    cfg = ModelConfig.from_json(os.path.join(REPO, "model_parameters.json"))
+    params, _ = random_params_np(cfg, 109, seed)
+    lp = to_torch(params["decoder"]["layers"], "cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lp["bias"] = (torch.randn(lp["bias"].shape, generator=g) * 0.05).cuda()
+    lp["res_bias"] = (torch.randn(lp["res_bias"].shape, generator=g)
+                      * 0.05).cuda()
+    L, _, R, D2 = lp["kernel"].shape
+    S = lp["skip_kernel"].shape[2]
+    c_lc = lp["lc_kernel"].shape[1]
+    lc = (torch.randn((B, F, c_lc), generator=g) * 0.5).cuda()
+    lc_encb = torch.einsum("bsc,lcf->lsbf", lc, lp["lc_kernel"]) \
+        + lp["bias"][:, None, None, :]
+    if gate_gc:
+        gc = torch.randn((B, 16), generator=g).cuda()
+        gck = (torch.randn((L, 16, D2), generator=g) * 0.05).cuda()
+        lc_encb = lc_encb + torch.einsum("bc,lcf->lbf", gc, gck)[:, None]
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    w = [lp["kernel"].to(dt), lp["skip_kernel"].to(dt),
+         lp["res_kernel"].to(dt), lp["res_bias"].to(dt),
+         lc_encb.float().contiguous()]
+    x0 = (torch.randn((B, T, R), generator=g) * 0.5).to("cuda", dt)
+    dskip = (torch.randn((B, T, S), generator=g) * 1e-3).to("cuda", dt)
+    return cfg, w, x0, dskip
+
+
+def phase_train_stack(card: str):
+    """The stack kernels against their plain twins at the shipped widths
+    (L=30, K=3, R=D=256, S=512), the full training shape B=8, T=6656 with
+    104 frames, f32 and bf16, tanh_first; then B=2, T=1024 with
+    sigmoid_first and a folded global condition.  The backward twins get
+    the kernel forward's saved tensors, so each comparison sees one
+    kernel.  Tolerance per leaf, max |kernel - plain| / max |plain|: f32
+    1e-3 (products summed in another order over up to 53,248 rows), bf16
+    2e-2 (an f32 difference of one ulp can round a saved activation or
+    dpre to the neighbouring bf16 value, 0.4% apart, and that feeds the
+    following layers).  Returns the JSON fields of both kernels (bf16 at
+    the full shape)."""
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    out = {}
+    cases = [(2, 1024, 16, "sigmoid_first", True),
+             (8, 6656, 104, "tanh_first", False)]
+    for B, T, F, gate, gc in cases:
+        for dtype in ("f32", "bf16"):
+            cfg, w, x0, dskip = _stack_inputs(B, T, F, dtype, gc, seed=3)
+            dils = tuple(cfg.wavenet.dilation_rates)
+            kw = dict(dils=dils, gate_order=gate)
+            sk, act, xs = tk.stack_forward_cuda(*w, x0, **kw)
+            sp, act_p, _ = tk.stack_forward_plain(*w, x0, **kw)
+            # act[0]: layer 0's gate outputs from the same x0 on both
+            # sides (later layers' inputs differ by the rounding above)
+            f_err = _check_leaves("train-stack fwd", dtype, {
+                "skip_sum": (sk, sp), "act[0]": (act[0], act_p[0])})
+            del act_p
+            bargs = (dskip, act, xs, w[0], w[1], w[2])
+            gk = tk.stack_backward_cuda(*bargs, dils, F, gate)
+            gp = tk.stack_backward_plain(*bargs, dils, F, gate)
+            b_err = _check_leaves("train-stack bwd", dtype, dict(zip(
+                ("dk", "dsk", "drs", "drb", "dlc", "dx0"), zip(gk, gp))))
+            del gk, gp
+            if (B, gate) != (8, "tanh_first"):
+                continue
+            L, K, R, D2 = w[0].shape
+            D, S, N = D2 // 2, w[1].shape[2], B * T
+            f_ms = cuda_ms(lambda: tk.stack_forward_cuda(*w, x0, **kw), 3)
+            fp_ms = cuda_ms(lambda: tk.stack_forward_plain(*w, x0, **kw), 2)
+            b_ms = cuda_ms(lambda: tk.stack_backward_cuda(
+                *bargs, dils, F, gate), 3)
+            bp_ms = cuda_ms(lambda: tk.stack_backward_plain(
+                *bargs, dils, F, gate), 2)
+            f_flops = 2.0 * N * L * (K * R * D2 + D * (S + R))
+            b_flops = 2.0 * N * L * (2 * (R + S) * D + 2 * K * R * D2)
+            f_bound = bound(f_flops, nbytes(*w, x0, sk, act, xs), dtype)
+            b_bound = bound(b_flops, nbytes(dskip, act, xs, *w[:3])
+                            + 4 * (w[0].numel() + w[1].numel()
+                                   + w[2].numel() + w[3].numel()
+                                   + w[4].numel()) + nbytes(x0), dtype)
+            log(f"[train-stack] {dtype} B={B} T={T}: fwd kernel {f_ms:.2f} "
+                f"ms (plain {fp_ms:.2f}, bound {f_bound[0]:.2f} by "
+                f"{f_bound[1]}), bwd kernel {b_ms:.2f} ms (plain "
+                f"{bp_ms:.2f}, bound {b_bound[0]:.2f} by {b_bound[1]})  "
+                f"({card})")
+            if dtype == "bf16":
+                out["train_stack_fwd"] = {
+                    "max_abs_err": f_err, "ms": f_ms, "plain_ms": fp_ms,
+                    "bound_ms": f_bound[0], "bound_by": f_bound[1],
+                    "library_ms": None}
+                out["train_stack_bwd"] = {
+                    "max_abs_err": b_err, "ms": b_ms, "plain_ms": bp_ms,
+                    "bound_ms": b_bound[0], "bound_by": b_bound[1],
+                    "library_ms": None}
+            del sk, sp, act, xs
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_epilogue(card: str):
+    """The loss-head kernel (forward and backward entries) against its
+    plain twin at B=8, T=6656, S=512, Q=256, 104 frames, f32 and bf16; the
+    backward twin gets the kernel forward's saved a1 and probs.  The loss
+    within 1e-5 (f32) / 1e-3 (bf16) relative, every other leaf as in
+    train-stack.  Returns the JSON fields of both entries (bf16)."""
+    from vqvae_wavenet_torch.ops import epilogue_kernels as ek
+    B, T, F, S, Q = 8, 6656, 104, 512, 256
+    N = B * T
+    g = torch.Generator(device="cpu").manual_seed(5)
+    out = {}
+    for dtype in ("f32", "bf16"):
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+        skip = (torch.randn((B, T, S), generator=g) * 0.5).cuda()
+        w1 = ((torch.rand((S, S), generator=g) * 2 - 1)
+              * (3.0 / S) ** 0.5).to("cuda", dt)
+        w2 = ((torch.rand((S, Q), generator=g) * 2 - 1)
+              * (3.0 / S) ** 0.5).to("cuda", dt)
+        b2 = (torch.randn((Q,), generator=g) * 0.05).cuda()
+        enc2 = (torch.randn((F, B, S), generator=g) * 0.1).cuda()
+        labels = torch.randint(0, Q, (B, T), generator=g).cuda()
+        fwd = (skip, w1, w2, b2, enc2, labels)
+        lk, a1, probs = ek.epilogue_forward_cuda(*fwd)
+        lp, a1_p, probs_p = ek.epilogue_forward_plain(*fwd)
+        l_err = abs(float(lk) - float(lp)) / abs(float(lp))
+        log(f"[train-epilogue] {dtype}: loss kernel {float(lk) / N:.6f} "
+            f"plain {float(lp) / N:.6f} (relative {l_err:.3g})")
+        if not l_err <= (1e-5 if dtype == "f32" else 1e-3):
+            raise AssertionError(f"epilogue loss disagrees ({dtype})")
+        f_err = max(l_err, _check_leaves("train-epilogue fwd", dtype, {
+            "a1": (a1, a1_p), "probs": (probs, probs_p)}))
+        gvec = torch.ones((), device="cuda")
+        bargs = (gvec, skip, a1, probs, labels, w1, w2, F)
+        gk = ek.epilogue_backward_cuda(*bargs)
+        gp = ek.epilogue_backward_plain(*bargs)
+        b_err = _check_leaves("train-epilogue bwd", dtype, dict(zip(
+            ("dskip", "dlc2", "dw1", "dw2", "db2"), zip(gk, gp))))
+        f_ms = cuda_ms(lambda: ek.epilogue_forward_cuda(*fwd), 10)
+        fp_ms = cuda_ms(lambda: ek.epilogue_forward_plain(*fwd), 5)
+        b_ms = cuda_ms(lambda: ek.epilogue_backward_cuda(*bargs), 10)
+        bp_ms = cuda_ms(lambda: ek.epilogue_backward_plain(*bargs), 5)
+        f_bound = bound(2.0 * N * (S * S + S * Q),
+                        nbytes(skip, w1, w2, b2, enc2) + 4 * N
+                        + nbytes(a1, probs) + 4, dtype)
+        b_bound = bound(2.0 * N * (2 * S * Q + 2 * S * S),
+                        nbytes(skip, a1, probs, w1, w2) + 4 * N
+                        + nbytes(*gk), dtype)
+        log(f"[train-epilogue] {dtype}: fwd kernel {f_ms:.3f} ms (plain "
+            f"{fp_ms:.3f}, bound {f_bound[0]:.3f} by {f_bound[1]}), bwd "
+            f"kernel {b_ms:.3f} ms (plain {bp_ms:.3f}, bound "
+            f"{b_bound[0]:.3f} by {b_bound[1]})  ({card})")
+        if dtype == "bf16":
+            out["train_epilogue_fwd"] = {
+                "max_abs_err": f_err, "ms": f_ms, "plain_ms": fp_ms,
+                "bound_ms": f_bound[0], "bound_by": f_bound[1],
+                "library_ms": None}
+            out["train_epilogue_bwd"] = {
+                "max_abs_err": b_err, "ms": b_ms, "plain_ms": bp_ms,
+                "bound_ms": b_bound[0], "bound_by": b_bound[1],
+                "library_ms": None}
+    return out
+
+
+def _train_corpus() -> str:
+    """A synthetic VCTK-layout corpus under build/chip_smoke/train_data:
+    the repo's 109-speaker table, three 1 s utterances each for p225 and
+    p226 (a sawtooth-rich tone per speaker plus noise)."""
+    import shutil
+    from scipy.io import wavfile
+    root = os.path.join(OUT, "train_data")
+    info = os.path.join(root, "vctk_info")
+    os.makedirs(info, exist_ok=True)
+    shutil.copy(os.path.join(REPO, "data", "vctk_info", "vctk_speakers.txt"),
+                info)
+    rng = np.random.default_rng(0)
+    t = np.arange(16000) / 16000.0
+    files = []
+    for spk, f0 in (("p225", 180.0), ("p226", 310.0)):
+        os.makedirs(os.path.join(root, "VCTK-Corpus", "wav48", spk),
+                    exist_ok=True)
+        for u in range(3):
+            phase = (f0 * (1 + 0.02 * u) * t) % 1.0
+            wav = 0.3 * (2 * phase - 1) * (0.6 + 0.4 * np.sin(
+                2 * np.pi * 3.0 * t)) + 0.01 * rng.standard_normal(t.size)
+            name = f"{spk}/{spk}_{u:03d}.wav"
+            wavfile.write(os.path.join(root, "VCTK-Corpus", "wav48", name),
+                          16000, (np.clip(wav, -1, 1) * 32767).astype(
+                              np.int16))
+            files.append(name)
+    with open(os.path.join(info, "vctk_train.txt"), "w") as f:
+        f.write("\n".join(files) + "\n")
+    return root
+
+
+def phase_train_e2e(card: str):
+    """The training entry point at full width and the full training shape
+    (model_parameters.json; -length 6656 -batch 8), six steps in f32 and
+    six in bf16 (a copy of the config with "train_dtype": "bf16"): finite
+    losses, a checkpoint written, the path's kernels launched; steps/s
+    from the steps after the first two.  Then the port's generate.py
+    converts 2,048 samples for one speaker from the bf16 checkpoint.
+    Returns the training kernels' launch counts."""
+    from scipy.io import wavfile
+    from vqvae_wavenet_torch import generate as gen_cli
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.ops import (epilogue_kernels, train_kernels,
+                                         vq_kernels)
+    data = _train_corpus()
+    with open(os.path.join(REPO, "model_parameters.json")) as f:
+        mp = json.load(f)
+    mp["wavenet_parameters"] = os.path.join(REPO, "wavenet_parameters.json")
+    configs = {}
+    for dtype in ("f32", "bf16"):
+        path = os.path.join(OUT, f"model_{dtype}.json")
+        with open(path, "w") as f:
+            json.dump(dict(mp, train_dtype=dtype), f)
+        configs[dtype] = path
+    launches = {}
+    ckpt = None
+    for dtype in ("f32", "bf16"):
+        save = os.path.join(OUT, f"train_{dtype}")
+        vq_kernels.launches = 0
+        train_kernels.fwd_launches = train_kernels.bwd_launches = 0
+        epilogue_kernels.fwd_launches = epilogue_kernels.bwd_launches = 0
+        res = train_cli.main([
+            "-dataset", "VCTK", "-length", "6656", "-batch", "8", "-step",
+            "6", "-save", os.path.join(save, "weights"), "-params",
+            configs[dtype], "-data", data, "-device", "cuda", "-log_every",
+            "1", "-interval", "1000", "-ckpt_interval", "1000"])
+        counts = {"vq_argmin": vq_kernels.launches,
+                  "train_stack_fwd": train_kernels.fwd_launches,
+                  "train_stack_bwd": train_kernels.bwd_launches,
+                  "train_epilogue_fwd": epilogue_kernels.fwd_launches,
+                  "train_epilogue_bwd": epilogue_kernels.bwd_launches}
+        print()
+        steady = res["step_seconds"][2:]
+        log(f"[train-e2e] {dtype}: losses "
+            + " ".join(f"{v:.4f}" for v in res["losses"])
+            + f"; {len(steady) / sum(steady):.3f} steps/s over steps 3-6 "
+            f"(host clock, synchronised; first step "
+            f"{res['step_seconds'][0]:.2f} s)  ({card})")
+        log(f"[train-e2e] {dtype}: kernel launches {counts}")
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"non-finite training loss ({dtype})")
+        ckpt = res["path"] + ".npz"
+        if not os.path.exists(ckpt):
+            raise AssertionError(f"no checkpoint written ({dtype})")
+        need = ["vq_argmin", "train_stack_fwd", "train_stack_bwd"]
+        if dtype == "bf16":
+            need += ["train_epilogue_fwd", "train_epilogue_bwd"]
+            launches.update(counts)
+        else:
+            launches.update({k: counts[k] for k in need})
+        if min(counts[k] for k in need) < 1:
+            raise AssertionError(f"a kernel of the {dtype} training path "
+                                 f"was never launched: {counts}")
+    audio = os.path.join(OUT, "train_input.wav")
+    t = np.arange(2048) / 16000.0
+    wavfile.write(audio, 16000, (0.3 * np.sin(2 * np.pi * 200.0 * t)
+                                 * 32767).astype(np.int16))
+    res = gen_cli.main(["-restore", ckpt, "-audio", audio, "-speakers",
+                        "p226", "-mode", "greedy", "-params",
+                        configs["bf16"], "-data", data, "-device", "cuda"])
+    if res["audio"].shape != (1, 2048) or not np.isfinite(
+            res["audio"]).all():
+        raise AssertionError("generation from the trained checkpoint failed")
+    log(f"[train-e2e] generated {res['audio'].shape[1]} samples from "
+        f"{os.path.basename(ckpt)} in {res['seconds']:.2f} s")
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, REPO)
@@ -333,13 +697,17 @@ def main() -> int:
     vq = phase_vq()
     gen = phase_gen(card)
     launches = phase_e2e(card)
+    train = {**phase_train_stack(card), **phase_train_epilogue(card)}
+    train_launches = phase_train_e2e(card)
     kernels = [
         {"name": "vq_argmin", "route": "cuda", "source": VQ_SOURCE,
          "replaces": VQ_REPLACES, "launches": launches["vq_argmin"], **vq},
         {"name": "gen_wavenet", "route": "cuda", "source": GEN_SOURCE,
          "replaces": GEN_REPLACES, "launches": launches["gen_wavenet"],
          **gen},
-    ]
+    ] + [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+          "launches": train_launches[name], **train[name]}
+         for name, (src, rep) in TRAIN.items()]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,14 +3,18 @@
 
     python tools/export_torch_npz.py -restore saved_model/weights-110640 \
         [-params model_parameters.json] [-num_speakers 109] \
-        [-out saved_model/weights-110640.npz]
+        [-out saved_model/weights-110640.npz] [-train_state]
 
-Restores the checkpoint the way generate.py does (init_train_state as the
-template, training/checkpoint.py::restore_checkpoint) and writes the EMA
+Restores the checkpoint the way generate.py does (init_train_state's tree as
+the template, training/checkpoint.py::restore_checkpoint) and writes the EMA
 parameters plus the model state (encoder batch-norm statistics) as the flat
 ``params/...`` / ``state/...`` npz that vqvae_wavenet_torch.params.load_npz
-reads.  -num_speakers is the speaker-table size the model was trained with
-(VCTK 109, aishell 340, LibriSpeech 251).
+reads.  With -train_state it writes the whole train state (params, EMA
+shadows, Adam moments and count, model state, step) through
+vqvae_wavenet_torch.params.from_jax_train_state in the port's checkpoint
+layout, so ``python -m vqvae_wavenet_torch.train -restore <out>`` resumes
+the JAX run.  -num_speakers is the speaker-table size the model was trained
+with (VCTK 109, aishell 340, LibriSpeech 251).
 """
 import argparse
 import os
@@ -29,6 +33,9 @@ def parse_args(argv=None):
                         help="speaker-table size of the trained model")
     parser.add_argument("-out", default=None, dest="out_path",
                         help="output .npz (default: <restore>.npz)")
+    parser.add_argument("-train_state", action="store_true",
+                        help="write the whole train state (resumable by "
+                             "vqvae_wavenet_torch.train -restore)")
     return parser.parse_args(argv)
 
 
@@ -38,17 +45,24 @@ def main(argv=None):
     from vqvae_wavenet_tpu.config import ModelConfig
     from vqvae_wavenet_tpu.training.checkpoint import restore_checkpoint
     from vqvae_wavenet_tpu.training.train_loop import init_train_state
-    from vqvae_wavenet_torch.params import from_jax_tree, save_npz
+    from vqvae_wavenet_torch.params import (from_jax_train_state,
+                                            from_jax_tree, save_npz)
+    from vqvae_wavenet_torch.training.checkpoint import write_checkpoint
 
     cfg = ModelConfig.from_json(args.parameter_path)
     if cfg.model_family != "vqvae":
         raise NotImplementedError("only the VQVAE family is ported to torch")
-    ts = init_train_state(jax.random.PRNGKey(0), cfg, args.num_speakers)
+    # an abstract template: restoring needs the tree's shapes only
+    ts = jax.eval_shape(lambda k: init_train_state(k, cfg, args.num_speakers),
+                        jax.random.PRNGKey(0))
     ts = restore_checkpoint(args.restore_path, ts)
-    params, state = from_jax_tree(jax.device_get(ts["ema_params"]),
-                                  jax.device_get(ts["model_state"]))
     out = args.out_path or args.restore_path.rstrip("/") + ".npz"
-    save_npz(out, params, state)
+    if args.train_state:
+        write_checkpoint(out, from_jax_train_state(jax.device_get(ts)))
+    else:
+        params, state = from_jax_tree(jax.device_get(ts["ema_params"]),
+                                      jax.device_get(ts["model_state"]))
+        save_npz(out, params, state)
     print(f"wrote {out}")
     return out
 

@@ -5,6 +5,10 @@ wavenet_parameters.json, with the same optional extension keys).
 The port keeps its own copy so that it never imports the JAX package; the
 Magenta family (whose hyperparameters live in the JAX model code) is not
 ported yet.
+
+``train_engine`` selects between TPU code paths in the JAX package; the
+port has no engine switch (the device picks the kernel), so it accepts
+only ``"auto"``.
 """
 from __future__ import annotations
 
@@ -40,6 +44,12 @@ class WavenetConfig:
     def max_dilation(self) -> int:
         return max(self.dilation_rates)
 
+    @property
+    def receptive_field(self) -> int:
+        """sum(dilations)*(K-1) + 1 + (preprocess_K - 1) (wavenet.py:16-17)."""
+        rf = sum(self.dilation_rates) * (self.kernel_size - 1) + 1
+        return rf + self.preprocess_kernel_size - 1
+
     @classmethod
     def from_json(cls, path: str) -> "WavenetConfig":
         with open(path) as f:
@@ -66,10 +76,26 @@ class ModelConfig:
     latent_dim: int = 64
     beta: float = 0.25
     wavenet: WavenetConfig = field(default_factory=WavenetConfig)
+    learning_rate_schedule: dict = field(default_factory=lambda: {0: 8e-5})
+    verbose: bool = False
     vq_mode: str = "st"
+    ema_decay: float = 0.99
+    time_jitter: bool = False
     condition_upsample: bool = False
     encoder_norm: str = "batch"
+    codebook_init: str = "uniform_scaling"
     model_family: str = "vqvae"
+    train_dtype: str = "f32"
+    train_engine: str = "auto"
+
+    def __post_init__(self):
+        if self.train_engine != "auto":
+            raise ValueError(
+                f"train_engine {self.train_engine!r} selects a TPU code path "
+                "of the JAX package; the port takes only 'auto'")
+        if self.train_dtype not in ("f32", "bf16"):
+            raise ValueError(f"train_dtype {self.train_dtype!r}: want "
+                             "'f32' or 'bf16'")
 
     @classmethod
     def from_json(cls, path: str) -> "ModelConfig":
@@ -88,6 +114,16 @@ class ModelConfig:
             speaker_embedding=p["speaker_embedding"], k=p["k"],
             latent_dim=p["latent_dim"], beta=p["beta"],
             wavenet=WavenetConfig.from_json(wn_path),
+            learning_rate_schedule={
+                int(s): float(v)
+                for s, v in p.get("learning_rate_schedule",
+                                  {"0": 8e-5}).items()},
+            verbose=p.get("verbose", False),
             vq_mode=p.get("vq_mode", "st"),
+            ema_decay=p.get("ema_decay", 0.99),
+            time_jitter=p.get("time_jitter", False),
             condition_upsample=p.get("condition_upsample", False),
-            encoder_norm=p.get("encoder_norm", "batch"))
+            encoder_norm=p.get("encoder_norm", "batch"),
+            codebook_init=p.get("codebook_init", "uniform_scaling"),
+            train_dtype=p.get("train_dtype", "f32"),
+            train_engine=p.get("train_engine", "auto"))

@@ -1,7 +1,18 @@
-"""Host-side audio and speaker-table readers for generation (the port's
-copy of vqvae_wavenet_tpu/data/datasets.py:37-48, 106-123, so the port
-never imports the JAX package)."""
+"""Host-side data for the port (its own copy of
+vqvae_wavenet_tpu/data/datasets.py:37-283, so the port never imports the
+JAX package): speaker tables, wav reading at 16 kHz, and the training
+sampler -- manifests found under the data root or its <corpus>_info/
+folder, a uniformly drawn file, a random ``max_len`` crop (short files are
+zero-padded), the speaker one-hot, prefetched by one background thread.
+Randomness comes from an explicit numpy seed.  The native C++ loader is
+not ported (ROADMAP.md queue A).
+"""
 from __future__ import annotations
+
+import os
+import queue
+import threading
+from typing import Callable, Optional
 
 import numpy as np
 from scipy.io import wavfile
@@ -37,3 +48,163 @@ def read_wav_16k(path: str) -> np.ndarray:
         g = np.gcd(int(sr), 16000)
         wav = resample_poly(wav, 16000 // g, sr // g).astype(np.float32)
     return wav
+
+
+def trim_silence(audio: np.ndarray, threshold: float = 0.01,
+                 frame_length: int = 2048) -> np.ndarray:
+    """Remove leading/trailing silence by frame RMS energy (dataset.py:
+    23-31, in numpy).  Returns empty audio if all silent."""
+    audio = np.asarray(audio)
+    if audio.size < frame_length:
+        frame_length = max(int(audio.size), 1)
+    hop = frame_length // 4 or 1
+    n_frames = 1 + max(audio.size - frame_length, 0) // hop
+    rms = np.asarray([
+        np.sqrt(np.mean(audio[i * hop:i * hop + frame_length] ** 2))
+        for i in range(n_frames)])
+    frames = np.nonzero(rms > threshold)[0]
+    if frames.size == 0:
+        return audio[0:0]
+    start = frames[0] * hop
+    end = min(frames[-1] * hop + frame_length, audio.size)
+    return audio[start:end]
+
+
+class Dataset:
+    """Infinite uniform-file random-crop sampler (dataset.py:33-63)."""
+
+    filename: str
+    speaker_file: str
+    data_dir: str
+    split_func: Callable[[str], str]
+    info_locations: tuple = ()
+    exclude_file: Optional[str] = None
+
+    def __init__(self, batch_size: int = 1, max_len: int = 5120,
+                 relative_path: str = "data/", seed: Optional[int] = None,
+                 prefetch: int = 4, trim_silence: bool = False):
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.relative_path = relative_path
+        self._rng = np.random.default_rng(seed)
+        self._prefetch = prefetch
+        self.trim = trim_silence
+        self.speaker_to_int = get_speaker_to_int(self._find(self.speaker_file))
+        self.num_speakers = len(self.speaker_to_int)
+        with open(self._find(self.filename)) as f:
+            self.all_files = [line.strip() for line in f if line.strip()]
+        if self.exclude_file is not None:
+            try:
+                with open(self._find(self.exclude_file)) as f:
+                    excluded = {line.strip() for line in f if line.strip()}
+                self.all_files = [p for p in self.all_files
+                                  if p not in excluded]
+            except FileNotFoundError:
+                pass
+        self._rng.shuffle(self.all_files)
+        self._queue = None
+
+    def _find(self, name: str) -> str:
+        for sub in ("",) + self.info_locations:
+            candidate = os.path.join(self.relative_path, sub, name)
+            if os.path.exists(candidate):
+                return candidate
+        raise FileNotFoundError(
+            f"{name} not found under {self.relative_path} "
+            f"(searched {('.',) + self.info_locations})")
+
+    def _element(self):
+        filename = self.all_files[self._rng.integers(len(self.all_files))]
+        wav = read_wav_16k(os.path.join(self.relative_path, self.data_dir,
+                                        filename))
+        if self.trim:
+            wav = trim_silence(wav)
+        if len(wav) <= self.max_len:
+            wav = np.pad(wav, (0, self.max_len + 1 - len(wav)))
+        start = self._rng.integers(0, len(wav) - self.max_len)
+        crop = wav[start:start + self.max_len].reshape(self.max_len, 1)
+        return (crop.astype(np.float32),
+                self.speaker_to_int[self.split_func(filename)])
+
+    def batch(self):
+        """One host batch: x [B, max_len, 1] float32, y one-hot [B, 1, S]."""
+        xs, ys = [], []
+        for _ in range(self.batch_size):
+            x, s = self._element()
+            xs.append(x)
+            ys.append(s)
+        y = np.zeros((self.batch_size, 1, self.num_speakers), np.float32)
+        y[np.arange(self.batch_size), 0, ys] = 1.0
+        return {"x": np.stack(xs), "y": y}
+
+    def start(self):
+        """Start the prefetch thread (batches are then read by next())."""
+        if self._queue is not None:
+            return self
+        self._queue = queue.Queue(maxsize=self._prefetch)
+        self._stop = threading.Event()
+        self._worker_error = None
+
+        def worker():
+            while not self._stop.is_set():
+                try:
+                    item = self.batch()
+                except Exception as e:      # surface in next(), don't hang
+                    self._worker_error = e
+                    return
+                while not self._stop.is_set():
+                    try:
+                        self._queue.put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+        return self
+
+    def next(self):
+        if self._queue is None:
+            return self.batch()
+        while True:
+            try:
+                return self._queue.get(timeout=1.0)
+            except queue.Empty:
+                if self._worker_error is not None:
+                    raise RuntimeError("dataset prefetch worker failed"
+                                       ) from self._worker_error
+
+    def stop(self):
+        if self._queue is not None:
+            self._stop.set()
+            self._thread.join(timeout=2)
+            self._queue = None
+
+
+class LibriSpeech(Dataset):
+    filename = "librispeech_train_clean_100.txt"
+    speaker_file = "librispeech_speakers.txt"
+    data_dir = ""
+    split_func = staticmethod(lambda s: s.split("/")[-1].split("-", 1)[0])
+    info_locations = ("librispeech_info",)
+
+
+class VCTK(Dataset):
+    filename = "vctk_train.txt"
+    speaker_file = "vctk_speakers.txt"
+    data_dir = "VCTK-Corpus/wav48/"
+    split_func = staticmethod(lambda s: s.split("/")[0])
+    info_locations = ("vctk_info",)
+    exclude_file = "vctk_too_short.txt"
+
+
+class Aishell(Dataset):
+    """Aishell (dataset.py:136-144); its manifest is not shipped."""
+    filename = "aishell_train.txt"
+    speaker_file = "aishell_speakers.txt"
+    data_dir = ""
+    split_func = staticmethod(lambda s: s.split("/train/")[1].split("/")[0])
+    info_locations = ("aishell_info",)
+
+
+DATASETS = {"VCTK": VCTK, "LibriSpeech": LibriSpeech, "Aishell": Aishell}

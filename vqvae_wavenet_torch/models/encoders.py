@@ -1,7 +1,9 @@
-"""Encoder_64 at inference (port of vqvae_wavenet_tpu/models/encoders.py:
-58-149): 6 x [conv k=5 s=2 SAME -> relu -> norm] -> 1x1 conv to latent_dim
--> norm.  Batch norm runs in eval mode on the running statistics; group
-norm is batch-independent.  Statistics are float32 with eps = 1e-3.
+"""Encoder_64 (port of vqvae_wavenet_tpu/models/encoders.py:58-149):
+6 x [conv k=5 s=2 SAME -> relu -> norm] -> 1x1 conv to latent_dim -> norm.
+Batch norm uses the running statistics at inference and the batch's own
+in training (var = E[x^2] - E[x]^2, momentum 0.99, returning the new
+running statistics); group norm is batch-independent.  Statistics are
+float32 with eps = 1e-3, whatever the activations' type.
 
 Encoder_Magenta and Encoder_2019 are not ported yet.
 """
@@ -12,14 +14,26 @@ import torch
 from vqvae_wavenet_torch.ops.conv import conv1d
 
 EPS = 1e-3
+MOMENTUM = 0.99
 
 
-def batch_norm_eval(params, state, x: torch.Tensor) -> torch.Tensor:
-    """Keras BatchNorm at inference (encoders.py:79-84)."""
+def batch_norm(params, state, x: torch.Tensor, *, train: bool = False):
+    """Keras BatchNorm over (B, T) (encoders.py:58-84).  Returns (out in
+    x's dtype, new running statistics)."""
     xf = x.float()
-    inv = torch.rsqrt(state["var"].float() + EPS) * params["scale"].float()
-    out = (xf - state["mean"].float()) * inv + params["bias"].float()
-    return out.to(x.dtype)
+    if train:
+        mean = xf.mean(dim=(0, 1))
+        var = (xf * xf).mean(dim=(0, 1)) - mean * mean
+        new_state = {
+            "mean": (MOMENTUM * state["mean"]
+                     + (1 - MOMENTUM) * mean.detach()),
+            "var": MOMENTUM * state["var"] + (1 - MOMENTUM) * var.detach()}
+    else:
+        mean, var = state["mean"].float(), state["var"].float()
+        new_state = state
+    inv = torch.rsqrt(var + EPS) * params["scale"].float()
+    out = (xf - mean) * inv + params["bias"].float()
+    return out.to(x.dtype), new_state
 
 
 def group_norm(params, x: torch.Tensor, num_groups: int = 8) -> torch.Tensor:
@@ -35,14 +49,20 @@ def group_norm(params, x: torch.Tensor, num_groups: int = 8) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def encoder_64_forward(params, state, x: torch.Tensor,
-                       norm: str = "batch") -> torch.Tensor:
-    """x: [B, T, 1] raw float wav -> z_e [B, T/64, latent_dim]."""
+def encoder_64_forward(params, state, x: torch.Tensor, norm: str = "batch",
+                       train: bool = False):
+    """x: [B, T, 1] raw float wav -> (z_e [B, T/64, latent_dim], new
+    state {"bn": [...]})."""
+    new_bn = []
 
     def normalize(i, net):
         if norm == "batch":
-            return batch_norm_eval(params["bn"][i], state["bn"][i], net)
-        return group_norm(params["bn"][i], net)
+            net, s = batch_norm(params["bn"][i], state["bn"][i], net,
+                                train=train)
+        else:
+            net, s = group_norm(params["bn"][i], net), state["bn"][i]
+        new_bn.append(s)
+        return net
 
     net = x
     for i, conv in enumerate(params["convs"]):
@@ -51,12 +71,12 @@ def encoder_64_forward(params, state, x: torch.Tensor,
         net = normalize(i, torch.relu(net))
     net = conv1d(net, params["out"]["kernel"], params["out"]["bias"],
                  padding="VALID")
-    return normalize(len(params["convs"]), net)
+    return normalize(len(params["convs"]), net), {"bn": new_bn}
 
 
 def encoder_forward(name: str, params, state, x: torch.Tensor,
-                    norm: str = "batch") -> torch.Tensor:
+                    norm: str = "batch", train: bool = False):
     if name != "64":
         raise NotImplementedError(
             f"encoder {name!r} is not ported to torch yet (only '64')")
-    return encoder_64_forward(params, state, x, norm=norm)
+    return encoder_64_forward(params, state, x, norm=norm, train=train)

@@ -1,8 +1,9 @@
-"""Vector quantization at inference (port of
-vqvae_wavenet_tpu/models/vq.py:52-92, forward only): nearest-code search
-(the CUDA kernel on the card), lookup, straight-through z_q, perplexity and
-the closed-form mean distance.  Losses and the EMA codebook wait for the
-training port.
+"""Vector quantization (port of vqvae_wavenet_tpu/models/vq.py:52-156):
+nearest-code search (the CUDA kernel on the card; gradients never flow
+through it), lookup, straight-through z_q = z_e + (e_k - z_e).detach(),
+perplexity and the closed-form mean distance; the losses of the three
+modes (st, joint, ema) and the EMA codebook update (Magenta/sonnet.py:
+224-241, Laplace-smoothed cluster sizes).
 """
 from __future__ import annotations
 
@@ -37,3 +38,39 @@ def quantize(params, z_e: torch.Tensor, *, mode: str = "st"):
     perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
     return {"z_q": z_q, "e_k": e_k, "q_z_x": q_z_x, "perplexity": perplexity,
             "distances_mean": distances_mean}
+
+
+def vq_losses(z_e: torch.Tensor, e_k: torch.Tensor, beta: float, *,
+              mode: str = "st"):
+    """(vq_loss, commitment_loss) per mode (vq.py:95-108)."""
+    if mode == "st":
+        vq_loss = torch.mean((z_e.detach() - e_k) ** 2)
+        commitment = beta * torch.mean((z_e - e_k.detach()) ** 2)
+    elif mode == "joint":
+        vq_loss = torch.mean((z_e - e_k) ** 2)
+        commitment = beta * torch.mean((z_e - e_k) ** 2)
+    elif mode == "ema":
+        vq_loss = torch.zeros((), dtype=z_e.dtype, device=z_e.device)
+        commitment = beta * torch.mean((z_e - e_k.detach()) ** 2)
+    else:
+        raise ValueError(f"unknown vq mode {mode}")
+    return vq_loss, commitment
+
+
+def ema_codebook_update(params, state, z_e: torch.Tensor,
+                        q_z_x: torch.Tensor, *, decay: float = 0.99,
+                        epsilon: float = 1e-5):
+    """The EMA codebook step (vq.py:111-156): returns ({"embedding"},
+    {"ema_cluster_size", "ema_means"})."""
+    k, d = params["embedding"].shape
+    flat = z_e.detach().reshape(-1, d).float()
+    onehot = torch.nn.functional.one_hot(q_z_x.reshape(-1).long(), k).float()
+    cluster_size = onehot.sum(dim=0)
+    dw = onehot.T @ flat
+    new_cluster_size = (decay * state["ema_cluster_size"]
+                        + (1 - decay) * cluster_size)
+    new_means = decay * state["ema_means"] + (1 - decay) * dw
+    n = torch.sum(new_cluster_size)
+    smoothed = ((new_cluster_size + epsilon) / (n + k * epsilon)) * n
+    return ({"embedding": new_means / smoothed[:, None]},
+            {"ema_cluster_size": new_cluster_size, "ema_means": new_means})

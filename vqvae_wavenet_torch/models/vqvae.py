@@ -1,6 +1,15 @@
-"""VQVAE generation-time encoding (port of
-vqvae_wavenet_tpu/models/vqvae.py:77-119, 218-232): encoder -> VQ ->
-speaker vector concatenated onto the local condition.
+"""VQVAE assembly (port of vqvae_wavenet_tpu/models/vqvae.py:77-232):
+encoder -> VQ -> speaker vector concatenated onto the local condition ->
+WaveNet decoder; the training forward with the reference's loss, and the
+generation-time encoding.
+
+Training numerics (vqvae.py:122-215): under train_dtype 'f32' the stack
+kernel runs in f32 and the heads and loss are plain torch; under 'bf16'
+the encoder runs in bf16 with z_e back in f32, the decoder parameters and
+the local condition run in bf16, labels come from the f32 waveform, and
+the stack kernel hands its skip sum to the loss-head kernel
+(ops/epilogue_kernels.py).  ``time_jitter`` and ``condition_upsample``
+are not ported to training yet (ROADMAP.md queue A).
 
 Reference quirk kept (vqvae.py:77-84): an all-zero one-hot ("None"
 speaker) argmax-selects index 0, so "no speaker" conditions on speaker 0's
@@ -14,7 +23,11 @@ import torch
 
 from vqvae_wavenet_torch.models import encoders as enc
 from vqvae_wavenet_torch.models import vq as vq_mod
+from vqvae_wavenet_torch.models.wavenet import (wavenet_forward,
+                                                wavenet_logits, wavenet_loss)
 from vqvae_wavenet_torch.ops.conv import conv1d
+from vqvae_wavenet_torch.ops.epilogue_kernels import fused_epilogue
+from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
 
 
 def speaker_vector(params, cfg, y: Optional[torch.Tensor]):
@@ -45,12 +58,79 @@ def build_local_condition(params, cfg, z_q: torch.Tensor,
     return lc
 
 
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def vqvae_forward(params, state, cfg, x: torch.Tensor,
+                  y: Optional[torch.Tensor], *, train: bool = True):
+    """The training forward.  x: [B, T, 1] raw waveform; y: one-hot
+    [B, 1, num_speakers] or None.  Returns (loss, aux): aux carries the
+    individual losses, the metrics, the new model state (BN running
+    statistics; the VQ EMA state passes through) and z_e, z_q, q_z_x."""
+    if train and (cfg.time_jitter or cfg.condition_upsample):
+        raise NotImplementedError(
+            "time_jitter and condition_upsample are not ported to training "
+            "yet (ROADMAP.md queue A)")
+    bf16 = cfg.train_dtype == "bf16"
+    if bf16:
+        z_e, enc_state = enc.encoder_forward(
+            cfg.encoder, _cast(params["encoder"], torch.bfloat16),
+            state["encoder"], x.to(torch.bfloat16), norm=cfg.encoder_norm,
+            train=train)
+        z_e = z_e.float()
+    else:
+        z_e, enc_state = enc.encoder_forward(
+            cfg.encoder, params["encoder"], state["encoder"], x,
+            norm=cfg.encoder_norm, train=train)
+    aux = {"z_e": z_e, "state": {"encoder": enc_state}}
+    if cfg.use_vq:
+        q = vq_mod.quantize(params["vq"], z_e, mode=cfg.vq_mode)
+        z_q, e_k = q["z_q"], q["e_k"]
+        aux.update(q_z_x=q["q_z_x"], perplexity=q["perplexity"], z_q=z_q,
+                   e_k=e_k, distances_mean=q["distances_mean"])
+        if "vq" in state:
+            aux["state"]["vq"] = state["vq"]
+    else:
+        z_q = e_k = z_e
+        aux["z_q"] = z_q
+
+    lc = build_local_condition(params, cfg, z_q, y, target_len=x.shape[1])
+    Q = cfg.wavenet.quantization_channels
+    if bf16:
+        dec16 = _cast(params["decoder"], torch.bfloat16)
+        labels = mu_law_encode(x, Q, to_int=True)[..., 0]          # [B, T]
+        lc16 = lc.to(torch.bfloat16)
+        skip = wavenet_logits(dec16, cfg.wavenet, x.to(torch.bfloat16), lc16,
+                              return_skip=True)
+        recon = fused_epilogue(dec16["postprocess1"], dec16["postprocess2"],
+                               skip, lc16, None, labels)
+    else:
+        logits, labels = wavenet_forward(params["decoder"], cfg.wavenet, x,
+                                         lc)
+        recon = wavenet_loss(logits, labels)
+    loss = recon
+    aux["reconstruction_loss"] = recon
+    if cfg.use_vq:
+        vq_loss, commitment = vq_mod.vq_losses(z_e, e_k, cfg.beta,
+                                               mode=cfg.vq_mode)
+        loss = loss + vq_loss + commitment
+        aux["vq_loss"] = vq_loss
+        aux["commitment_loss"] = commitment
+    aux["loss"] = loss
+    return loss, aux
+
+
 def vqvae_encode(params, state, cfg, x: torch.Tensor,
                  y: Optional[torch.Tensor]):
     """Encode the conditioning wav x [B, T, 1] once: returns the decoder's
     local condition [B, T_cond, C_lc] and the code indices (or None)."""
-    z_e = enc.encoder_forward(cfg.encoder, params["encoder"],
-                              state["encoder"], x, norm=cfg.encoder_norm)
+    z_e, _ = enc.encoder_forward(cfg.encoder, params["encoder"],
+                                 state["encoder"], x, norm=cfg.encoder_norm)
     if cfg.use_vq:
         q = vq_mod.quantize(params["vq"], z_e, mode=cfg.vq_mode)
         z_q, codes = q["z_q"], q["q_z_x"]

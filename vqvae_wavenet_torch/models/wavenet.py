@@ -1,0 +1,77 @@
+"""WaveNet decoder, teacher-forced training forward (port of
+vqvae_wavenet_tpu/models/wavenet.py:84-314).
+
+preprocess causal conv (on the mu-law of the right-shifted input) ->
+skip-start 1x1 -> the L-layer residual stack (``fused_residual_stack``:
+the CUDA kernels on the card) -> relu -> 1x1 (+ per-frame condition) ->
+relu -> 1x1 logits; loss = mean sparse softmax CE over B*T.
+
+The compute type follows the input: float32, or bfloat16 under
+``train_dtype='bf16'`` (the caller casts the decoder parameters and the
+input), with float32 sums and an f32 skip path and logits.  The stack
+rounds where its kernel does (ops/train_kernels.py); the heads here are
+plain torch, as the JAX package leaves them to XLA.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from vqvae_wavenet_torch.ops.conv import (add_condition, causal_conv1d,
+                                          shift_right)
+from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
+from vqvae_wavenet_torch.ops.train_kernels import fused_residual_stack
+
+
+def wavenet_logits(params, cfg, inputs: torch.Tensor,
+                   local_condition: Optional[torch.Tensor] = None,
+                   global_condition: Optional[torch.Tensor] = None, *,
+                   gate_order: str = "tanh_first",
+                   return_skip: bool = False) -> torch.Tensor:
+    """Teacher-forced logits [B, T, Q] f32 for the waveform inputs
+    [B, T, 1] (in the compute type), or with ``return_skip`` the pre-relu
+    skip sum [B, T, S] f32 that ``fused_epilogue`` consumes."""
+    cd = inputs.dtype
+    net = mu_law_encode(shift_right(inputs), cfg.quantization_channels).to(cd)
+    net = causal_conv1d(net, params["preprocess"]["kernel"],
+                        params["preprocess"]["bias"])
+    skip = (net.float() @ params["skip_start"]["kernel"][0].float()
+            + params["skip_start"]["bias"].float())
+    lp = params["layers"]
+    gc = global_condition if "gc_kernel" in lp else None
+    skip = skip + fused_residual_stack(lp, cfg, net, local_condition, gc,
+                                       gate_order=gate_order)
+    if return_skip:
+        return skip
+
+    pp1, pp2 = params["postprocess1"], params["postprocess2"]
+    net = torch.relu(skip).to(cd).float() @ pp1["kernel"][0].float() \
+        + pp1["bias"].float()
+    if "lc_kernel" in pp1 and local_condition is not None:
+        net = add_condition(net, local_condition, pp1["lc_kernel"])
+    if "gc_kernel" in pp1 and global_condition is not None:
+        net = add_condition(net, global_condition, pp1["gc_kernel"])
+        if "gc_bias" in pp1:
+            net = net + pp1["gc_bias"].float()
+    net = torch.relu(net).to(cd).float()
+    return net @ pp2["kernel"][0].float() + pp2["bias"].float()
+
+
+def wavenet_forward(params, cfg, inputs: torch.Tensor,
+                    local_condition: Optional[torch.Tensor] = None,
+                    global_condition: Optional[torch.Tensor] = None, *,
+                    gate_order: str = "tanh_first"):
+    """(logits [B*T, Q], labels [B*T] int64): the mu-law bins of the
+    inputs are the targets (wavenet.py:84-105)."""
+    labels = mu_law_encode(inputs, cfg.quantization_channels,
+                           to_int=True).reshape(-1)
+    logits = wavenet_logits(params, cfg, inputs, local_condition,
+                            global_condition, gate_order=gate_order)
+    return logits.reshape(-1, cfg.quantization_channels), labels
+
+
+def wavenet_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean sparse softmax CE over the flattened B*T (wavenet.py:310-314)."""
+    return F.cross_entropy(logits.float(), labels.long())

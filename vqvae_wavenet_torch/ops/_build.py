@@ -7,9 +7,12 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited source is
-rebuilt.  The build directory, ``build/torch_kernels`` at the repository
-root, is listed in .gitignore.
+The library name carries a hash of the source and of the ``csrc``
+headers it includes (``#include "x.cuh"``), so an edited source or header
+is rebuilt.  The build directory, ``build/torch_kernels`` at the
+repository root, is listed in .gitignore.  ``build`` compiles several
+sources at once (one nvcc process each); ptxas's report of each kernel's
+registers, shared memory and spills is kept in ``ptxas_info``.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` as an int; ``check`` raises when it is not 0.
@@ -19,11 +22,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -31,12 +35,14 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-# seconds spent in nvcc per source (read by chip_smoke.py)
+# seconds spent in nvcc per source, and ptxas's report (read by chip_smoke.py)
 build_seconds: Dict[str, float] = {}
+ptxas_info: Dict[str, str] = {}
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -47,28 +53,60 @@ def _nvcc() -> str:
                        "machine with the GPU (CUDA toolkit required)")
 
 
+def _library_path(name: str) -> str:
+    """build/torch_kernels/<name>-<hash of the source and its headers>.so"""
+    src = os.path.join(CSRC, f"{name}.cu")
+    h = hashlib.sha256()
+    seen, todo = set(), [src]
+    while todo:                     # the source, then the headers it includes
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(text)
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every named source whose library is missing, all nvcc
+    processes at once; raise if any fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in names:
+        so = _library_path(name)
+        if os.path.exists(so):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC, f"{name}.cu")
+        procs.append((name, so, tmp, time.perf_counter(), subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, so, tmp, t0, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
+        os.replace(tmp, so)
+        build_seconds[name] = time.perf_counter() - t0
+        ptxas_info[name] = out + err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, compiling it if no
-    library for the current source hash exists."""
+    library for the current source and headers exists."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
-        if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-            os.replace(tmp, so)
-            build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
+        build([name])
+        lib = ctypes.CDLL(_library_path(name))
         _LIBS[name] = lib
         return lib
 

@@ -1,0 +1,361 @@
+"""The WaveNet training residual stack: plain PyTorch forward and backward,
+the wrappers of the CUDA kernels ``csrc/train_stack_fwd.cu`` and
+``csrc/train_stack_bwd.cu``, and the autograd Function that joins them.
+
+The forward kernel replaces
+vqvae_wavenet_tpu/ops/train_pallas.py::_make_fused_stack (Pallas call at
+train_pallas.py:1502); the backward kernel replaces
+``_make_bwd_sweep_kernel`` (call at :1100, driven from the custom VJP's
+``fused_bwd`` :1560-1610).  ``fused_residual_stack`` keeps the JAX
+signature and folds the per-layer condition and conv bias into
+``lc_encb`` [L, F, B, 2D] (f32) outside the kernels, as JAX does
+(:1820-1835), so the condition weights' gradients come from autograd
+against the kernel's ``dlc``.
+
+Rounding points (kernel and plain version alike), in the compute type T
+(bfloat16 or float32) with float32 sums:
+  forward   pre = conv + lc_encb (f32); f, g = gate(pre) each rounded to T
+            (act); gated = T(f*g); skip sum in f32, rounded to T after
+            the last layer; x_{l+1} = T((x_l + res) + res_b);
+  backward  dX (gradient of a layer's output) in f32, dX16 = T(dX) feeds
+            the products; dg = T([dX16 | dskip] . [resw^T ; skipw^T]);
+            the gate derivative in T, factored as the TPU kernel does
+            (train_pallas.py:876-893); dlc, drb, dk, dsk, drs summed in f32.
+
+On a CUDA tensor the dispatchers launch the kernel or raise; on a CPU
+tensor they run the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from vqvae_wavenet_torch.ops import _build
+
+# kernel launches: one added where each wrapper launches, nowhere else
+fwd_launches = 0
+bwd_launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _gate(pre: torch.Tensor, D: int, cd: torch.dtype, gate_order: str):
+    a, b = pre[..., :D], pre[..., D:]
+    if gate_order == "tanh_first":
+        return torch.tanh(a).to(cd), torch.sigmoid(b).to(cd)
+    return torch.sigmoid(a).to(cd), torch.tanh(b).to(cd)
+
+
+def stack_forward_plain(kernel, skipw, resw, res_b, lc_encb, x0,
+                        dils: Sequence[int], gate_order: str = "tanh_first"):
+    """Plain forward.  kernel [L, K, R, 2D], skipw [L, D, S], resw [L, D, R]
+    and x0 [B, T, R] in the compute type; res_b [L, R]; lc_encb
+    [L, F, B, 2D] f32.  Returns (skip_sum [B, T, S], act [L, B, T, 2D],
+    xs [L, B, T, R]) in the compute type; xs[l] is layer l's input."""
+    L, K, R, D2 = kernel.shape
+    D, S = D2 // 2, skipw.shape[2]
+    B, T, _ = x0.shape
+    F = lc_encb.shape[1]
+    cd, f32 = x0.dtype, torch.float32
+    xs = torch.empty((L, B, T, R), dtype=cd, device=x0.device)
+    act = torch.empty((L, B, T, D2), dtype=cd, device=x0.device)
+    xs[0] = x0
+    skip = None
+    for l, d in enumerate(dils):
+        x = xs[l].float()
+        pre = torch.zeros((B, T, D2), dtype=f32, device=x0.device)
+        for j in range(K):
+            o = (K - 1 - j) * d
+            if o < T:
+                pre[:, o:] += x[:, :T - o] @ kernel[l, j].float()
+        pre = (pre.reshape(B, F, T // F, D2)
+               + lc_encb[l].permute(1, 0, 2)[:, :, None, :]).reshape(B, T, D2)
+        f, g = _gate(pre, D, cd, gate_order)
+        act[l] = torch.cat([f, g], dim=-1)
+        gated = (f * g).float()
+        out = gated @ torch.cat([skipw[l], resw[l]], dim=1).float()
+        skip = out[..., :S] if skip is None else skip + out[..., :S]
+        if l < L - 1:
+            xs[l + 1] = ((x + out[..., S:]) + res_b[l].float()).to(cd)
+    return skip.to(cd), act, xs
+
+
+def stack_backward_plain(dskip, act, xs, kernel, skipw, resw,
+                         dils: Sequence[int], frames: int,
+                         gate_order: str = "tanh_first"):
+    """Plain backward of ``stack_forward_plain`` for the cotangent dskip
+    [B, T, S] of skip_sum, with ``frames`` = F condition frames.  Returns
+    float32 (dk [L, K, R, 2D], dsk [L, D, S], drs [L, D, R], drb [L, R],
+    dlc [L, F, B, 2D]) and dx0 [B, T, R] in the compute type."""
+    L, K, R, D2 = kernel.shape
+    D, S = D2 // 2, skipw.shape[2]
+    _, B, T, _ = act.shape
+    cd, f32, dev = act.dtype, torch.float32, act.device
+    FR = T // frames
+    dskip16 = dskip.to(cd)
+    dX = torch.zeros((B, T, R), dtype=f32, device=dev)
+    dk = torch.zeros((L, K, R, D2), dtype=f32, device=dev)
+    dsk = torch.empty((L, D, S), dtype=f32, device=dev)
+    drs = torch.empty((L, D, R), dtype=f32, device=dev)
+    drb = torch.empty((L, R), dtype=f32, device=dev)
+    dlc = torch.empty((L, frames, B, D2), dtype=f32, device=dev)
+    for l in reversed(range(L)):
+        d = dils[l]
+        f, g = act[l, ..., :D], act[l, ..., D:]
+        dX16 = dX.to(cd)
+        cat = torch.cat([dX16, dskip16], dim=-1).float()
+        dg = (cat @ torch.cat([resw[l], skipw[l]], dim=1).float().T).to(cd)
+        if gate_order == "tanh_first":
+            u = dg * g
+            v = u * f
+            da, db = u - v * f, v - v * g
+        else:
+            v = dg * g * f
+            w = dg * f
+            da, db = v - v * f, w - (w * g) * g
+        dpre = torch.cat([da, db], dim=-1).float()
+        gated = (f * g).float().reshape(-1, D)
+        dskrs = gated.T @ torch.cat([dskip16, dX16], dim=-1).reshape(
+            -1, S + R).float()
+        dsk[l], drs[l] = dskrs[:, :S], dskrs[:, S:]
+        drb[l] = dX.sum(dim=(0, 1))
+        dlc[l] = dpre.reshape(B, frames, FR, D2).sum(2).permute(1, 0, 2)
+        x = xs[l].float()
+        acc = torch.zeros_like(dX)
+        for j in range(K):
+            o = (K - 1 - j) * d
+            if o < T:
+                dk[l, j] = (x[:, :T - o].reshape(-1, R).T
+                            @ dpre[:, o:].reshape(-1, D2))
+                acc[:, :T - o] += dpre[:, o:] @ kernel[l, j].float().T
+        dX = dX + acc
+    return dk, dsk, drs, drb, dlc, dX.to(cd)
+
+
+# ----------------------------------------------------------------- kernels
+
+def _check_widths(**widths):
+    odd = {k: v for k, v in widths.items() if v % 8 or v < 8}
+    if odd:
+        raise ValueError(f"training kernels need widths that are multiples "
+                         f"of 8, got {odd}")
+
+
+def _check_cuda(cd, *tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError("the training kernels need CUDA tensors")
+    if cd not in _DTYPES:
+        raise TypeError(f"training kernels take float32 or bfloat16, not {cd}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("all tensors must be on one CUDA device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("tensors must be contiguous and 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_lib():
+    lib = _build.load("train_stack_fwd")
+    lib.train_stack_fwd.restype = ctypes.c_int
+    lib.train_stack_fwd.argtypes = (
+        [ctypes.c_int] * 9 + [ctypes.c_void_p] * 10 + [ctypes.c_int,
+                                                        ctypes.c_void_p])
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = _build.load("train_stack_bwd")
+    lib.train_stack_bwd.restype = ctypes.c_int
+    lib.train_stack_bwd.argtypes = (
+        [ctypes.c_int] * 9 + [ctypes.c_void_p] * 14 + [ctypes.c_int,
+                                                        ctypes.c_void_p])
+    # the scratch size, from the kernel's own row blocking
+    lib.train_stack_bwd_part_floats.restype = ctypes.c_longlong
+    lib.train_stack_bwd_part_floats.argtypes = [ctypes.c_int] * 6
+    return lib
+
+
+def _dims(kernel, skipw, x0, lc_encb):
+    L, K, R, D2 = kernel.shape
+    B, T, _ = x0.shape
+    F = lc_encb.shape[1]
+    if T % F or tuple(lc_encb.shape) != (L, F, B, D2):
+        raise ValueError(f"lc_encb {tuple(lc_encb.shape)} does not fit "
+                         f"L={L}, B={B}, T={T}, 2D={D2}")
+    return L, K, R, D2 // 2, skipw.shape[2], B, T, F
+
+
+def stack_forward_cuda(kernel, skipw, resw, res_b, lc_encb, x0,
+                       dils: Sequence[int], gate_order: str = "tanh_first"):
+    """Launch the forward kernel; same contract as ``stack_forward_plain``."""
+    global fwd_launches
+    cd = x0.dtype
+    L, K, R, D, S, B, T, F = _dims(kernel, skipw, x0, lc_encb)
+    if len(dils) != L or gate_order not in ("tanh_first", "sigmoid_first"):
+        raise ValueError("dilations or gate order do not fit the stack")
+    _check_widths(R=R, D=D, S=S)
+    dev = x0.device
+    # conv columns interleaved (2c = tanh half, 2c+1 = sigmoid half of
+    # channel c) and transposed to [L, 2D, K*R]; [skipw | resw]^T [L, S+R, D]
+    wconv_t = (kernel.reshape(L, K * R, 2, D).transpose(2, 3)
+               .reshape(L, K * R, 2 * D).transpose(1, 2).contiguous())
+    srw_t = torch.cat([skipw, resw], dim=2).transpose(1, 2).contiguous()
+    res_b32 = res_b.float().contiguous()
+    x0 = x0.contiguous()
+    for t in (wconv_t, srw_t):
+        if t.dtype != cd:
+            raise TypeError("stack weights and x0 must share one dtype")
+    if lc_encb.dtype != torch.float32:
+        raise TypeError("lc_encb must be float32")
+    _check_cuda(cd, wconv_t, srw_t, res_b32, lc_encb, x0)
+    xs = torch.empty((L, B, T, R), dtype=cd, device=dev)
+    xs[0].copy_(x0)
+    act = torch.empty((L, B, T, 2 * D), dtype=cd, device=dev)
+    gated = torch.empty((B * T, D), dtype=cd, device=dev)
+    skipacc = torch.empty((B * T, S), dtype=torch.float32, device=dev)
+    skip_out = torch.empty((B, T, S), dtype=cd, device=dev)
+    dil = (ctypes.c_int * L)(*[int(d) for d in dils])
+    lib = _fwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.train_stack_fwd(
+            _DTYPES[cd], L, K, R, D, S, B, T, T // F,
+            ctypes.cast(dil, ctypes.c_void_p), wconv_t.data_ptr(),
+            srw_t.data_ptr(), res_b32.data_ptr(), lc_encb.data_ptr(),
+            xs.data_ptr(), act.data_ptr(), gated.data_ptr(),
+            skipacc.data_ptr(), skip_out.data_ptr(),
+            int(gate_order == "sigmoid_first"), stream)
+    _build.check(lib, err, "train_stack_fwd")
+    fwd_launches += 1
+    return skip_out, act, xs
+
+
+def stack_backward_cuda(dskip, act, xs, kernel, skipw, resw,
+                        dils: Sequence[int], frames: int,
+                        gate_order: str = "tanh_first"):
+    """Launch the backward kernel; same contract as ``stack_backward_plain``."""
+    global bwd_launches
+    cd = act.dtype
+    L, K, R, D2 = kernel.shape
+    D, S = D2 // 2, skipw.shape[2]
+    _, B, T, _ = act.shape
+    if len(dils) != L or T % frames \
+            or gate_order not in ("tanh_first", "sigmoid_first"):
+        raise ValueError("dilations, frames or gate order do not fit")
+    _check_widths(R=R, D=D, S=S)
+    dev = act.device
+    rsk = torch.cat([resw, skipw], dim=2).contiguous()        # [L, D, R+S]
+    kern = kernel.contiguous()
+    dskip16 = dskip.to(cd).contiguous()
+    for t in (rsk, kern, xs):
+        if t.dtype != cd:
+            raise TypeError("stack weights and saved tensors must share one "
+                            "dtype")
+    if tuple(dskip16.shape) != (B, T, S) or tuple(xs.shape) != (L, B, T, R):
+        raise ValueError("dskip or xs do not fit the stack")
+    _check_cuda(cd, rsk, kern, dskip16, act, xs)
+    f32 = torch.float32
+    rows = B * T
+    dk = torch.empty((L, K, R, D2), dtype=f32, device=dev)
+    dskrs = torch.empty((L, D, S + R), dtype=f32, device=dev)
+    drb = torch.empty((L, R), dtype=f32, device=dev)
+    dlc = torch.empty((L, frames, B, D2), dtype=f32, device=dev)
+    dx16 = torch.zeros((B, T, R), dtype=cd, device=dev)
+    dx = torch.zeros((rows, R), dtype=f32, device=dev)
+    dpre = torch.empty((rows, D2), dtype=cd, device=dev)
+    lib = _bwd_lib()
+    part = torch.empty((lib.train_stack_bwd_part_floats(K, R, D, S, B, T),),
+                       dtype=f32, device=dev)
+    dil = (ctypes.c_int * L)(*[int(d) for d in dils])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.train_stack_bwd(
+            _DTYPES[cd], L, K, R, D, S, B, T, T // frames,
+            ctypes.cast(dil, ctypes.c_void_p), rsk.data_ptr(),
+            kern.data_ptr(), dskip16.data_ptr(), act.data_ptr(),
+            xs.data_ptr(), dk.data_ptr(), dskrs.data_ptr(), drb.data_ptr(),
+            dlc.data_ptr(), dx16.data_ptr(), dx.data_ptr(), dpre.data_ptr(),
+            part.data_ptr(), int(gate_order == "sigmoid_first"), stream)
+    _build.check(lib, err, "train_stack_bwd")
+    bwd_launches += 1
+    return dk, dskrs[..., :S], dskrs[..., S:], drb, dlc, dx16
+
+
+def stack_forward(*args, **kw):
+    """The forward kernel for CUDA tensors, the plain version for CPU."""
+    x0 = args[5]
+    return (stack_forward_cuda if x0.is_cuda else stack_forward_plain)(
+        *args, **kw)
+
+
+def stack_backward(*args, **kw):
+    """The backward kernel for CUDA tensors, the plain version for CPU."""
+    act = args[1]
+    return (stack_backward_cuda if act.is_cuda else stack_backward_plain)(
+        *args, **kw)
+
+
+class _Stack(torch.autograd.Function):
+    """skip_sum = stack(kernel, skipw, resw, res_b, lc_encb, x0); the
+    backward is the backward kernel (or its plain version on the CPU).
+    Only the kernel's own saved tensors (act, xs) are kept."""
+
+    @staticmethod
+    def forward(ctx, kernel, skipw, resw, res_b, lc_encb, x0, dils,
+                gate_order):
+        skip_sum, act, xs = stack_forward(kernel, skipw, resw, res_b,
+                                          lc_encb, x0, dils, gate_order)
+        ctx.save_for_backward(kernel, skipw, resw, act, xs)
+        ctx.dils, ctx.gate_order = dils, gate_order
+        ctx.frames, ctx.res_b_dtype = lc_encb.shape[1], res_b.dtype
+        return skip_sum
+
+    @staticmethod
+    def backward(ctx, dskip):
+        kernel, skipw, resw, act, xs = ctx.saved_tensors
+        dk, dsk, drs, drb, dlc, dx0 = stack_backward(
+            dskip, act, xs, kernel, skipw, resw, ctx.dils, ctx.frames,
+            ctx.gate_order)
+        return (dk.to(kernel.dtype), dsk.to(skipw.dtype), drs.to(resw.dtype),
+                drb.to(ctx.res_b_dtype), dlc, dx0, None, None)
+
+
+def fused_residual_stack(lp, cfg, x0: torch.Tensor,
+                         local_condition: Optional[torch.Tensor],
+                         global_condition: Optional[torch.Tensor] = None, *,
+                         gate_order: str = "tanh_first") -> torch.Tensor:
+    """The residual stack over x0 [B, T, R] (the preprocess output, in the
+    compute type) with the stacked layer parameters ``lp`` (JAX layouts:
+    kernel [L, K, R, 2D], bias [L, 2D], lc_kernel [L, C, 2D], skip_kernel
+    [L, D, S], skip_bias [L, S], res_kernel [L, D, R], res_bias [L, R],
+    optional gc_kernel/gc_bias).  local_condition [B, F, C] or None;
+    global_condition [B, 1, C_gc] or None.  Returns the skip sum [B, T, S]
+    float32 including the summed skip biases (train_pallas.py:1782-1850)."""
+    B, T, _ = x0.shape
+    L, D2 = lp["bias"].shape
+    if local_condition is not None and "lc_kernel" in lp:
+        lc_encb = torch.einsum("bsc,lcf->lsbf", local_condition.float(),
+                               lp["lc_kernel"].float())
+    else:
+        lc_encb = torch.zeros((L, 1, B, D2), dtype=torch.float32,
+                              device=x0.device)
+    lc_encb = lc_encb + lp["bias"].float()[:, None, None, :]
+    if global_condition is not None and "gc_kernel" in lp:
+        if global_condition.shape[1] != 1:
+            raise NotImplementedError("a global condition must be constant "
+                                      "over time (T_gc = 1)")
+        genc = torch.einsum("bc,lcf->lbf", global_condition[:, 0].float(),
+                            lp["gc_kernel"].float())
+        lc_encb = lc_encb + genc[:, None]
+        if "gc_bias" in lp:
+            lc_encb = lc_encb + lp["gc_bias"].float()[:, None, None, :]
+    skip_sum = _Stack.apply(
+        lp["kernel"], lp["skip_kernel"], lp["res_kernel"], lp["res_bias"],
+        lc_encb.contiguous(), x0, tuple(int(d) for d in cfg.dilation_rates),
+        gate_order)
+    return skip_sum.float() + lp["skip_bias"].float().sum(dim=0)

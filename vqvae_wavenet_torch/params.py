@@ -9,8 +9,10 @@ checkpoint) and read by ``load_npz``.
 
 ``random_params_np`` builds a tree with the JAX shapes and init limits from
 a numpy seed (models/vqvae.py:46-74, encoders.py:38-46, 104-122,
-wavenet.py:35-81, ops/conv.py:30-41), so the port can run at full width
-without jax.
+wavenet.py:35-81, ops/conv.py:30-41, vq.py:35-49), so the port can run and
+train at full width without jax.  ``from_jax_train_state`` carries a whole
+JAX train state (params, EMA shadows, optax Adam moments and count, model
+state, step) into the port's (training/train_loop.py).
 """
 from __future__ import annotations
 
@@ -49,13 +51,32 @@ def from_jax_tree(params, state=None, device=None):
     return p, s
 
 
-def _flatten(tree, prefix, out):
+def from_jax_train_state(ts, device=None):
+    """A JAX train state with numpy leaves (jax.device_get of
+    training/train_loop.py::init_train_state's dict; opt_state is optax's
+    (ScaleByAdamState, ScaleByScheduleState)) -> the port's train state."""
+    adam = ts["opt_state"][0]
+
+    def tree(t):
+        return to_torch({k: v for k, v in t.items() if v is not None},
+                        device)
+
+    return {"params": tree(ts["params"]),
+            "ema_params": tree(ts["ema_params"]),
+            "model_state": tree(ts["model_state"]),
+            "opt_state": {"mu": tree(adam.mu), "nu": tree(adam.nu),
+                          "count": int(np.asarray(adam.count))},
+            "step": int(np.asarray(ts["step"]))}
+
+
+def flatten(tree, prefix, out):
+    """Flatten a tree into ``out`` as {"prefix/a/b": numpy array}."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            _flatten(v, f"{prefix}/{k}", out)
+            flatten(v, f"{prefix}/{k}", out)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            _flatten(v, f"{prefix}/{i}", out)
+            flatten(v, f"{prefix}/{i}", out)
     elif tree is not None:
         out[prefix] = (tree.detach().cpu().numpy()
                        if isinstance(tree, torch.Tensor) else np.asarray(tree))
@@ -84,17 +105,25 @@ def _unflatten(flat):
 def save_npz(path: str, params, state) -> None:
     """Write (params, state) -- torch or numpy leaves -- as one flat npz."""
     flat: dict = {}
-    _flatten(params, "params", flat)
-    _flatten(state, "state", flat)
+    flatten(params, "params", flat)
+    flatten(state, "state", flat)
     np.savez(path, **flat)
 
 
-def load_npz(path: str, device=None):
-    """Read a ``save_npz`` file -> (params, state) of torch tensors."""
+def load_tree(path: str, device=None, prefixes=None):
+    """Read a flat npz -> its tree of torch tensors (only the keys under
+    ``prefixes`` when given)."""
     with np.load(path) as z:
-        tree = _unflatten({k: z[k] for k in z.files})
-    return (to_torch(tree.get("params", {}), device),
-            to_torch(tree.get("state", {}), device))
+        keys = [k for k in z.files
+                if prefixes is None or k.split("/", 1)[0] in prefixes]
+        return to_torch(_unflatten({k: z[k] for k in keys}), device)
+
+
+def load_npz(path: str, device=None):
+    """Read a ``save_npz`` file (or a training checkpoint) -> (params,
+    state) of torch tensors."""
+    tree = load_tree(path, device, prefixes=("params", "state"))
+    return tree.get("params", {}), tree.get("state", {})
 
 
 def lc_channels(cfg, num_speakers: Optional[int]) -> int:
@@ -146,7 +175,15 @@ def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):
                           "bn": bn}}
     state = {"encoder": {"bn": bn_state}}
     if cfg.use_vq:
-        params["vq"] = {"embedding": uus((cfg.k, cfg.latent_dim), 1.7)}
+        if getattr(cfg, "codebook_init", "uniform_scaling") == "normal":
+            emb = rng.standard_normal((cfg.k, cfg.latent_dim)).astype(
+                np.float32)
+        else:
+            emb = uus((cfg.k, cfg.latent_dim), 1.7)
+        params["vq"] = {"embedding": emb}
+        if cfg.vq_mode == "ema":
+            state["vq"] = {"ema_cluster_size": zeros(cfg.k),
+                           "ema_means": emb.copy()}
     if num_speakers is not None and cfg.speaker_embedding > 0:
         params["speaker_embedding"] = uus(
             (num_speakers, cfg.speaker_embedding), 2.0)

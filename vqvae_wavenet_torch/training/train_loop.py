@@ -1,0 +1,117 @@
+"""Training state and one optimizer step (port of
+vqvae_wavenet_tpu/training/train_loop.py:33-118).
+
+The train state is a dict of torch trees:
+  params       the trained parameters (f32 master weights)
+  ema_params   the EMA(0.999) shadows, distinct tensors (generation reads
+               these)
+  model_state  encoder batch-norm running statistics (+ the VQ EMA state
+               under vq_mode 'ema')
+  opt_state    {"mu", "nu": Adam moments shaped like params, "count": int}
+  step         int
+
+``train_step`` takes gradients of ``vqvae_forward`` with autograd (the
+stack and loss-head kernels' backwards on the card), applies the fused
+Adam + EMA step, keeps the new BN statistics, and under vq_mode 'ema'
+moves the codebook by its EMA after the optimizer step, with the EMA
+shadow following the updated codebook (train_loop.py:89-98).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vqvae_wavenet_torch.models import vq as vq_mod
+from vqvae_wavenet_torch.models.vqvae import vqvae_forward
+from vqvae_wavenet_torch.training.optimizer import (
+    ema_update, fused_adam_ema_step, piecewise_constant_schedule,
+    tree_leaves, tree_unflatten)
+
+
+def _clone(tree):
+    return tree_unflatten(tree, [t.detach().clone() for t in
+                                 tree_leaves(tree)])
+
+
+def init_train_state(params, model_state):
+    """A fresh train state around (params, model_state) torch trees: EMA
+    shadows as distinct copies, Adam moments at zero, count and step 0."""
+    return {
+        "params": params,
+        "ema_params": _clone(params),
+        "model_state": model_state,
+        "opt_state": {"mu": tree_unflatten(params, [
+                          torch.zeros_like(t) for t in tree_leaves(params)]),
+                      "nu": tree_unflatten(params, [
+                          torch.zeros_like(t) for t in tree_leaves(params)]),
+                      "count": 0},
+        "step": 0,
+    }
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_detach(v) for v in tree]
+    return tree.detach()
+
+
+def loss_and_grads(params, model_state, cfg, batch):
+    """(loss, aux, grads): grads is a list in tree_leaves(params) order,
+    None where the loss does not reach a parameter."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    p = tree_unflatten(params, leaves)
+    with torch.enable_grad():
+        loss, aux = vqvae_forward(p, model_state, cfg, batch["x"],
+                                  batch.get("y"), train=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), _detach(aux), list(grads)
+
+
+def train_step(ts, batch, cfg, *, ema_decay: float = 0.999):
+    """One optimizer step.  batch = {"x": [B, T, 1], "y": [B, 1, S] or
+    None} on the parameters' device.  Returns (new train state, metrics);
+    the metrics are 0-d tensors (no host sync here) except the ints."""
+    schedule = piecewise_constant_schedule(cfg.learning_rate_schedule)
+    loss, aux, grads = loss_and_grads(ts["params"], ts["model_state"], cfg,
+                                      batch)
+    params, ema_params, opt_state = fused_adam_ema_step(
+        ts["params"], ts["ema_params"], ts["opt_state"], grads, schedule,
+        b1=0.9, ema_decay=ema_decay)
+    model_state = aux.get("state", ts["model_state"])
+    if cfg.use_vq and cfg.vq_mode == "ema":
+        with torch.no_grad():
+            new_vq, new_vq_state = vq_mod.ema_codebook_update(
+                {"embedding": params["vq"]["embedding"]},
+                ts["model_state"]["vq"], aux["z_e"], aux["q_z_x"],
+                decay=cfg.ema_decay)
+            ema_params = dict(ema_params, vq=ema_update(
+                ts["ema_params"]["vq"], new_vq, ema_decay))
+        params = dict(params, vq=new_vq)
+        model_state = dict(model_state, vq=new_vq_state)
+    step = ts["step"] + 1
+    new_ts = {"params": params, "ema_params": ema_params,
+              "model_state": model_state, "opt_state": opt_state,
+              "step": step}
+    metrics = {"loss": loss,
+               "reconstruction_loss": aux["reconstruction_loss"],
+               "lr": schedule(ts["step"]), "step": step}
+    for k in ("vq_loss", "commitment_loss", "perplexity", "distances_mean"):
+        if k in aux:
+            metrics[k] = aux[k]
+    return new_ts, metrics
+
+
+def to_device(ts, device: Optional[torch.device]):
+    """The train state with every tensor moved to ``device``."""
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [move(v) for v in tree]
+        if isinstance(tree, torch.Tensor):
+            return tree.to(device)
+        return tree
+    return move(ts)
