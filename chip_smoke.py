@@ -14,18 +14,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              wavenet_parameters.json widths with C = 128: teacher-forced
              logits (f32 and bf16), a greedy f32 clip, and sample-mode
              statistics at t = 0;
-  5. e2e     the voice-conversion entry point (vqvae_wavenet_torch.generate)
+  5. gen-int8  the generation kernel's int8-weight variant against its
+             plain twin at the same widths: teacher-forced logits at B=3,
+             sample-mode bins at t = 0 against the plain twin's Philox
+             draws; times per sample at B=1 and B=3 beside the bf16
+             kernel's;
+  6. e2e     the voice-conversion entry point (vqvae_wavenet_torch.generate)
              on a random full-width model_parameters.json model and a
-             synthetic 8,192-sample wav, speakers p225 p226 None, in bf16
-             and f32, greedy and sample; both kernels' launch counters are
-             reset before and read after;
-  6. train-stack     the stack forward and backward kernels against their
+             synthetic 8,192-sample wav, speakers p225 p226 None, in bf16,
+             int8 and f32, greedy and sample; the kernels' launch counters
+             are reset before and read after;
+  7. magenta the Magenta family's full 50-layer preset (random weights from
+             a seed, the init's 1.0 biases, a random speaker table):
+             generation kernel against plain teacher-forced in f32, bf16
+             and int8, times per sample, then vqvae_wavenet_torch.generate
+             -params magenta_parameters.json on the same wav in bf16 and
+             int8, greedy and sample, counters reset before and read after;
+  8. train-stack     the stack forward and backward kernels against their
              plain twins at the shipped widths and the full training
              shape (B=8, T=6656, 104 frames), f32 and bf16, tanh_first,
              and at B=2, T=1024 with sigmoid_first and a global condition;
-  7. train-epilogue  the loss-head kernel (both entries) against its
+  9. train-epilogue  the loss-head kernel (both entries) against its
              plain twin at the same shape, f32 and bf16;
-  8. train-e2e       the training entry point (vqvae_wavenet_torch.train)
+  10. train-e2e      the training entry point (vqvae_wavenet_torch.train)
              at -length 6656 -batch 8 on a synthetic VCTK-layout corpus
              with the shipped config in f32 and in bf16, six steps each,
              then vqvae_wavenet_torch.generate from the bf16 checkpoint;
@@ -315,81 +326,267 @@ def phase_gen(card: str):
         for b in (1, 3):
             lcb = lc[:1].expand(b, 4, c_lc).repeat_interleave(8, dim=1) \
                 .contiguous()
-            gcon, g_pp1 = gk.condition_terms(dec, w, b)
-            kern = cuda_ms(lambda: gk.generate_clip_cuda(
-                w, lcb, gcon, g_pp1, length=2048), 3) / 2048
-            plain = cuda_ms(lambda: gk.generate_clip_plain(
-                w, lcb[:, :1], gcon, g_pp1, length=64), 1) / 64
-            times[(str(dtype).split(".")[-1], b)] = (kern, plain)
+            kern, plain = times[(str(dtype).split(".")[-1], b)] = \
+                _gen_times(gk, dec, w, lcb, 2048, 3)
             log(f"[gen] {str(dtype).split('.')[-1]} B={b}: kernel "
                 f"{kern * 1e3:.1f} us/sample, plain {plain * 1e3:.1f} "
                 f"us/sample  ({card})")
     out["ms"], out["plain_ms"] = times[("bfloat16", 3)]
     # per sample at B=3, bf16: the weights read once per clip (2,048
     # samples) and every layer's products for 3 rows
-    L, K, R, D, S, Q, C, PK = w.dims
-    macs = (L * (2 * D * (K * R + C) + (S + R) * D) + PK * R + S * R
-            + S * (S + C) + Q * S)
     wb = gk.pack_gen_params(dec, wcfg, torch.bfloat16, dev)
-    weight_bytes = nbytes(wb.w_a, wb.b_a, wb.w_sr, wb.b_sr, wb.w_pre,
-                          wb.b_pre, wb.w_ss, wb.b_ss, wb.w_h1, wb.b_h1,
-                          wb.w_pp2, wb.b_pp2)
     out["bound_ms"], out["bound_by"] = bound(
-        2.0 * 3 * macs, weight_bytes / 2048, "bf16")
+        2.0 * 3 * _gen_macs(wb), _weight_bytes(wb) / 2048, "bf16")
     out["library_ms"] = None
     return out
 
 
-def phase_e2e(card: str):
-    """The voice-conversion entry point at full width, through both
-    kernels; returns the launch counts of the main-path runs."""
-    from scipy.io import wavfile
-    from vqvae_wavenet_torch import generate as gen_cli
-    from vqvae_wavenet_torch.ops import gen_kernels, vq_kernels
-    from vqvae_wavenet_torch.params import random_params_np, save_npz
-    from vqvae_wavenet_torch.config import ModelConfig
+def phase_gen_int8(card: str):
+    """The int8-weight variant against its plain twin at the shipped widths
+    (30 layers, R=256, 2D=512, S=512, C=128).  The plain twin runs the
+    bf16 step on the weights dequantized as the kernel dequantizes them,
+    so the two differ only in summation order, as bf16 does:
+    (a) teacher-forced logits, 256 steps, B=3, within 5e-2 * max(1,
+        max|logit|) (the bf16 tolerance of [gen]);
+    (b) sample mode at t=0 over 256 identical streams: the same bins as
+        the plain twin's draws on the same Philox bits.
+    Then times per sample at B=1 and B=3, the bf16 kernel's beside them
+    (one call, in turns).  The bound counts the int8 weights read once per
+    2,048-sample clip, as [gen] does for bf16; the line also gives one
+    pass over them at 3.35 TB/s, the per-sample weight stream."""
+    from vqvae_wavenet_torch.ops import gen_kernels as gk
+    cfg, dec = _gen_model()
+    wcfg = cfg.wavenet
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(2)
+    c_lc = dec["layers"]["lc_kernel"].shape[1]
+    w8 = gk.pack_gen_params(dec, wcfg, torch.int8, dev)
+    wb = gk.pack_gen_params(dec, wcfg, torch.bfloat16, dev)
+    lc = (torch.randn((3, 4, c_lc), generator=g) * 0.5).to(dev)
+    err = _teacher_forced_check("gen-int8", dec, w8, lc, None, "tanh_first",
+                                BF16_LOGIT_TOL, g)
 
+    n = 256
+    lcn = lc[:1, :1, :].expand(n, 1, c_lc).contiguous()
+    gcon, g_pp1 = gk.condition_terms(dec, w8, n)
+    kw = dict(length=1, mode="sample", seed=777)
+    bins, _ = gk.generate_clip_cuda(w8, lcn, gcon, g_pp1, **kw)
+    bins_plain, _ = gk.generate_clip_plain(w8, lcn, gcon, g_pp1, **kw)
+    same = int((bins == bins_plain).sum())
+    log(f"[gen-int8] sample t=0 x{n}: kernel == plain (same Philox bits) on "
+        f"{same}/{n} streams ({int(torch.unique(bins).numel())} distinct "
+        f"bins)")
+    if same != n:
+        raise AssertionError("int8 in-kernel sampling differs from the plain "
+                             "twin's draws")
+
+    times = {}
+    for b in (1, 3):
+        lcb = lc[:1].expand(b, 4, c_lc).repeat_interleave(8, dim=1) \
+            .contiguous()
+        for name, w in (("bf16", wb), ("int8", w8)):
+            times[(name, b)] = _gen_times(gk, dec, w, lcb, 2048, 3)
+        log(f"[gen-int8] B={b}: int8 kernel {times[('int8', b)][0] * 1e3:.1f}"
+            f" us/sample (plain {times[('int8', b)][1] * 1e3:.1f}), bf16 "
+            f"kernel {times[('bf16', b)][0] * 1e3:.1f} us/sample  ({card})")
+    out = {"max_abs_err": err}
+    out["ms"], out["plain_ms"] = times[("int8", 3)]
+    weight_bytes = _weight_bytes(w8)
+    out["bound_ms"], out["bound_by"] = bound(
+        2.0 * 3 * _gen_macs(w8), weight_bytes / 2048, "bf16")
+    out["library_ms"] = None
+    log(f"[gen-int8] packed weights {weight_bytes / 1e6:.2f} MB int8 "
+        f"(+ scales and bf16 parts) vs {_weight_bytes(wb) / 1e6:.2f} MB bf16; "
+        f"one pass over them at 3.35 TB/s = "
+        f"{weight_bytes / PEAK_BYTES * 1e6:.2f} us (int8), "
+        f"{_weight_bytes(wb) / PEAK_BYTES * 1e6:.2f} us (bf16)")
+    return out
+
+
+def _gen_macs(w) -> int:
+    """Multiply-adds of one generation step for one batch row."""
+    L, K, R, D, S, Q, C, PK = w.dims
+    return (L * (2 * D * (K * R + C) + (S + R) * D) + PK * R + S * R
+            + S * (S + C) + Q * S)
+
+
+def _weight_bytes(w) -> int:
+    """Bytes of every packed weight tensor (int8: with scales and w_r)."""
+    return nbytes(*[v for v in vars(w).values() if isinstance(v, torch.Tensor)])
+
+
+def _gen_times(gk, params, w, lcb, length: int, iters: int):
+    """(kernel, plain) ms per sample for a clip of ``length`` samples
+    (plain: a 64-step clip)."""
+    gcon, g_pp1 = gk.condition_terms(params, w, lcb.shape[0])
+    kern = cuda_ms(lambda: gk.generate_clip_cuda(
+        w, lcb, gcon, g_pp1, length=length), iters) / length
+    plain = cuda_ms(lambda: gk.generate_clip_plain(
+        w, lcb[:, :1], gcon, g_pp1, length=64), 1) / 64
+    return kern, plain
+
+
+def _teacher_forced_check(tag, params, w, lc, gc, gate_order, tol, g,
+                          steps: int = 256) -> float:
+    """Teacher-forced logits of the kernel against the plain twin over
+    ``steps`` steps of a noisy sine; raises beyond tol * max(1, max|logit|).
+    Returns max |kernel - plain|."""
+    from vqvae_wavenet_torch.ops import gen_kernels as gk
+    b = lc.shape[0]
+    t = torch.arange(steps, dtype=torch.float32)
+    x = (0.4 * torch.sin(2 * np.pi * 220.0 * t / 16000.0)[None]
+         + 0.05 * torch.randn((b, steps), generator=g)).clamp(-1, 1)
+    forced = torch.cat([torch.zeros((b, 1)), x[:, :-1]], dim=1).to(lc.device)
+    gcon, g_pp1 = gk.condition_terms(params, w, b, gc)
+    kw = dict(length=steps, gate_order=gate_order, forced=forced,
+              want_logits=True)
+    _, lk = gk.generate_clip_cuda(w, lc, gcon, g_pp1, **kw)
+    _, lp = gk.generate_clip_plain(w, lc, gcon, g_pp1, **kw)
+    err = float((lk - lp).abs().max())
+    scale = max(1.0, float(lp.abs().max()))
+    wt = str(w.w_a.dtype).split(".")[-1]
+    log(f"[{tag}] teacher-forced {wt} weights B={b} {gate_order} "
+        f"gc={'yes' if gc is not None else 'no'} T={steps}: max |logit err| "
+        f"{err:.3g} (mean {float((lk - lp).abs().mean()):.3g}), max |logit| "
+        f"{scale:.3g}, tolerance {tol * scale:.3g}")
+    if not err <= tol * scale:
+        raise AssertionError(f"{tag}: teacher-forced logits disagree ({wt})")
+    return err
+
+
+def _e2e_wav() -> str:
+    """A synthetic 8,192-sample 16 kHz wav under build/chip_smoke."""
+    from scipy.io import wavfile
     os.makedirs(OUT, exist_ok=True)
-    cfg = ModelConfig.from_json(os.path.join(REPO, "model_parameters.json"))
-    params, state = random_params_np(cfg, 109, seed=0)
-    ckpt = os.path.join(OUT, "weights-0.npz")
-    save_npz(ckpt, params, state)
     rng = np.random.default_rng(0)
     t = np.arange(8192) / 16000.0
     wav = (0.4 * np.sin(2 * np.pi * 180.0 * t) * (1 + 0.3 * np.sin(
         2 * np.pi * 3.0 * t)) + 0.02 * rng.standard_normal(t.size))
     audio = os.path.join(OUT, "input.wav")
     wavfile.write(audio, 16000, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
-    speakers = ["p225", "p226", "None"]
+    return audio
 
+
+def _convert(card, tag, ckpt, params_json, audio, dtype, mode,
+             distinct: bool):
+    """One vqvae_wavenet_torch.generate run (speakers p225 p226 None) with
+    the launch counters set to 0 just before and read just after; checks
+    three finite 8,192-sample wavs.  Returns the counts."""
+    from scipy.io import wavfile
+    from vqvae_wavenet_torch import generate as gen_cli
+    from vqvae_wavenet_torch.ops import gen_kernels, vq_kernels
     vq_kernels.launches = 0
-    gen_kernels.launches = 0
-    for dtype in ("bf16", "f32"):
+    gen_kernels.launches = gen_kernels.int8_launches = 0
+    res = gen_cli.main([
+        "-restore", ckpt, "-audio", audio, "-speakers", "p225", "p226",
+        "None", "-mode", mode, "-params", params_json,
+        "-data", os.path.join(REPO, "data"), "-dtype", dtype,
+        "-device", "cuda", "-seed", "3"])
+    counts = {"vq_argmin": vq_kernels.launches,
+              "gen_wavenet": gen_kernels.launches,
+              "gen_wavenet_int8": gen_kernels.int8_launches}
+    outs = [wavfile.read(p)[1] for p in res["paths"]]
+    if len(outs) != 3 or any(o.shape != (8192,) for o in outs):
+        raise AssertionError("expected three 8192-sample wavs")
+    for o in outs:
+        if not (np.isfinite(o).all() and np.abs(o).max() <= 1.0):
+            raise AssertionError("non-finite or out-of-range audio")
+    if distinct and np.array_equal(outs[0], outs[2]):
+        raise AssertionError("'None' speaker output equals p225's")
+    per_stream = res["samples"] / 3 / res["seconds"]
+    log(f"[{tag}] {dtype} {mode}: {res['seconds']:.3f}s for 3x8192 "
+        f"samples: {per_stream:,.0f} samples/s per stream, "
+        f"{3 * per_stream:,.0f} aggregate (encode + generate, host "
+        f"clock); launches {counts}  ({card})")
+    gen = "gen_wavenet_int8" if dtype == "int8" else "gen_wavenet"
+    if counts["vq_argmin"] < 1 or counts[gen] < 1:
+        raise AssertionError(f"[{tag}] {dtype} {mode}: a kernel of the path "
+                             f"was never launched: {counts}")
+    return counts
+
+
+def phase_e2e(card: str):
+    """The voice-conversion entry point at full width, through the VQ and
+    generation kernels (bf16, int8 and f32 weights); returns the launch
+    counts of the main-path runs."""
+    from vqvae_wavenet_torch.params import random_params_np, save_npz
+    from vqvae_wavenet_torch.config import ModelConfig
+
+    cfg = ModelConfig.from_json(os.path.join(REPO, "model_parameters.json"))
+    params, state = random_params_np(cfg, 109, seed=0)
+    audio = _e2e_wav()
+    ckpt = os.path.join(OUT, "weights-0.npz")
+    save_npz(ckpt, params, state)
+    launches = {}
+    for dtype in ("bf16", "int8", "f32"):
         for mode in ("greedy", "sample"):
-            res = gen_cli.main([
-                "-restore", ckpt, "-audio", audio, "-speakers", *speakers,
-                "-mode", mode, "-params",
-                os.path.join(REPO, "model_parameters.json"),
-                "-data", os.path.join(REPO, "data"), "-dtype", dtype,
-                "-device", "cuda", "-seed", "3"])
-            outs = [wavfile.read(p)[1] for p in res["paths"]]
-            if len(outs) != 3 or any(o.shape != (8192,) for o in outs):
-                raise AssertionError("expected three 8192-sample wavs")
-            for o in outs:
-                if not (np.isfinite(o).all() and np.abs(o).max() <= 1.0):
-                    raise AssertionError("non-finite or out-of-range audio")
-            if np.array_equal(outs[0], outs[2]):
-                raise AssertionError("'None' speaker output equals p225's")
-            per_stream = res["samples"] / 3 / res["seconds"]
-            log(f"[e2e] {dtype} {mode}: {res['seconds']:.3f}s for 3x8192 "
-                f"samples: {per_stream:,.0f} samples/s per stream, "
-                f"{3 * per_stream:,.0f} aggregate (encode + generate, host "
-                f"clock)  ({card})")
-    launches = {"vq_argmin": vq_kernels.launches,
-                "gen_wavenet": gen_kernels.launches}
+            counts = _convert(card, "e2e", ckpt,
+                              os.path.join(REPO, "model_parameters.json"),
+                              audio, dtype, mode, distinct=True)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
     log(f"[e2e] kernel launches in the main-path runs: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError("a kernel of the path was never launched")
+    return launches
+
+
+def phase_magenta(card: str):
+    """The Magenta family's full preset (magenta_parameters.json: 50
+    layers, K=2, R=D=256, S=512, C=64, PK=2 padded to 8, sigmoid_first, a
+    per-layer biased global condition) with random weights from a seed and
+    the init's 1.0 biases.  Kernel against plain, teacher-forced, 256
+    steps, B=3, the local condition drawn from codebook rows and the
+    global condition from the speaker table: f32 within 1e-3, bf16 and
+    int8 within 5e-2 of max(1, max|logit|).  Times per sample at B=1 and
+    B=3 (bf16, int8).  Then the entry point on the e2e wav in bf16 and
+    int8, greedy and sample.  Returns the launch counts of those runs."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.ops import gen_kernels as gk
+    from vqvae_wavenet_torch.params import random_params_np, save_npz, to_torch
+    params_json = os.path.join(REPO, "magenta_parameters.json")
+    cfg = ModelConfig.from_json(params_json)
+    params, state = random_params_np(cfg, 109, seed=0)
+    dec = to_torch(params["decoder"], "cuda")
+    wcfg = cfg.wavenet
+    g = torch.Generator(device="cpu").manual_seed(4)
+    emb = torch.from_numpy(params["vq"]["embedding"])
+    lc = emb[torch.randint(0, emb.shape[0], (3, 4), generator=g)].cuda()
+    gc = torch.from_numpy(params["speaker_emb"])[[0, 5, 17]][:, None].cuda()
+    ws = {}
+    for dtype, tol in ((torch.float32, F32_LOGIT_TOL),
+                       (torch.bfloat16, BF16_LOGIT_TOL),
+                       (torch.int8, BF16_LOGIT_TOL)):
+        ws[dtype] = gk.pack_gen_params(dec, wcfg, dtype, "cuda")
+        _teacher_forced_check("magenta", dec, ws[dtype], lc, gc,
+                              "sigmoid_first", tol, g)
+    for b in (1, 3):
+        lcb = lc[:b].repeat_interleave(8, dim=1).contiguous()
+        row = []
+        for dtype in (torch.bfloat16, torch.int8):
+            w = ws[dtype]
+            gcon, g_pp1 = gk.condition_terms(dec, w, b, gc[:b])
+            kern = cuda_ms(lambda: gk.generate_clip_cuda(
+                w, lcb, gcon, g_pp1, length=2048,
+                gate_order="sigmoid_first"), 2) / 2048
+            row.append(f"{str(w.w_a.dtype).split('.')[-1]} "
+                       f"{kern * 1e3:.1f} us/sample")
+        log(f"[magenta] kernel B={b}: " + ", ".join(row) + f"; packed "
+            f"weights {_weight_bytes(ws[torch.bfloat16]) / 1e6:.2f} MB bf16, "
+            f"{_weight_bytes(ws[torch.int8]) / 1e6:.2f} MB int8  ({card})")
+    del ws, dec
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(OUT, "magenta", "weights-0.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    save_npz(ckpt, params, state)
+    audio = _e2e_wav()
+    launches = {}
+    for dtype in ("bf16", "int8"):
+        for mode in ("greedy", "sample"):
+            counts = _convert(card, "magenta", ckpt, params_json, audio,
+                              dtype, mode, distinct=False)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    log(f"[magenta] kernel launches in the Magenta runs: {launches}")
     return launches
 
 
@@ -696,7 +893,9 @@ def main() -> int:
     phase_build()
     vq = phase_vq()
     gen = phase_gen(card)
+    gen8 = phase_gen_int8(card)
     launches = phase_e2e(card)
+    magenta = phase_magenta(card)
     train = {**phase_train_stack(card), **phase_train_epilogue(card)}
     train_launches = phase_train_e2e(card)
     kernels = [
@@ -705,6 +904,9 @@ def main() -> int:
         {"name": "gen_wavenet", "route": "cuda", "source": GEN_SOURCE,
          "replaces": GEN_REPLACES, "launches": launches["gen_wavenet"],
          **gen},
+        {"name": "gen_wavenet_int8", "route": "cuda", "source": GEN_SOURCE,
+         "replaces": GEN_REPLACES,
+         "launches": magenta["gen_wavenet_int8"], **gen8},
     ] + [{"name": name, "route": "cuda", "source": src, "replaces": rep,
           "launches": train_launches[name], **train[name]}
          for name, (src, rep) in TRAIN.items()]

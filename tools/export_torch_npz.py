@@ -9,7 +9,9 @@ Restores the checkpoint the way generate.py does (init_train_state's tree as
 the template, training/checkpoint.py::restore_checkpoint) and writes the EMA
 parameters plus the model state (encoder batch-norm statistics) as the flat
 ``params/...`` / ``state/...`` npz that vqvae_wavenet_torch.params.load_npz
-reads.  With -train_state it writes the whole train state (params, EMA
+reads.  For the Magenta family (``-params magenta_parameters.json``) it
+writes the raw parameters, which is what generate.py restores for that
+family; its model state is empty.  With -train_state it writes the whole train state (params, EMA
 shadows, Adam moments and count, model state, step) through
 vqvae_wavenet_torch.params.from_jax_train_state in the port's checkpoint
 layout, so ``python -m vqvae_wavenet_torch.train -restore <out>`` resumes
@@ -50,8 +52,10 @@ def main(argv=None):
     from vqvae_wavenet_torch.training.checkpoint import write_checkpoint
 
     cfg = ModelConfig.from_json(args.parameter_path)
-    if cfg.model_family != "vqvae":
-        raise NotImplementedError("only the VQVAE family is ported to torch")
+    magenta = cfg.model_family == "magenta"
+    if magenta and args.train_state:
+        raise NotImplementedError("Magenta training is not ported to torch "
+                                  "yet: -train_state takes the VQVAE family")
     # an abstract template: restoring needs the tree's shapes only
     ts = jax.eval_shape(lambda k: init_train_state(k, cfg, args.num_speakers),
                         jax.random.PRNGKey(0))
@@ -60,8 +64,10 @@ def main(argv=None):
     if args.train_state:
         write_checkpoint(out, from_jax_train_state(jax.device_get(ts)))
     else:
-        params, state = from_jax_tree(jax.device_get(ts["ema_params"]),
-                                      jax.device_get(ts["model_state"]))
+        # generate.py:121-124: raw params for Magenta, EMA shadows otherwise
+        params, state = from_jax_tree(
+            jax.device_get(ts["params" if magenta else "ema_params"]),
+            jax.device_get(ts["model_state"]))
         save_npz(out, params, state)
     print(f"wrote {out}")
     return out

@@ -2,9 +2,10 @@
 as vqvae_wavenet_tpu/config.py reads them (model_parameters.json and
 wavenet_parameters.json, with the same optional extension keys).
 
-The port keeps its own copy so that it never imports the JAX package; the
-Magenta family (whose hyperparameters live in the JAX model code) is not
-ported yet.
+The port keeps its own copy so that it never imports the JAX package.  The
+Magenta family's hyperparameters are module constants of its model code
+(vqvae_wavenet_torch/models/magenta.py, copied from the JAX package's
+models/magenta.py); its JSON may override only the LR schedule.
 
 ``train_engine`` selects between TPU code paths in the JAX package; the
 port has no engine switch (the device picks the kernel), so it accepts
@@ -102,8 +103,20 @@ class ModelConfig:
         with open(path) as f:
             p = json.load(f)
         if p.get("model_family") == "magenta":
-            raise NotImplementedError("the Magenta family is not ported to "
-                                      "torch yet")
+            # vqvae_wavenet_tpu/config.py:152-171
+            from vqvae_wavenet_torch.models.magenta import (
+                MAGENTA_LR_SCHEDULE, magenta_wavenet_config)
+            return cls(
+                model_family="magenta", encoder="Magenta", k=512,
+                latent_dim=64, speaker_embedding=64, beta=0.25, use_vq=True,
+                wavenet=magenta_wavenet_config(),
+                learning_rate_schedule={
+                    int(s): float(v) for s, v in p.get(
+                        "learning_rate_schedule",
+                        MAGENTA_LR_SCHEDULE).items()},
+                verbose=p.get("verbose", False),
+                train_dtype=p.get("train_dtype", "f32"),
+                train_engine=p.get("train_engine", "auto"))
         wn_path = p["wavenet_parameters"]
         if not os.path.isabs(wn_path):
             candidate = os.path.join(os.path.dirname(os.path.abspath(path)),

@@ -1,9 +1,12 @@
 // Whole-clip autoregressive WaveNet generation in ONE persistent launch.
 //
-// Replaces vqvae_wavenet_tpu/ops/gen_pallas.py::_make_kernel (resident and
-// hybrid modes; launched at gen_pallas.py:950).  The TPU kernel ran the
-// sample loop as a sequential grid on one core with weights and rings in
-// VMEM.  Here one cooperative launch keeps gridDim.x co-resident blocks
+// Replaces vqvae_wavenet_tpu/ops/gen_pallas.py::_make_kernel (launched at
+// gen_pallas.py:950) in all its modes: resident and hybrid with float32 or
+// bfloat16 weights, and streamed with int8 weights (the int8 variant below;
+// the streamed float mode is a VMEM fact that this kernel, which reads its
+// weights from device memory at every size, does not need).  The TPU
+// kernel ran the sample loop as a sequential grid on one core with weights
+// and rings in VMEM.  Here one cooperative launch keeps gridDim.x co-resident blocks
 // (one per SM by default) alive for the whole clip; the blocks loop over
 // samples and, inside, over layers, and meet at grid barriers between
 // phases that depend on each other:
@@ -32,6 +35,15 @@
 // wrapper packs, so a warp's loads are contiguous.  Every packed width
 // (K*R+C, D, R, S, S+C, PK) is a multiple of 8; the wrapper refuses others.
 //
+// int8 variant (gen_pallas.py:104-159, 584-588): the gate weights w_a and
+// the skip half of [skip | res] are int8 with one scale per *input* index
+// (the JAX row scales of the transposed layout), staged per layer into a
+// shared-memory row beside the activations; a 16-byte load carries 16
+// weights, each used as bf16(float(q) * scale) -- the scale is a bf16
+// value, so the product is exact in f32 and rounds once, as the plain twin
+// and the TPU kernel's bf16 multiply do.  Activations are bf16; the res half
+// is a separate bf16 array, the biases bf16 (dequantized at pack time).
+//
 // Weights (39 MB bf16 / 79 MB f32 for the shipped 30-layer model) and the
 // rings live in device memory: they do not fit in 227 KB of shared memory.
 // What bounds it on the H100 at small batch: grid-barrier latency (62+
@@ -46,6 +58,7 @@
 // error code (0 = launched).
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -71,13 +84,17 @@ __device__ __forceinline__ float ld_cg(const __nv_bfloat16* p) {
   return __bfloat162float(__ushort_as_bfloat16(bits));
 }
 
-template <typename T>
+// T: the activation type; W: the type of w_a and w_sr (T, or int8_t)
+template <typename T, typename W>
 struct Args {
   int L, K, R, D, S, Q, C, PK, B, length, ratio, xw;
   const int* dil;          // [L]
   const int* ring_off;     // [L] first ring row of each layer
-  const T *w_a, *b_a, *w_sr, *b_sr, *w_pre, *b_pre, *w_ss, *b_ss;
+  const W *w_a, *w_sr;     // int8: w_sr is the skip half [L, S, D]
+  const T *b_a, *b_sr, *w_pre, *b_pre, *w_ss, *b_ss;
   const T *w_h1, *b_h1, *w_pp2, *b_pp2;
+  const float *s_a, *s_s;  // int8 only: scales [L, K*R+C], [L, D]
+  const T* w_r;            // int8 only: res half [L, R, D]
   const T* lc;             // [T_cond, B, C]
   const T* gcon;           // [L, B, 2D]
   const T* g_pp1;          // [B, S]
@@ -123,18 +140,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 16-byte vectors of weights: 4 float or 8 bfloat16 values
-template <typename T> struct Vec16;
+// 16-byte vectors of weights: 4 float, 8 bfloat16 or 16 int8 values.  sc
+// points at the vector's 16 scales (shared memory; int8 only).
+template <typename W> struct Vec16;
 template <> struct Vec16<float> {
   static constexpr int N = 4;
-  __device__ __forceinline__ static void unpack(const uint4& v, float out[4]) {
+  __device__ __forceinline__ static void unpack(const uint4& v, float out[4],
+                                                const float*) {
     out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
     out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
   }
 };
 template <> struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void unpack(const uint4& v, float out[8]) {
+  __device__ __forceinline__ static void unpack(const uint4& v, float out[8],
+                                                const float*) {
     const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -143,16 +163,34 @@ template <> struct Vec16<__nv_bfloat16> {
     }
   }
 };
+template <> struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void unpack(const uint4& v, float out[16],
+                                                const float* sc) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+    const float4* s4 = reinterpret_cast<const float4*>(sc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 s = s4[i];
+      const float ss[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {                    // byte j = weight 4i + j
+        const int q = (int)(signed char)((w[i] >> (8 * j)) & 0xffu);
+        out[4 * i + j] = __bfloat162float(__float2bfloat16_rn((float)q * ss[j]));
+      }
+    }
+  }
+};
 
 __device__ __forceinline__ uint4 ld_weights(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-template <typename T, int NR>
-__device__ __forceinline__ void fma_vec(const float wf[NR][Vec16<T>::N],
+template <typename W, int NR>
+__device__ __forceinline__ void fma_vec(const float wf[NR][Vec16<W>::N],
                                         const float* xs, int xw, int k0,
                                         int nb, float acc[NR][BCH]) {
-  constexpr int V = Vec16<T>::N;
+  constexpr int V = Vec16<W>::N;
 #pragma unroll
   for (int bb = 0; bb < BCH; ++bb) {
     if (bb < nb) {
@@ -174,13 +212,15 @@ __device__ __forceinline__ void fma_vec(const float wf[NR][Vec16<T>::N],
 
 // acc[i][bb] = sum_k w_i[k] * xs[bb][off + k] for NR weight rows w_i and
 // bb < nb, summed over the warp, with 16-byte weight loads and float4
-// shared-memory loads.  n, off and xw are multiples of 8 and every weight
-// row starts 16-byte aligned (the wrapper checks the packed widths).
-template <typename T, int NR>
-__device__ __forceinline__ void warp_dots(const T* const* w, const float* xs,
+// shared-memory loads.  n, off and xw are multiples of 8 (n of 16 for int8)
+// and every weight row starts 16-byte aligned (the wrapper checks the
+// packed widths).  int8 rows take their per-index scales from sc[k].
+template <typename W, int NR>
+__device__ __forceinline__ void warp_dots(const W* const* w, const float* xs,
                                           int xw, int off, int n, int nb,
-                                          int lane, float acc[NR][BCH]) {
-  constexpr int V = Vec16<T>::N;
+                                          int lane, float acc[NR][BCH],
+                                          const float* sc) {
+  constexpr int V = Vec16<W>::N;
 #pragma unroll
   for (int i = 0; i < NR; ++i)
 #pragma unroll
@@ -189,8 +229,9 @@ __device__ __forceinline__ void warp_dots(const T* const* w, const float* xs,
   for (int v = lane; v < nv; v += 32) {
     float wf[NR][V];
 #pragma unroll
-    for (int i = 0; i < NR; ++i) Vec16<T>::unpack(ld_weights(w[i] + v * V), wf[i]);
-    fma_vec<T, NR>(wf, xs, xw, off + v * V, nb, acc);
+    for (int i = 0; i < NR; ++i)
+      Vec16<W>::unpack(ld_weights(w[i] + v * V), wf[i], sc + v * V);
+    fma_vec<W, NR>(wf, xs, xw, off + v * V, nb, acc);
   }
 #pragma unroll
   for (int i = 0; i < NR; ++i)
@@ -198,13 +239,14 @@ __device__ __forceinline__ void warp_dots(const T* const* w, const float* xs,
     for (int bb = 0; bb < BCH; ++bb) acc[i][bb] = warp_sum(acc[i][bb]);
 }
 
-template <typename T>
-__device__ __forceinline__ void warp_dot(const T* w, const float* xs, int xw,
+template <typename W>
+__device__ __forceinline__ void warp_dot(const W* w, const float* xs, int xw,
                                          int off, int n, int nb, int lane,
-                                         float acc[BCH]) {
-  const T* rows[1] = {w};
+                                         float acc[BCH],
+                                         const float* sc = nullptr) {
+  const W* rows[1] = {w};
   float a[1][BCH];
-  warp_dots<T, 1>(rows, xs, xw, off, n, nb, lane, a);
+  warp_dots<W, 1>(rows, xs, xw, off, n, nb, lane, a, sc);
 #pragma unroll
   for (int bb = 0; bb < BCH; ++bb) acc[bb] = a[0][bb];
 }
@@ -241,9 +283,11 @@ __device__ __forceinline__ float gumbel(unsigned long long seed, int t, int b, i
   return -logf(-logf(u));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) gen_kernel(Args<T> a) {
-  extern __shared__ float xs[];                  // [BCH][xw]
+template <typename T, typename W>
+__global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
+  constexpr bool Q8 = sizeof(W) == 1;            // int8 weights
+  extern __shared__ float xs[];                  // [BCH][xw] (+ int8: scales [xw])
+  float* sc = Q8 ? xs + BCH * a.xw : nullptr;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, blk = blockIdx.x;
   const int TW = G * NW;
@@ -309,12 +353,14 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T> a) {
             }
             xs[bb * xw + k] = v;
           }
+          if constexpr (Q8)
+            for (int k = tid; k < KRC; k += NT) sc[k] = __ldg(&a.s_a[(size_t)l * KRC + k]);
           __syncthreads();
           for (int j = job0; j < D; j += TW) {
-            const T* w0 = a.w_a + ((size_t)l * 2 * D + j) * KRC;
-            const T* rows[2] = {w0, w0 + (size_t)D * KRC};
+            const W* w0 = a.w_a + ((size_t)l * 2 * D + j) * KRC;
+            const W* rows[2] = {w0, w0 + (size_t)D * KRC};
             float pair[2][BCH];
-            warp_dots<T, 2>(rows, xs, xw, 0, KRC, nb, lane, pair);
+            warp_dots<W, 2>(rows, xs, xw, 0, KRC, nb, lane, pair, sc);
 #pragma unroll
             for (int bb = 0; bb < BCH; ++bb) { acc[bb] = pair[0][bb]; acc2[bb] = pair[1][bb]; }
             if (lane == 0) {
@@ -347,9 +393,18 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T> a) {
             xs[bb * xw + k] = k < D ? ld_cg(&a.gated[(size_t)b * D + k])
                                     : ld_cg(&cur_in[(size_t)b * R + k - D]);
           }
+          if constexpr (Q8)
+            for (int k = tid; k < D; k += NT) sc[k] = __ldg(&a.s_s[(size_t)l * D + k]);
           __syncthreads();
           for (int c = job0; c < SR; c += TW) {
-            warp_dot(a.w_sr + ((size_t)l * SR + c) * D, xs, xw, 0, D, nb, lane, acc);
+            if constexpr (Q8) {                  // int8 skip half, bf16 res half
+              if (c < S)
+                warp_dot(a.w_sr + ((size_t)l * S + c) * D, xs, xw, 0, D, nb, lane, acc, sc);
+              else
+                warp_dot(a.w_r + ((size_t)l * R + c - S) * D, xs, xw, 0, D, nb, lane, acc);
+            } else {
+              warp_dot(a.w_sr + ((size_t)l * SR + c) * D, xs, xw, 0, D, nb, lane, acc);
+            }
             const bool start = (l == 0) && (c < S);
             if (start) warp_dot(a.w_ss + (size_t)c * R, xs, xw, D, R, nb, lane, acc2);
             if (lane == 0) {
@@ -470,8 +525,8 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T> a) {
   }
 }
 
-template <typename T>
-int launch(Args<T> a, cudaStream_t stream) {
+template <typename T, typename W>
+int launch(Args<T, W> a, cudaStream_t stream) {
   const int KRC = a.K * a.R + a.C;
   int xw = KRC;
   xw = xw > a.D + a.R ? xw : a.D + a.R;
@@ -480,29 +535,29 @@ int launch(Args<T> a, cudaStream_t stream) {
   xw = xw > 2 * NW ? xw : 2 * NW;
   xw = (xw + 7) / 8 * 8;                 // 16-byte aligned staging rows
   a.xw = xw;
-  const size_t smem = sizeof(float) * (size_t)BCH * xw;
+  const size_t smem = sizeof(float) * (size_t)(BCH + (sizeof(W) == 1)) * xw;
   cudaError_t e = cudaFuncSetAttribute(
-      gen_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gen_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gen_kernel<T>, NT, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gen_kernel<T, W>, NT, smem);
   if (e != cudaSuccess) return (int)e;
   // one block per SM: more co-resident blocks measured faster than fewer
   // (16..132 blocks, PERF.md), and the launch needs every block resident
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int grid = sms;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)gen_kernel<T>, dim3(grid), dim3(NT),
+  e = cudaLaunchCooperativeKernel((const void*)gen_kernel<T, W>, dim3(grid), dim3(NT),
                                   args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename W>
 int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
         int length, int ratio, const void* dil, const void* ring_off,
         const void* const* w, const void* lc, const void* gcon,
@@ -510,15 +565,19 @@ int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
         void* gated, void* skip, void* h1, void* logits, void* logits_out,
         void* bins, void* barrier, int sample, int sigmoid_first,
         unsigned long long seed, void* stream) {
-  Args<T> a;
+  Args<T, W> a;
   a.L = L; a.K = K; a.R = R; a.D = D; a.S = S; a.Q = Q; a.C = C; a.PK = PK;
   a.B = B; a.length = length; a.ratio = ratio; a.xw = 0;
   a.dil = static_cast<const int*>(dil);
   a.ring_off = static_cast<const int*>(ring_off);
   const T* const* wt = reinterpret_cast<const T* const*>(w);
-  a.w_a = wt[0]; a.b_a = wt[1]; a.w_sr = wt[2]; a.b_sr = wt[3];
+  a.w_a = static_cast<const W*>(w[0]); a.b_a = wt[1];
+  a.w_sr = static_cast<const W*>(w[2]); a.b_sr = wt[3];
   a.w_pre = wt[4]; a.b_pre = wt[5]; a.w_ss = wt[6]; a.b_ss = wt[7];
   a.w_h1 = wt[8]; a.b_h1 = wt[9]; a.w_pp2 = wt[10]; a.b_pp2 = wt[11];
+  a.s_a = static_cast<const float*>(w[12]);
+  a.s_s = static_cast<const float*>(w[13]);
+  a.w_r = wt[14];
   a.lc = static_cast<const T*>(lc);
   a.gcon = static_cast<const T*>(gcon);
   a.g_pp1 = static_cast<const T*>(g_pp1);
@@ -536,7 +595,7 @@ int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
   a.sample = sample;
   a.sigmoid_first = sigmoid_first;
   a.seed = seed;
-  return launch<T>(a, static_cast<cudaStream_t>(stream));
+  return launch<T, W>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -545,30 +604,36 @@ extern "C" const char* vqw_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  The twelve weight pointers are in the
-// order w_a b_a w_sr b_sr w_pre b_pre w_ss b_ss w_h1 b_h1 w_pp2 b_pp2.
+// dtype: 0 = float32, 1 = bfloat16, 2 = int8 weights with bfloat16
+// activations.  The weight pointers are in the order w_a b_a w_sr b_sr
+// w_pre b_pre w_ss b_ss w_h1 b_h1 w_pp2 b_pp2, then (int8 only, else null)
+// s_a s_s w_r.
 extern "C" int gen_wavenet(
     int dtype, int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
     int length, int ratio, const void* dil, const void* ring_off,
     const void* w_a, const void* b_a, const void* w_sr, const void* b_sr,
     const void* w_pre, const void* b_pre, const void* w_ss, const void* b_ss,
     const void* w_h1, const void* b_h1, const void* w_pp2, const void* b_pp2,
-    const void* lc, const void* gcon, const void* g_pp1, void* inputs,
+    const void* s_a, const void* s_s, const void* w_r, const void* lc, const void* gcon, const void* g_pp1, void* inputs,
     int forced, void* ring, void* cur, void* gated, void* skip, void* h1,
     void* logits, void* logits_out, void* bins, void* barrier, int sample,
     int sigmoid_first, unsigned long long seed, void* stream) {
-  const void* w[12] = {w_a, b_a, w_sr, b_sr, w_pre, b_pre,
-                       w_ss, b_ss, w_h1, b_h1, w_pp2, b_pp2};
+  const void* w[15] = {w_a, b_a, w_sr, b_sr, w_pre, b_pre, w_ss, b_ss,
+                       w_h1, b_h1, w_pp2, b_pp2, s_a, s_s, w_r};
   if (dtype == 0)
-    return run<float>(L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off,
+    return run<float, float>(L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off,
                       w, lc, gcon, g_pp1, inputs, forced, ring, cur, gated,
                       skip, h1, logits, logits_out, bins, barrier, sample,
                       sigmoid_first, seed, stream);
   if (dtype == 1)
-    return run<__nv_bfloat16>(L, K, R, D, S, Q, C, PK, B, length, ratio, dil,
-                              ring_off, w, lc, gcon, g_pp1, inputs, forced,
-                              ring, cur, gated, skip, h1, logits, logits_out,
-                              bins, barrier, sample, sigmoid_first, seed,
-                              stream);
+    return run<__nv_bfloat16, __nv_bfloat16>(
+        L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
+        g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
+        bins, barrier, sample, sigmoid_first, seed, stream);
+  if (dtype == 2)
+    return run<__nv_bfloat16, int8_t>(
+        L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
+        g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
+        bins, barrier, sample, sigmoid_first, seed, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,15 +3,19 @@
     python -m vqvae_wavenet_torch.generate -restore saved_model/weights-110640.npz \
         -audio data/VCTK-Corpus/wav48/p225/p225_001.wav \
         -speakers p225 p226 None -mode sample [-params model_parameters.json] \
-        [-dtype bf16|f32] [-device cuda|cpu]
+        [-dtype bf16|f32|int8] [-device cuda|cpu]
 
 ``-restore`` names the port's ``.npz`` (tools/export_torch_npz.py writes
-one from an orbax checkpoint, with the EMA parameters).  The conditioning
-wav is trimmed to a multiple of 512 samples and encoded once (Encoder_64
--> VQ -> speaker concat); the local condition -- never the wav -- is
-zero-padded to a 1024/8192-sample bucket; the whole clip is generated in
-one kernel launch on CUDA; one 16 kHz wav per speaker is written beside
-the checkpoint, with the codebook and speaker embeddings as .npy files.
+one from an orbax checkpoint: the EMA parameters, or for the Magenta family
+the raw ones, as the JAX generate.py restores).  The conditioning wav is
+trimmed to a multiple of 512 samples and encoded once (Encoder_64 -> VQ ->
+speaker concat; or, with ``-params magenta_parameters.json``, the Magenta
+encoder -> VQ, with the speaker as a per-layer global condition); the local
+condition -- never the wav -- is zero-padded to a 1024/8192-sample bucket;
+the whole clip is generated in one kernel launch on CUDA; one 16 kHz wav
+per speaker is written beside the checkpoint, with the codebook and
+speaker embeddings as .npy files.  ``-dtype int8`` quantizes the decoder
+weights per row (the TPU kernel's int8 mode) on either device.
 """
 from __future__ import annotations
 
@@ -42,9 +46,14 @@ def parse_args(argv=None):
                         metavar="str", help="dataset root (speaker files)")
     parser.add_argument("-seed", default=0, type=int, help="sampling seed")
     parser.add_argument("-dtype", default=None, dest="dtype",
-                        choices=["f32", "bf16"],
+                        choices=["f32", "bf16", "int8"],
                         help="generation dtype (default: bf16 on CUDA, f32 "
-                             "on CPU); sampling is always f32")
+                             "on CPU; int8 = per-row quantized weights with "
+                             "bf16 activations); sampling is always f32")
+    parser.add_argument("-data_shards", default=1, type=int,
+                        dest="data_shards",
+                        help="shard the speaker batch over devices (not "
+                             "ported: only 1)")
     parser.add_argument("-device", default="cuda", dest="device",
                         help="torch device (default cuda)")
     return parser.parse_args(argv)
@@ -81,6 +90,23 @@ def speaker_one_hots(speakers, data_path):
     return one_hot
 
 
+def _vqvae_generate(params, state, cfg, x, y, padded, generator, mode, dtype):
+    """Encoder_64 -> VQ -> speaker concat, the condition zero-padded to the
+    bucket, then generation."""
+    from vqvae_wavenet_torch.generation.fast import generate
+    from vqvae_wavenet_torch.models.vqvae import vqvae_encode
+    length = x.shape[1]
+    lc, _codes = vqvae_encode(params, state, cfg, x, y)
+    if padded > length:
+        ratio = length // lc.shape[1]
+        if padded % ratio:
+            raise ValueError(f"bucket {padded} not a multiple of frame "
+                             f"ratio {ratio}")
+        lc = torch.nn.functional.pad(lc, (0, 0, 0, (padded - length) // ratio))
+    return generate(params["decoder"], cfg.wavenet, lc, length=padded,
+                    generator=generator, mode=mode, dtype=dtype, verbose=True)
+
+
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -94,23 +120,27 @@ def main(argv=None):
     from scipy.io import wavfile
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.data import read_wav_16k
-    from vqvae_wavenet_torch.generation.fast import generate
-    from vqvae_wavenet_torch.models.vqvae import vqvae_encode
+    from vqvae_wavenet_torch.models.magenta import magenta_generate
     from vqvae_wavenet_torch.ops.conv import set_full_f32
     from vqvae_wavenet_torch.params import load_npz
 
+    if args.data_shards > 1:
+        raise NotImplementedError("-data_shards > 1 (sharded generation) is "
+                                  "not ported to torch yet")
     device = resolve_device(args.device)
     if args.dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     else:
-        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.int8}[args.dtype]
     # the encoder runs in float32 either way: keep cuDNN/cuBLAS off TF32
     set_full_f32()
 
     cfg = ModelConfig.from_json(args.parameter_path)
-    if cfg.model_family != "vqvae" or cfg.encoder != "64":
-        raise NotImplementedError("the torch port generates with the VQVAE "
-                                  "family and Encoder_64 only")
+    magenta = cfg.model_family == "magenta"
+    if not magenta and cfg.encoder != "64":
+        raise NotImplementedError("the torch port generates with Encoder_64 "
+                                  "and the Magenta family only")
     m = re.search(r"-(\d+)(\.npz)?$", args.restore_path.rstrip("/"))
     gs = int(m.group(1)) if m else 0
     batch_size = len(args.speakers)
@@ -135,24 +165,23 @@ def main(argv=None):
     if cfg.use_vq:
         np.save(os.path.join(save_path, f"embedding_{gs}.npy"),
                 params["vq"]["embedding"].cpu().numpy())
-    if cfg.speaker_embedding > 0 and "speaker_embedding" in params:
+    spk_key = "speaker_emb" if magenta else "speaker_embedding"
+    if cfg.speaker_embedding > 0 and spk_key in params:
         np.save(os.path.join(save_path, f"speaker_embedding_{gs}.npy"),
-                params["speaker_embedding"].cpu().numpy())
+                params[spk_key].cpu().numpy())
 
     t0 = time.perf_counter()
+    generator = torch.Generator().manual_seed(args.seed)
     with torch.no_grad():
-        lc, _codes = vqvae_encode(params, state, cfg, x,
-                                  torch.from_numpy(y).to(device))
-        if padded > length:
-            ratio = length // lc.shape[1]
-            if padded % ratio:
-                raise ValueError(f"bucket {padded} not a multiple of frame "
-                                 f"ratio {ratio}")
-            lc = torch.nn.functional.pad(
-                lc, (0, 0, 0, (padded - length) // ratio))
-        audio = generate(params["decoder"], cfg.wavenet, lc, length=padded,
-                         generator=torch.Generator().manual_seed(args.seed),
-                         mode=args.mode, dtype=dtype, verbose=True)
+        if magenta:
+            # encodes the exact wav and zero-pads the latent frames itself
+            audio = magenta_generate(params, x, torch.from_numpy(y).to(device),
+                                     length=padded, generator=generator,
+                                     mode=args.mode, dtype=dtype, verbose=True)
+        else:
+            audio = _vqvae_generate(params, state, cfg, x,
+                                    torch.from_numpy(y).to(device), padded,
+                                    generator, args.mode, dtype)
     audio = audio[:, :length].cpu().numpy()
     dt = time.perf_counter() - t0
     print(f"[generate] {batch_size}x{padded} samples in {dt:.2f}s "

@@ -1,9 +1,10 @@
 """Whole-clip autoregressive WaveNet generation (port of
 vqvae_wavenet_tpu/generation/fast.py:47-306).
 
-``generate`` packs the decoder once and runs the clip through
-``ops.gen_kernels.generate_clip``: one persistent CUDA launch for CUDA
-weights, the plain step loop (``gen_step``) for CPU weights.  The fast-
+``generate`` packs the decoder once (float32, bfloat16 or int8 weights) and
+runs the clip through ``ops.gen_kernels.generate_clip``: one persistent
+CUDA launch for CUDA weights, the plain step loop (``gen_step``) for CPU
+weights.  The fast-
 WaveNet ring semantics are the reference's: per-layer rings start zeroed,
 so taps read while t < j*d see zeros, every tap is read before the layer
 writes its input, and sample i is conditioned on frame
@@ -36,7 +37,11 @@ def generate(params, cfg, local_condition: torch.Tensor, *, length: int,
     decoder parameters ``params`` and WavenetConfig ``cfg``.
 
     Weights and activations run in ``dtype`` (float32 | bfloat16) on the
-    local condition's device, with float32 accumulation; sampling is always
+    local condition's device, with float32 accumulation; ``torch.int8``
+    quantizes the weights per row as the TPU kernel's int8 mode does and
+    runs bf16 activations (the int8 kernel on CUDA, its plain twin on the
+    CPU -- held to the quantized function everywhere, where the JAX package
+    off the TPU falls back to unquantized bf16).  Sampling is always
     float32.  Returns the float waveform [B, length] in [-1, 1]."""
     if mode not in ("sample", "greedy"):
         raise NotImplementedError(f"decode mode {mode} not implemented")

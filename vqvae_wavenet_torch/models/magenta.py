@@ -1,0 +1,111 @@
+"""The Magenta family's voice-conversion path (port of
+vqvae_wavenet_tpu/models/magenta.py:39-69, 120-136, 217-257).
+
+The hyperparameters are module constants, as in the JAX package (they are
+hard-coded in the reference's Magenta/config.py:4-16); the port keeps its
+own copy.  The decoder is the shared WaveNet with K=2, a startconv of
+width 2 as its preprocess, per-layer biased global conditioning and the
+gate halves swapped (sigmoid first).  Generation runs through the shared
+whole-clip generation (generation/fast.py), so on the card it launches
+the same kernel as the main family.
+
+Reference quirk kept (magenta.py:245-246): an all-zero one-hot ('None'
+speaker) argmax-selects index 0, so "no speaker" conditions on speaker 0's
+embedding.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from vqvae_wavenet_torch.config import WavenetConfig
+from vqvae_wavenet_torch.models import vq as vq_mod
+from vqvae_wavenet_torch.ops.conv import causal_conv1d, conv1d
+from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
+from vqvae_wavenet_torch.ops.signal import pool1d
+
+MAGENTA_LR_SCHEDULE = {0: 1e-4, 60000: 8e-5, 80000: 6e-5, 100000: 4e-5,
+                       120000: 2e-5, 140000: 1e-5}
+MAGENTA_DECAY = 1e-6
+
+# module-top hyperparams of Magenta/config.py:4-16
+NUM_STAGES = 10
+NUM_LAYERS = 50
+FILTER_LENGTH = 2
+WIDTH = 256
+SKIP_WIDTH = 512
+AE_NUM_STAGES = 5
+AE_NUM_LAYERS = 6
+AE_FILTER_LENGTH = 3
+AE_WIDTH = 368
+AE_BOTTLENECK_WIDTH = 64
+K_CODES = 512
+
+
+def magenta_wavenet_config() -> WavenetConfig:
+    return WavenetConfig(
+        quantization_channels=256,
+        num_cycles=NUM_LAYERS // NUM_STAGES,
+        num_cycle_layers=NUM_STAGES,
+        dilation_rates=[2 ** (i % NUM_STAGES) for i in range(NUM_LAYERS)],
+        kernel_size=FILTER_LENGTH,
+        dilation_filters=WIDTH,
+        skip_filters=SKIP_WIDTH,
+        residual_filters=WIDTH,
+        preprocess_kernel_size=FILTER_LENGTH,  # = 'startconv'
+        preprocess_filters=WIDTH,
+    )
+
+
+def magenta_encode(params, x: torch.Tensor) -> torch.Tensor:
+    """x [B, T, 1] raw waveform -> z_e [B, T/64, 64] (config.py:200-249):
+    a k=1 startconv, 6 x [causal gated conv pair (dilation 2^(i%5)),
+    1x1 residual, avg-pool by 2], a 1x1 bottleneck."""
+    en = conv1d(mu_law_encode(x), params["startconv"]["kernel"],
+                params["startconv"]["bias"], padding="SAME")
+    for i, layer in enumerate(params["layers"]):
+        dilation = 2 ** (i % AE_NUM_STAGES)
+        conv = causal_conv1d(en, layer["conv"]["kernel"],
+                             layer["conv"]["bias"], dilation=dilation)
+        gate = causal_conv1d(en, layer["gate"]["kernel"],
+                             layer["gate"]["bias"], dilation=dilation)
+        d = torch.tanh(conv) * torch.sigmoid(gate)
+        en = en + conv1d(d, layer["res"]["kernel"], layer["res"]["bias"],
+                         padding="SAME")
+        en = pool1d(en, 2)
+    return conv1d(en, params["bottleneck"]["kernel"],
+                  params["bottleneck"]["bias"], padding="SAME")
+
+
+def magenta_generate(params, x_cond: torch.Tensor, gc_one_hot: torch.Tensor,
+                     *, length: Optional[int] = None,
+                     generator: Optional[torch.Generator] = None,
+                     mode: str = "sample", dtype: torch.dtype = torch.float32,
+                     verbose: bool = False) -> torch.Tensor:
+    """Encode the conditioning wav once, then generate with the decoder
+    conditioned per layer on the codes (local) and the speaker (global).
+
+    x_cond: [B, T, 1]; gc_one_hot: [B, 1, num_speakers]; ``length`` (a
+    multiple of the frame ratio) may exceed T: the latent frames are
+    zero-padded to it, and samples t < T never read the padded frames.
+    ``dtype``: float32 | bfloat16 | int8 (generation/fast.py).  Returns the
+    float waveform [B, length]."""
+    from vqvae_wavenet_torch.generation.fast import generate
+    cfg = magenta_wavenet_config()
+    length = length or x_cond.shape[1]
+    z_e = magenta_encode(params["encoder"], x_cond)
+    # config.py:278: the decoder sees e_k
+    encoding = vq_mod.quantize(params["vq"], z_e, mode="st")["e_k"]
+    if length > x_cond.shape[1]:
+        ratio = x_cond.shape[1] // encoding.shape[1]
+        if length % ratio:
+            raise ValueError(f"length {length} is not a multiple of the frame "
+                             f"ratio {ratio}")
+        encoding = F.pad(encoding,
+                         (0, 0, 0, (length - x_cond.shape[1]) // ratio))
+    gc = params["speaker_emb"][torch.argmax(gc_one_hot, dim=-1)]  # [B, 1, 64]
+    return generate(params["decoder"], cfg, encoding, length=length,
+                    generator=generator, mode=mode, gate_order="sigmoid_first",
+                    dtype=dtype, global_condition=gc, verbose=verbose)

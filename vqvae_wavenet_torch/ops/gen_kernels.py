@@ -1,10 +1,14 @@
 """Whole-clip WaveNet generation: packing, the plain PyTorch step, and the
 wrapper of the CUDA kernel ``csrc/gen_wavenet.cu``.
 
-The kernel replaces vqvae_wavenet_tpu/ops/gen_pallas.py::_make_kernel
-(resident and hybrid modes), launched at gen_pallas.py:950.  Its packing
-follows the math of gen_pallas.py:104-160, 760-777 without the TPU tile
-padding, stored transposed so each output column's weights are contiguous:
+The kernel replaces vqvae_wavenet_tpu/ops/gen_pallas.py::_make_kernel in
+all its modes, launched at gen_pallas.py:950: resident and hybrid (float32
+and bfloat16 weights), and streamed with int8 weights.  The TPU's streamed
+float mode exists because weights outgrew VMEM; this kernel reads weights
+from device memory at every size, so it computes that mode's function
+too.  Its packing follows the math of gen_pallas.py:104-160, 760-777
+without the TPU tile padding, stored transposed so each output column's
+weights are contiguous:
 
   w_a   [L, 2D, K*R + C]  taps (oldest first) + current + lc -> gate input
   b_a   [L, 2D]
@@ -15,9 +19,23 @@ padding, stored transposed so each output column's weights are contiguous:
   w_h1  [S, S + C], b_h1 [S]          postprocess1 on [relu(skip) | lc]
   w_pp2 [Q, S],  b_pp2 [Q]            postprocess2 -> logits
 
-all in the activation dtype (float32 or bfloat16).  The global condition is
-constant over a clip and is folded into per-layer terms gcon [L, B, 2D] and
-g_pp1 [B, S] before the launch (gen_pallas.py:826-843).
+all in the activation dtype (float32 or bfloat16).  PK is padded to a
+multiple of 8 with zero columns for the oldest window slots (Magenta's
+startconv has PK = 2), which leaves the function unchanged.  The global
+condition is constant over a clip and is folded into per-layer terms gcon
+[L, B, 2D] and g_pp1 [B, S] before the launch (gen_pallas.py:826-843).
+
+int8 (gen_pallas.py:104-159, 584-588): per layer, each *input row* of the
+JAX streamed block -- the K*R tap rows, the C lc rows, the D skip rows, the
+bias row and the skip-bias row -- is quantized across its output columns
+with one scale, absmax / 127 (1.0 for a zero row), q = clip(round-half-
+even(w / scale), -127, 127).  The math uses bf16(q * bf16(scale)) with
+bf16 activations.  In this layout a JAX row scale becomes a per-input-
+index scale: ``s_a [L, K*R + C]`` for w_a and ``s_s [L, D]`` for the skip
+half, which is int8 ``w_sr [L, S, D]``; the res half stays bfloat16 in
+``w_r [L, R, D]``.  The two bias rows are quantized too and stored already
+dequantized in bfloat16 (b_a, and the skip half of b_sr): the same values
+the kernel would compute.  Everything else stays bfloat16, as in JAX.
 
 Rounding points (the kernel's and ``gen_step``'s alike): every product
 accumulates in float32; ``current`` is cast to the activation dtype after
@@ -32,20 +50,24 @@ here, so the plain version samples identically.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from vqvae_wavenet_torch.ops import _build
 from vqvae_wavenet_torch.ops.mu_law import mu_law_decode, mu_law_encode
 
 
-# kernel launches: one added where generate_clip_cuda launches, nowhere else
+# kernel launches, one added where generate_clip_cuda launches and nowhere
+# else: float32 / bfloat16 weights in ``launches``, int8 in ``int8_launches``
 launches = 0
+int8_launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 @dataclass
@@ -65,10 +87,20 @@ class GenWeights:
     b_pp2: torch.Tensor
     dilations: Tuple[int, ...]
     kernel_size: int
+    # int8 only: per-input-index scales (bf16 values, float32) of w_a and of
+    # the int8 skip half w_sr, and the bfloat16 res half
+    s_a: Optional[torch.Tensor] = None
+    s_s: Optional[torch.Tensor] = None
+    w_r: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.w_a.dtype == torch.int8
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.w_a.dtype
+        """The activation dtype (bfloat16 for int8 weights)."""
+        return torch.bfloat16 if self.quantized else self.w_a.dtype
 
     @property
     def device(self) -> torch.device:
@@ -84,12 +116,46 @@ class GenWeights:
         K = self.kernel_size
         return L, K, R, two_d // 2, S, Q, krc - K * R, PK
 
+    def dequantized(self) -> "GenWeights":
+        """The bfloat16 weights that int8 weights stand for (the plain
+        twin runs these through the bf16 step)."""
+        if not self.quantized:
+            return self
+        bf = torch.bfloat16
+        w_a = dequantize(self.w_a, self.s_a[:, None, :])
+        w_s = dequantize(self.w_sr, self.s_s[:, None, :])
+        return dataclasses.replace(
+            self, w_a=w_a, w_sr=torch.cat([w_s, self.w_r.to(bf)], dim=1),
+            s_a=None, s_s=None, w_r=None)
+
+
+def quantize_rows(rows: torch.Tensor):
+    """Per-row int8 quantization of gen_pallas.py:139-143 over the last
+    axis: returns (q int8 [..., n], scale float32 [...]) with scale =
+    absmax / 127 (1.0 for a zero row), q = clip(round(w / scale), -127,
+    127), rounding half to even, all in float32."""
+    a = rows.float()
+    absmax = a.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """bf16(float(q) * float(bf16(scale))) -- the weight the int8 math uses
+    (gen_pallas.py:584-588; the product of two bf16 values is exact in
+    float32, so this is bf16 x bf16 rounded once).  ``scale`` broadcasts
+    against ``q``."""
+    s = scale.to(torch.bfloat16).float()
+    return (q.float() * s).to(torch.bfloat16)
+
 
 def pack_gen_params(params, cfg, dtype: torch.dtype = torch.float32,
                     device=None) -> GenWeights:
     """Pack a decoder parameter dict (JAX layouts, torch tensors) for the
     kernel.  ``cfg`` is a WavenetConfig; the decoder must have lc kernels
-    and preprocess_filters == residual_filters, as the TPU kernel required."""
+    and preprocess_filters == residual_filters, as the TPU kernel required.
+    ``dtype``: float32 | bfloat16 | int8 (see the module doc)."""
     lp = params["layers"]
     if "lc_kernel" not in lp:
         raise ValueError("generation kernel needs a local condition "
@@ -101,20 +167,26 @@ def pack_gen_params(params, cfg, dtype: torch.dtype = torch.float32,
     L, K = cfg.num_layers, cfg.kernel_size
     R, D = cfg.residual_filters, cfg.dilation_filters
 
-    def cv(x):
-        return x.to(device=device, dtype=dtype).contiguous()
+    int8 = dtype == torch.int8
+    act = torch.bfloat16 if int8 else dtype
 
-    taps = lp["kernel"].reshape(L, K * R, 2 * D)
-    w_a = torch.cat([taps, lp["lc_kernel"]], dim=1).transpose(1, 2)
-    w_sr = torch.cat([lp["skip_kernel"], lp["res_kernel"]], dim=2)
+    def cv(x, dt=act):
+        return x.to(device=device, dtype=dt).contiguous()
+
+    # [K*R + C, 2D]: taps (oldest first) and lc, JAX's input rows
+    w_a = torch.cat([lp["kernel"].reshape(L, K * R, 2 * D),
+                     lp["lc_kernel"]], dim=1)
+    b_a, skip, skip_b = lp["bias"], lp["skip_kernel"], lp["skip_bias"]
     pp1 = params["postprocess1"]
     w_h1 = torch.cat([pp1["kernel"][0], pp1["lc_kernel"]], dim=0)
-    return GenWeights(
-        w_a=cv(w_a), b_a=cv(lp["bias"]),
-        w_sr=cv(w_sr.transpose(1, 2)),
-        b_sr=cv(torch.cat([lp["skip_bias"], lp["res_bias"]], dim=1)),
-        w_pre=cv(params["preprocess"]["kernel"][:, 0, :].T),
-        b_pre=cv(params["preprocess"]["bias"]),
+    # zero columns for the oldest window slots, up to a multiple of 8
+    w_pre = params["preprocess"]["kernel"][:, 0, :].T
+    w_pre = F.pad(w_pre, (-w_pre.shape[1] % 8, 0))
+    w = GenWeights(
+        w_a=cv(w_a.transpose(1, 2)), b_a=cv(b_a),
+        w_sr=cv(torch.cat([skip, lp["res_kernel"]], dim=2).transpose(1, 2)),
+        b_sr=cv(torch.cat([skip_b, lp["res_bias"]], dim=1)),
+        w_pre=cv(w_pre), b_pre=cv(params["preprocess"]["bias"]),
         w_ss=cv(params["skip_start"]["kernel"][0].T),
         b_ss=cv(params["skip_start"]["bias"]),
         w_h1=cv(w_h1.T), b_h1=cv(pp1["bias"]),
@@ -122,6 +194,21 @@ def pack_gen_params(params, cfg, dtype: torch.dtype = torch.float32,
         b_pp2=cv(params["postprocess2"]["bias"]),
         dilations=tuple(int(d) for d in cfg.dilation_rates),
         kernel_size=K)
+    if not int8:
+        return w
+    q_a, s_a = quantize_rows(w_a)                   # [L, KR+C, 2D], [L, KR+C]
+    q_s, s_s = quantize_rows(skip)                  # [L, D, S], [L, D]
+    q_b, s_b = quantize_rows(b_a)                   # one row per layer
+    q_sb, s_sb = quantize_rows(skip_b)
+    b_sr = torch.cat([dequantize(q_sb, s_sb[:, None]),
+                      lp["res_bias"].to(torch.bfloat16)], dim=1)
+    return dataclasses.replace(
+        w, w_a=cv(q_a.transpose(1, 2), torch.int8),
+        s_a=cv(s_a.to(torch.bfloat16), torch.float32),
+        b_a=cv(dequantize(q_b, s_b[:, None])),
+        w_sr=cv(q_s.transpose(1, 2), torch.int8),
+        s_s=cv(s_s.to(torch.bfloat16), torch.float32),
+        w_r=cv(lp["res_kernel"].transpose(1, 2)), b_sr=cv(b_sr))
 
 
 def condition_terms(params, w: GenWeights, batch: int,
@@ -200,31 +287,33 @@ def select_bins(logits: torch.Tensor, mode: str, seed: int,
 
 # -------------------------------------------------------------- plain step
 
-def init_gen_state(w: GenWeights, batch: int):
-    """Zeroed generation state: per-layer rings [(K-1)*d, B, R] (the
-    fast-WaveNet queues start zeroed, wavenet_ops.py:177-186), the
-    preprocess window of mu-law inputs [B, PK] and the step counter."""
+def init_gen_state(w: GenWeights, batch: int, act_dtype: torch.dtype):
+    """Zeroed generation state: per-layer rings [(K-1)*d, B, R] in the
+    activation dtype (the fast-WaveNet queues start zeroed,
+    wavenet_ops.py:177-186), the preprocess window of mu-law inputs [B, PK]
+    and the step counter."""
     _, K, R, _, _, _, _, PK = w.dims
     return {
         "t": 0,
         "window": torch.zeros((batch, PK), dtype=torch.float32,
                               device=w.device),
-        "rings": [torch.zeros(((K - 1) * d, batch, R), dtype=w.dtype,
+        "rings": [torch.zeros(((K - 1) * d, batch, R), dtype=act_dtype,
                               device=w.device) for d in w.dilations],
     }
 
 
 def gen_step(w: GenWeights, state, x_in: torch.Tensor, lc_t: torch.Tensor,
-             gcon: torch.Tensor, g_pp1: torch.Tensor,
+             gcon: torch.Tensor, g_pp1: torch.Tensor, act_dtype: torch.dtype,
              gate_order: str = "tanh_first") -> torch.Tensor:
     """One autoregressive step with the kernel's rounding points (after
     vqvae_wavenet_tpu/generation/fast.py:63-153).  Updates ``state`` in
-    place.
+    place.  Activations round to ``act_dtype``; the weights may be float32
+    copies of bfloat16 values (every product is float32 either way).
 
     x_in: [B] float32 input sample (the previous output; 0 at t=0).
     lc_t: [B, C] local condition frame.  Returns float32 logits [B, Q]."""
     _, K, R, D, S, Q, _, _ = w.dims
-    dt = w.dtype
+    dt = act_dtype
     t = state["t"]
     f = torch.float32
     window = torch.cat([state["window"][:, 1:],
@@ -264,10 +353,18 @@ def generate_clip_plain(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
     """The plain twin of the kernel: ``length`` steps of ``gen_step`` plus
     sampling.  lc: [B, T_cond, C]; forced: optional [B, length] float32
     inputs (teacher forcing: input i is the ground-truth sample i-1).
-    Returns (bins int64 [B, length], logits float32 [B, length, Q] or None)."""
+    Returns (bins int64 [B, length], logits float32 [B, length, Q] or None).
+    int8 weights are dequantized once and run through the bf16 step."""
+    w = w.dequantized()
+    dt = w.dtype
+    # exact float32 copies: the step's products are float32 either way
+    w = dataclasses.replace(w, **{f.name: getattr(w, f.name).float()
+                                  for f in dataclasses.fields(w)
+                                  if isinstance(getattr(w, f.name),
+                                                torch.Tensor)})
     B, t_cond, _ = lc.shape
     ratio = length // t_cond
-    state = init_gen_state(w, B)
+    state = init_gen_state(w, B, dt)
     x_in = torch.zeros((B,), dtype=torch.float32, device=w.device)
     bins_out: List[torch.Tensor] = []
     logits_out: List[torch.Tensor] = []
@@ -275,7 +372,7 @@ def generate_clip_plain(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
         if forced is not None:
             x_in = forced[:, i].float()
         logits = gen_step(w, state, x_in, lc[:, i // ratio], gcon, g_pp1,
-                          gate_order)
+                          dt, gate_order)
         bins = select_bins(logits, mode, seed, i)
         bins_out.append(bins)
         if want_logits:
@@ -294,7 +391,7 @@ def _lib():
     lib.gen_wavenet.argtypes = (
         [ctypes.c_int] * 12            # dtype, L K R D S Q C PK, B length ratio
         + [ctypes.c_void_p] * 2        # dil, ring_off
-        + [ctypes.c_void_p] * 12       # packed weights
+        + [ctypes.c_void_p] * 15       # packed weights, int8 s_a s_s w_r
         + [ctypes.c_void_p] * 3        # lc, gcon, g_pp1
         + [ctypes.c_void_p, ctypes.c_int]   # inputs, forced
         + [ctypes.c_void_p] * 8        # ring cur gated skip h1 logits logits_out bins
@@ -309,27 +406,31 @@ def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
                        gate_order: str = "tanh_first",
                        forced: Optional[torch.Tensor] = None,
                        want_logits: bool = False):
-    """Launch the persistent whole-clip kernel once (one block per SM).
+    """Launch the persistent whole-clip kernel once (one block per SM):
+    its float32, bfloat16 or int8-weight variant, by the weights' type.
     Same contract as ``generate_clip_plain``."""
-    global launches
+    global launches, int8_launches
     L, K, R, D, S, Q, C, PK = w.dims
     dev = w.device
+    q8 = w.quantized
     if dev.type != "cuda":
         raise ValueError("generate_clip_cuda needs CUDA weights")
-    if w.dtype not in _DTYPES:
-        raise TypeError(f"generation kernel takes float32 or bfloat16, "
-                        f"not {w.dtype}")
+    if w.w_a.dtype not in _DTYPES:
+        raise TypeError(f"generation kernel takes float32, bfloat16 or int8 "
+                        f"weights, not {w.w_a.dtype}")
     if mode not in ("greedy", "sample"):
         raise NotImplementedError(f"decode mode {mode} not implemented")
     if gate_order not in ("tanh_first", "sigmoid_first"):
         raise ValueError(f"gate_order {gate_order}")
-    # the kernel reads every weight row as 16-byte vectors
+    # the kernel reads every weight row as 16-byte vectors: 8 bf16 values,
+    # 4 float32 or 16 int8 (w_a's rows of K*R+C and the skip rows of D)
     widths = {"K*R+C": K * R + C, "D": D, "R": R, "S": S, "S+C": S + C,
               "PK": PK}
-    odd = {k: v for k, v in widths.items() if v % 8}
+    odd = {k: v for k, v in widths.items()
+           if v % (16 if q8 and k in ("K*R+C", "D") else 8)}
     if odd:
         raise ValueError(f"generation kernel needs packed widths that are "
-                         f"multiples of 8, got {odd}")
+                         f"multiples of 8 (16 for int8 rows), got {odd}")
     B, t_cond, c_lc = lc.shape
     if c_lc != C or length < 1 or length % t_cond:
         raise ValueError(f"lc {tuple(lc.shape)} does not fit C={C} and "
@@ -338,11 +439,25 @@ def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
         raise ValueError("lc is not on the weights' device")
     tensors = [w.w_a, w.b_a, w.w_sr, w.b_sr, w.w_pre, w.b_pre, w.w_ss,
                w.b_ss, w.w_h1, w.b_h1, w.w_pp2, w.b_pp2]
+    # w_a and w_sr (0, 2) hold the weights' type, the rest the activations'
+    checks = [(x, w.w_a.dtype if i in (0, 2) else w.dtype)
+              for i, x in enumerate(tensors)]
+    if q8:
+        tensors += [w.s_a, w.s_s, w.w_r]
+        checks += [(w.s_a, torch.float32), (w.s_s, torch.float32),
+                   (w.w_r, torch.bfloat16)]
+        if (tuple(w.w_sr.shape) != (L, S, D) or tuple(w.s_a.shape)
+                != (L, K * R + C) or tuple(w.s_s.shape) != (L, D)
+                or tuple(w.w_r.shape) != (L, R, D)):
+            raise ValueError("int8 weights do not have the packed shapes")
+    elif tuple(w.w_sr.shape) != (L, S + R, D):
+        raise ValueError("w_sr does not have the packed shape")
     lc_k = lc.to(w.dtype).transpose(0, 1).contiguous()         # [T_cond, B, C]
-    for x in tensors + [gcon, g_pp1]:
-        if x.device != dev or x.dtype != w.dtype or not x.is_contiguous():
+    for x, dt in checks + [(gcon, w.dtype), (g_pp1, w.dtype)]:
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError("packed weights and condition terms must share "
-                             "device and dtype, contiguous")
+                             "the device, have the packed dtypes and be "
+                             "contiguous")
     if any(x.data_ptr() % 16 for x in tensors):
         raise ValueError("packed weights must start 16-byte aligned")
     if tuple(gcon.shape) != (L, B, 2 * D) or tuple(g_pp1.shape) != (B, S):
@@ -368,15 +483,15 @@ def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
                   if want_logits else None)
     bins = torch.empty((length, B), dtype=torch.int32, device=dev)
     barrier = torch.zeros((1,), dtype=torch.int64, device=dev)
+    ptrs = [x.data_ptr() for x in tensors] + [None] * (15 - len(tensors))
 
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gen_wavenet(
-            _DTYPES[w.dtype], L, K, R, D, S, Q, C, PK, B, length,
+            _DTYPES[w.w_a.dtype], L, K, R, D, S, Q, C, PK, B, length,
             length // t_cond,
-            dil.data_ptr(), ring_off.data_ptr(),
-            *[x.data_ptr() for x in tensors],
+            dil.data_ptr(), ring_off.data_ptr(), *ptrs,
             lc_k.data_ptr(), gcon.data_ptr(), g_pp1.data_ptr(),
             inputs.data_ptr(), int(forced is not None),
             ring.data_ptr(), cur.data_ptr(), gated.data_ptr(),
@@ -386,7 +501,10 @@ def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
             int(mode == "sample"), int(gate_order == "sigmoid_first"),
             seed & 0xFFFFFFFFFFFFFFFF, stream)
     _build.check(lib, err, "gen_wavenet")
-    launches += 1
+    if q8:
+        int8_launches += 1
+    else:
+        launches += 1
     return (bins.T.long(),
             logits_out.transpose(0, 1) if want_logits else None)
 

@@ -9,8 +9,8 @@ checkpoint) and read by ``load_npz``.
 
 ``random_params_np`` builds a tree with the JAX shapes and init limits from
 a numpy seed (models/vqvae.py:46-74, encoders.py:38-46, 104-122,
-wavenet.py:35-81, ops/conv.py:30-41, vq.py:35-49), so the port can run and
-train at full width without jax.  ``from_jax_train_state`` carries a whole
+wavenet.py:35-81, ops/conv.py:30-41, vq.py:35-49, models/magenta.py:72-117),
+so the port can run and train at full width without jax.  ``from_jax_train_state`` carries a whole
 JAX train state (params, EMA shadows, optax Adam moments and count, model
 state, step) into the port's (training/train_loop.py).
 """
@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 # the parameter groups the voice-conversion path reads
-_PARAM_KEYS = ("encoder", "vq", "speaker_embedding", "cond_conv", "decoder")
+_PARAM_KEYS = ("encoder", "vq", "speaker_embedding", "speaker_emb",
+               "cond_conv", "decoder")
 _STATE_KEYS = ("encoder",)
 
 
@@ -42,8 +43,8 @@ def to_torch(tree, device=None):
 def from_jax_tree(params, state=None, device=None):
     """A JAX (params, model_state) pair with numpy leaves -> the port's
     (params, state) of torch tensors, keeping the groups the port uses:
-    encoder, vq, speaker_embedding, cond_conv and decoder parameters, and
-    the encoder's batch-norm statistics."""
+    encoder, vq, speaker_embedding (Magenta: speaker_emb), cond_conv and
+    decoder parameters, and the encoder's batch-norm statistics."""
     p = {k: to_torch(params[k], device) for k in _PARAM_KEYS
          if params.get(k) is not None}
     s = {k: to_torch(state[k], device) for k in _STATE_KEYS
@@ -135,13 +136,8 @@ def lc_channels(cfg, num_speakers: Optional[int]) -> int:
     return cfg.latent_dim + gc
 
 
-def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):
-    """A random (params, state) tree in the JAX shapes and init limits for
-    a ModelConfig with Encoder_64.  Leaves are float32 numpy arrays."""
-    if cfg.encoder != "64":
-        raise NotImplementedError("random_params_np covers Encoder_64 only")
-    rng = np.random.default_rng(seed)
-
+def _uniform_inits(rng):
+    """(glorot, uus) initialisers drawing from ``rng``."""
     def uniform(shape, limit):
         return rng.uniform(-limit, limit, size=shape).astype(np.float32)
 
@@ -155,6 +151,86 @@ def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):
     def uus(shape, factor=1.0):                          # ops/conv.py:30-41
         fan = float(np.prod(shape[:-1])) if len(shape) > 1 else float(shape[0])
         return uniform(shape, factor * np.sqrt(3.0 / fan))
+
+    return glorot, uus
+
+
+def _decoder_np(w, c_lc: int, uus, c_gc: Optional[int] = None,
+                bias: float = 0.0):
+    """WaveNet decoder parameters (wavenet.py:35-81) for WavenetConfig
+    ``w``: kernels uniform-unit-scaling, every bias ``bias``; gc kernels
+    (per layer and in postprocess1) when ``c_gc`` is given."""
+    L, K = w.num_layers, w.kernel_size
+    R, D, S = w.residual_filters, w.dilation_filters, w.skip_filters
+    Q, PK, PF = (w.quantization_channels, w.preprocess_kernel_size,
+                 w.preprocess_filters)
+
+    def stack(shape):
+        return np.stack([uus(shape) for _ in range(L)])
+
+    def b(*shape):
+        return np.full(shape, bias, np.float32)
+
+    dec = {
+        "preprocess": {"kernel": uus((PK, 1, PF)), "bias": b(PF)},
+        "skip_start": {"kernel": uus((1, PF, S)), "bias": b(S)},
+        "layers": {"kernel": stack((K, R, 2 * D)), "bias": b(L, 2 * D),
+                   "skip_kernel": stack((D, S)), "skip_bias": b(L, S),
+                   "res_kernel": stack((D, R)), "res_bias": b(L, R),
+                   "lc_kernel": stack((c_lc, 2 * D))},
+        "postprocess1": {"kernel": uus((1, S, S)), "bias": b(S),
+                         "lc_kernel": uus((c_lc, S))},
+        "postprocess2": {"kernel": uus((1, S, Q)), "bias": b(Q)},
+    }
+    if c_gc is not None:
+        dec["layers"]["gc_kernel"] = stack((c_gc, 2 * D))
+        dec["postprocess1"]["gc_kernel"] = uus((c_gc, S))
+    return dec
+
+
+def _random_magenta_np(num_speakers: int, rng):
+    """init_magenta_params (models/magenta.py:72-117): uniform-unit-scaling
+    kernels, every conv bias 1.0 (masked.py:72), the per-layer and
+    postprocess1 gc biases 1.0."""
+    from vqvae_wavenet_torch.models import magenta as m
+    _, uus = _uniform_inits(rng)
+
+    def conv_p(ksize, cin, cout):
+        return {"kernel": uus((ksize, cin, cout)),
+                "bias": np.ones(cout, np.float32)}
+
+    encoder = {
+        "startconv": conv_p(1, 1, m.AE_WIDTH),
+        "layers": [
+            {"conv": conv_p(m.AE_FILTER_LENGTH, m.AE_WIDTH, m.AE_WIDTH),
+             "gate": conv_p(m.AE_FILTER_LENGTH, m.AE_WIDTH, m.AE_WIDTH),
+             "res": conv_p(1, m.AE_WIDTH, m.AE_WIDTH)}
+            for _ in range(m.AE_NUM_LAYERS)],
+        "bottleneck": conv_p(1, m.AE_WIDTH, m.AE_BOTTLENECK_WIDTH),
+    }
+    w = m.magenta_wavenet_config()
+    decoder = _decoder_np(w, m.AE_BOTTLENECK_WIDTH, uus,
+                          c_gc=m.AE_BOTTLENECK_WIDTH, bias=1.0)
+    decoder["layers"]["gc_bias"] = np.ones(
+        (w.num_layers, 2 * w.dilation_filters), np.float32)
+    decoder["postprocess1"]["gc_bias"] = np.ones(w.skip_filters, np.float32)
+    return {"encoder": encoder,
+            "vq": {"embedding": uus((m.K_CODES, m.AE_BOTTLENECK_WIDTH))},
+            "speaker_emb": uus((num_speakers, m.AE_BOTTLENECK_WIDTH)),
+            "decoder": decoder}
+
+
+def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):
+    """A random (params, state) tree in the JAX shapes and init limits for
+    a ModelConfig with Encoder_64, or of the Magenta family (whose model
+    state is empty).  Leaves are float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    if cfg.model_family == "magenta":
+        return _random_magenta_np(num_speakers or 109, rng), {}
+    if cfg.encoder != "64":
+        raise NotImplementedError("random_params_np covers Encoder_64 and "
+                                  "the Magenta family only")
+    glorot, uus = _uniform_inits(rng)
 
     def zeros(*shape):
         return np.zeros(shape, np.float32)
@@ -194,26 +270,5 @@ def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):
             else num_speakers)
         params["cond_conv"] = {"kernel": glorot((3, cfg.latent_dim + gc, 128)),
                                "bias": zeros(128)}
-
-    # WaveNet decoder (wavenet.py:35-81)
-    w = cfg.wavenet
-    L, K = w.num_layers, w.kernel_size
-    R, D, S = w.residual_filters, w.dilation_filters, w.skip_filters
-    Q, PK, PF = (w.quantization_channels, w.preprocess_kernel_size,
-                 w.preprocess_filters)
-
-    def stack(shape):
-        return np.stack([uus(shape) for _ in range(L)])
-
-    params["decoder"] = {
-        "preprocess": {"kernel": uus((PK, 1, PF)), "bias": zeros(PF)},
-        "skip_start": {"kernel": uus((1, PF, S)), "bias": zeros(S)},
-        "layers": {"kernel": stack((K, R, 2 * D)), "bias": zeros(L, 2 * D),
-                   "skip_kernel": stack((D, S)), "skip_bias": zeros(L, S),
-                   "res_kernel": stack((D, R)), "res_bias": zeros(L, R),
-                   "lc_kernel": stack((c_lc, 2 * D))},
-        "postprocess1": {"kernel": uus((1, S, S)), "bias": zeros(S),
-                         "lc_kernel": uus((c_lc, S))},
-        "postprocess2": {"kernel": uus((1, S, Q)), "bias": zeros(Q)},
-    }
+    params["decoder"] = _decoder_np(cfg.wavenet, c_lc, uus)
     return params, state
