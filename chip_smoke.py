@@ -40,10 +40,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              at -length 6656 -batch 8 on a synthetic VCTK-layout corpus
              with the shipped config in f32 and in bf16, six steps each,
              then vqvae_wavenet_torch.generate from the bf16 checkpoint;
-             the launch counters are reset before each run and read after.
+             the launch counters are reset before each run and read after;
+  11. sp-stack  the stack kernels' sequence-parallel variants (start
+             offset, stream output, dX seed) against their plain twins on
+             one dilation cycle of the 2-rank shape (B=8, T_ext=5,376 =
+             3,328 + a 2,048-row halo, 84 frames), start 0 and 2,048, f32
+             and bf16; times beside the plain kernels' on the same shape;
+  12. sp-train  sequence-parallel training: the 2-rank SP loss and
+             gradients (spawned ranks, run_ranks) against the single-device
+             port's loss_and_grads on one fixed batch and weights at B=8 x
+             6656, f32 and bf16; 4 ranks at B=2 (halos of two hops); then
+             vqvae_wavenet_torch.train -time_shards 2 for six steps in f32
+             and bf16 and generate from the bf16 checkpoint; the SP kernels'
+             launches are read from the ranks of those runs.  Both ranks
+             share the one GPU, so they talk over gloo through host memory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and
 prints no result.  Outputs go under build/chip_smoke/ (gitignored).
+``--only PHASE ...`` runs the device and build phases and the named ones
+(for iterating on one part), and prints no kernels' record.
 """
 from __future__ import annotations
 
@@ -74,6 +89,10 @@ TRAIN = {   # name -> (source, the TPU kernel it replaces)
                            "vqvae_wavenet_tpu/ops/train_pallas.py:1981"),
     "train_epilogue_bwd": ("vqvae_wavenet_torch/csrc/train_epilogue.cu",
                            "vqvae_wavenet_tpu/ops/train_pallas.py:2008"),
+    "train_stack_fwd_sp": ("vqvae_wavenet_torch/csrc/train_stack_fwd.cu",
+                           "vqvae_wavenet_tpu/ops/train_pallas.py:1196"),
+    "train_stack_bwd_sp": ("vqvae_wavenet_torch/csrc/train_stack_bwd.cu",
+                           "vqvae_wavenet_tpu/ops/train_pallas.py:735"),
 }
 
 # the H100 SXM's published peaks: bf16 tensor cores, f32 outside the
@@ -87,6 +106,7 @@ BF16_LOGIT_TOL = 5e-2
 VQ_TIE_REL = 1e-5
 GREEDY_TIE = 1e-4
 TRAIN_TOL = {"f32": 1e-3, "bf16": 2e-2}
+SP_SEED = 7
 
 
 def log(msg: str) -> None:
@@ -822,15 +842,7 @@ def phase_train_e2e(card: str):
     from vqvae_wavenet_torch.ops import (epilogue_kernels, train_kernels,
                                          vq_kernels)
     data = _train_corpus()
-    with open(os.path.join(REPO, "model_parameters.json")) as f:
-        mp = json.load(f)
-    mp["wavenet_parameters"] = os.path.join(REPO, "wavenet_parameters.json")
-    configs = {}
-    for dtype in ("f32", "bf16"):
-        path = os.path.join(OUT, f"model_{dtype}.json")
-        with open(path, "w") as f:
-            json.dump(dict(mp, train_dtype=dtype), f)
-        configs[dtype] = path
+    configs = {dtype: _train_config(dtype) for dtype in ("f32", "bf16")}
     launches = {}
     ckpt = None
     for dtype in ("f32", "bf16"):
@@ -885,19 +897,362 @@ def phase_train_e2e(card: str):
     return launches
 
 
-def main() -> int:
+def phase_sp_stack(card: str):
+    """The stack kernels' SP variants against their plain twins on one
+    dilation cycle (layers 0-9, dilations 1-512) of the 2-rank shape:
+    B=8, T_ext = 3,328 + 2,048 = 5,376 rows, 84 frames; start 0 (rank 1)
+    and 2,048 (rank 0), the stream output and a random dxout; f32 and bf16,
+    tanh_first.  Tolerances as in [train-stack].  Rows before the start
+    must be exactly zero in skip, act, xout and dx0.  Times (bf16 and f32,
+    start 0: every row is needed) beside the plain kernels' on the same
+    shape.  Returns the JSON fields of both (bf16)."""
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    B, T, F, lg = 8, 5376, 84, 10
+    out = {}
+    for dtype in ("f32", "bf16"):
+        cfg, w, x0, dskip = _stack_inputs(B, T, F, dtype, False, seed=11)
+        w = [t[:lg].contiguous() for t in w]
+        dils = tuple(cfg.wavenet.dilation_rates[:lg])
+        g = torch.Generator(device="cpu").manual_seed(12)
+        dxout = (torch.randn(x0.shape, generator=g) * 1e-3).to("cuda",
+                                                                x0.dtype)
+        errs = {}
+        for start in (0, 2048):
+            kw = dict(dils=dils, start=start, with_xout=True)
+            fk = tk.stack_forward_cuda(*w, x0, **kw)
+            fp = tk.stack_forward_plain(*w, x0, **kw)
+            names = ("skip_sum", "act", "xs", "xout")
+            for name, a in zip(names, fk):
+                head = a[:, :, :start] if a.dim() == 4 else a[:, :start]
+                if name == "xs":
+                    head = head[1:]               # xs[0] = x0 as given
+                if head.numel() and not bool((head == 0).all()):
+                    raise AssertionError(f"sp-stack {dtype}: {name} rows "
+                                         f"before start {start} not zero")
+            f_err = _check_leaves(f"sp-stack fwd start={start}", dtype, {
+                "skip_sum": (fk[0][:, start:], fp[0][:, start:]),
+                "xout": (fk[3][:, start:], fp[3][:, start:]),
+                "act[0]": (fk[1][0], fp[1][0])})
+            del fp
+            bargs = (dskip, fk[1], fk[2], w[0], w[1], w[2])
+            bkw = dict(start=start, dxout=dxout)
+            gk = tk.stack_backward_cuda(*bargs, dils, F, **bkw)
+            gp = tk.stack_backward_plain(*bargs, dils, F, **bkw)
+            if start and not bool((gk[5][:, :start] == 0).all()):
+                raise AssertionError(f"sp-stack {dtype}: dx0 rows before "
+                                     f"start {start} not zero")
+            b_err = _check_leaves(f"sp-stack bwd start={start}", dtype, dict(
+                zip(("dk", "dsk", "drs", "drb", "dlc", "dx0"), zip(gk, gp))))
+            errs[start] = (f_err, b_err)
+            del fk, gk, gp
+        # times at start 0 (rank 1's group: every row is needed), the SP
+        # variant and the plain kernel on the same shape, in turns
+        kw = dict(dils=dils, start=0, with_xout=True)
+        sk, act, xs, _ = tk.stack_forward_cuda(*w, x0, **kw)
+        bargs = (dskip, act, xs, w[0], w[1], w[2])
+        f_ms = cuda_ms(lambda: tk.stack_forward_cuda(*w, x0, **kw), 3)
+        f0_ms = cuda_ms(lambda: tk.stack_forward_cuda(*w, x0, dils), 3)
+        fp_ms = cuda_ms(lambda: tk.stack_forward_plain(*w, x0, **kw), 2)
+        b_ms = cuda_ms(lambda: tk.stack_backward_cuda(
+            *bargs, dils, F, dxout=dxout), 3)
+        b0_ms = cuda_ms(lambda: tk.stack_backward_cuda(*bargs, dils, F), 3)
+        bp_ms = cuda_ms(lambda: tk.stack_backward_plain(
+            *bargs, dils, F, dxout=dxout), 2)
+        L, K, R, D2 = w[0].shape
+        D, S, N = D2 // 2, w[1].shape[2], B * T
+        f_bound = bound(2.0 * N * L * (K * R * D2 + D * (S + R)),
+                        nbytes(*w, x0, sk, act, xs) + nbytes(x0), dtype)
+        b_bound = bound(2.0 * N * L * (2 * (R + S) * D + 2 * K * R * D2),
+                        nbytes(dskip, dxout, act, xs, *w[:3])
+                        + 4 * sum(t.numel() for t in w) + nbytes(x0), dtype)
+        log(f"[sp-stack] {dtype} B={B} T_ext={T} {lg} layers, start 0 + "
+            f"xout: fwd kernel {f_ms:.2f} ms (plain kernel without the "
+            f"variants {f0_ms:.2f}, plain twin {fp_ms:.2f}, bound "
+            f"{f_bound[0]:.2f} by {f_bound[1]}), bwd kernel {b_ms:.2f} ms "
+            f"(without the variants {b0_ms:.2f}, plain twin {bp_ms:.2f}, "
+            f"bound {b_bound[0]:.2f} by {b_bound[1]})  ({card})")
+        if dtype == "bf16":
+            out["train_stack_fwd_sp"] = {
+                "max_abs_err": max(e[0] for e in errs.values()), "ms": f_ms,
+                "plain_ms": fp_ms, "bound_ms": f_bound[0],
+                "bound_by": f_bound[1], "library_ms": None}
+            out["train_stack_bwd_sp"] = {
+                "max_abs_err": max(e[1] for e in errs.values()), "ms": b_ms,
+                "plain_ms": bp_ms, "bound_ms": b_bound[0],
+                "bound_by": b_bound[1], "library_ms": None}
+        del sk, act, xs, bargs, w, x0, dskip, dxout
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_config(dtype: str) -> str:
+    """build/chip_smoke/model_<dtype>.json: model_parameters.json with
+    "train_dtype": dtype and an absolute wavenet_parameters path (written
+    once; the ranks read the file the parent wrote)."""
+    path = os.path.join(OUT, f"model_{dtype}.json")
+    if not os.path.exists(path):
+        with open(os.path.join(REPO, "model_parameters.json")) as f:
+            mp = json.load(f)
+        mp["wavenet_parameters"] = os.path.join(REPO,
+                                                "wavenet_parameters.json")
+        os.makedirs(OUT, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(dict(mp, train_dtype=dtype), f)
+        os.replace(tmp, path)
+    return path
+
+
+def _sp_case(B: int, dtype: str, device):
+    """The [sp-train] inputs, the same in every process: the shipped config
+    (train_dtype ``dtype``) with random weights from SP_SEED and every bias
+    raised by 0.05 (so that a wrong causal pad at a shard boundary shows),
+    a batch of B random 6,656-sample clips and speakers."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.params import random_params_np, to_torch
+    cfg = ModelConfig.from_json(_train_config(dtype))
+    params, state = random_params_np(cfg, 109, seed=SP_SEED)
+
+    def bump(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: bump(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [bump(v) for v in tree]
+        return tree + np.float32(0.05) if "bias" in name else tree
+    rng = np.random.default_rng(SP_SEED)
+    x = (0.5 * np.sin(np.cumsum(rng.uniform(0.01, 0.2, (B, 6656)), axis=1))
+         + 0.05 * rng.standard_normal((B, 6656))).astype(np.float32)
+    y = np.zeros((B, 1, 109), np.float32)
+    y[np.arange(B), 0, rng.integers(0, 109, B)] = 1.0
+    return (cfg, to_torch(bump(params), device), to_torch(state, device),
+            torch.from_numpy(x[..., None]).to(device),
+            torch.from_numpy(y).to(device))
+
+
+def _host_ms(fn, device) -> float:
+    """Host milliseconds of one call of fn, synchronised on both sides."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _sp_grads_rank(sh, B: int, dtypes):
+    """One rank of [sp-train]'s comparison: per train_dtype the SP loss
+    and, on rank 0, the gradients (numpy) of the fixed batch; then, warm,
+    the host ms of one more loss-and-gradients call and of the gradient
+    sum over the ranks alone (one all_reduce of as many floats)."""
+    from vqvae_wavenet_torch.ops.conv import set_full_f32
+    from vqvae_wavenet_torch.parallel.comm import all_reduce_
+    from vqvae_wavenet_torch.parallel.timeshard import sp_loss_and_grads
+    set_full_f32()
+    out = {}
+    for dtype in dtypes:
+        cfg, p, s, x, y = _sp_case(B, dtype, sh.device)
+        t_l = x.shape[1] // sh.world
+        batch = {"x": x[:, sh.rank * t_l:(sh.rank + 1) * t_l].contiguous(),
+                 "y": y}
+        loss, _, grads = sp_loss_and_grads(p, s, cfg, batch, sh)
+        flat = torch.zeros((sum(g.numel() for g in grads),),
+                           device=sh.device)
+        out[dtype] = (float(loss), [g.float().cpu().numpy() for g in grads]
+                      if sh.rank == 0 else None,
+                      _host_ms(lambda: sp_loss_and_grads(p, s, cfg, batch,
+                                                         sh), sh.device),
+                      _host_ms(lambda: all_reduce_(flat, sh), sh.device),
+                      flat.numel())
+        del grads, flat
+    out["backend"] = sh.backend
+    return out
+
+
+def _check_sp_grads(tag, dtype, got, ref, ref32=None) -> float:
+    """f32: every leaf within 5e-3 of the largest |gradient| of any leaf.
+    (JAX's own rule, 5e-3 of each leaf's largest, misses on the encoder's
+    conv leaves at this batch: their gradients jump when a rounding-level
+    change flips a relu; on the CPU, scaling the input by 1 + 1e-6 moves
+    them by 0.67 of that rule at B=2.  The share of it is printed.)
+    bf16: rel L2 < 5e-2 or abs L2 < 1e-2 of the global norm (JAX,
+    tests/test_timeshard.py:380-392) against the single-device bf16
+    gradient ``ref``, or else no further from the f32 gradient ``ref32``
+    than ``ref`` is, within 10% (tests/test_torch_sp_train.py).  Prints the
+    five leaves nearest the bound; returns the largest share of it."""
+    ref = [r.double().numpy() for r in ref]
+    gmax = max(np.abs(r).max() for r in ref)
+    gn = np.sqrt(sum(float(np.sum(r * r)) for r in ref))
+    rows, second = [], []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g = np.asarray(g, np.float64)
+        if dtype == "f32":
+            err = np.abs(g - r).max()
+            ratio = err / (5e-3 * gmax)
+            note = err / max(np.abs(r).max(), 1e-4 * gmax) / 5e-3
+        else:
+            nd = np.linalg.norm(g - r)
+            ratio = min(nd / (np.linalg.norm(r) + 1e-12) / 5e-2,
+                        nd / (1e-2 * gn))
+            note = ratio
+            if ratio >= 1:
+                r32 = ref32[i].double().numpy()
+                q = np.linalg.norm(g - r32) / np.linalg.norm(r - r32)
+                second.append((i, r.shape, q))
+                if q <= 1.1:
+                    ratio = 0.0
+        rows.append((ratio, note, i, r.shape))
+    rows.sort(key=lambda t: -t[0])
+    log(f"[{tag}] {dtype}: {len(rows)} gradient leaves, largest share of "
+        f"the bound (of JAX's per-leaf rule): "
+        + ", ".join(f"leaf {i} {tuple(sh)} {q:.3g} ({n:.3g})"
+                    for q, n, i, sh in rows[:5])
+        + (f"; held by their distance to f32 (SP / single device): "
+           + ", ".join(f"leaf {i} {tuple(sh)} {q:.3f}"
+                       for i, sh, q in second) if second else ""))
+    if rows[0][0] >= 1:
+        raise AssertionError(f"{tag} {dtype}: SP gradients disagree with "
+                             f"the single device: {rows[:5]}")
+    return rows[0][0]
+
+
+def phase_sp_train(card: str):
+    """Sequence-parallel training of the shipped config.
+    (a) The 2-rank SP loss and gradients (two ranks on this one GPU, gloo)
+        against the single-device port's loss_and_grads on one fixed
+        batch and weights (_sp_case, B=8 x 6656): f32 loss within rtol
+        2e-4, bf16 within 2e-2, gradients by _check_sp_grads.  The CPU
+        tests hold the same functions to JAX's per-leaf rules at small
+        shapes.
+    (b) 4 ranks at B=2 (T_l = 1,664 < the 2,048-row group halo: two hops,
+        starts 2,048 / 384 / 0 / 0), f32, the same checks.
+    (c) vqvae_wavenet_torch.train -time_shards 2 for six steps in f32 and
+        in bf16 at B=8 x 6656 on the synthetic corpus: finite losses, rank
+        0's checkpoint, and every rank launched both SP kernels and the VQ
+        kernel; then generate from the bf16 checkpoint.
+    Returns the SP kernels' launches in (c), summed over ranks and runs."""
+    from scipy.io import wavfile
+    from vqvae_wavenet_torch import generate as gen_cli
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.parallel import pick_backend, run_ranks
+    from vqvae_wavenet_torch.training.train_loop import loss_and_grads
+
+    for world, B, dtypes in ((2, 8, ("f32", "bf16")), (4, 2, ("f32",))):
+        ref = {}
+        for dtype in dtypes:
+            cfg, p, s, x, y = _sp_case(B, dtype, "cuda")
+            loss, _, grads = loss_and_grads(p, s, cfg, {"x": x, "y": y})
+            ref[dtype] = (float(loss), [g.float().cpu() for g in grads])
+            del p, s, grads
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = run_ranks(_sp_grads_rank, world, "cuda", B, dtypes,
+                        timeout=600)
+        secs = time.perf_counter() - t0
+        for dtype in dtypes:
+            losses = [r[dtype][0] for r in res]
+            rel = abs(losses[0] - ref[dtype][0]) / abs(ref[dtype][0])
+            _, _, ms, sum_ms, n = res[0][dtype]
+            log(f"[sp-train] {world} ranks B={B} {dtype}: loss "
+                f"{losses[0]:.6f} on every rank {len(set(losses)) == 1}, "
+                f"single device {ref[dtype][0]:.6f} (relative {rel:.3g}); "
+                f"{secs:.1f} s for the spawned run; warm, rank 0: loss and "
+                f"gradients {ms:.1f} ms, of it the gradient sum "
+                f"({n:,} floats, {res[0]['backend']}) alone {sum_ms:.1f} ms "
+                f"(host clock)  ({card})")
+            if len(set(losses)) != 1 or not rel <= (2e-4 if dtype == "f32"
+                                                     else 2e-2):
+                raise AssertionError(f"sp-train {world} ranks {dtype}: loss "
+                                     f"disagrees")
+            _check_sp_grads(f"sp-train {world} ranks", dtype,
+                            res[0][dtype][1], ref[dtype][1], ref["f32"][1])
+        del res, ref
+
+    data = _train_corpus()
+    layout = ("a GPU per rank, NCCL" if pick_backend(2, "cuda") == "nccl"
+              else "both ranks on one GPU, gloo")
+    launches = {"train_stack_fwd_sp": 0, "train_stack_bwd_sp": 0}
+    ckpt = None
+    for dtype in ("f32", "bf16"):
+        save = os.path.join(OUT, f"sp_train_{dtype}")
+        res = train_cli.main([
+            "-dataset", "VCTK", "-length", "6656", "-batch", "8", "-step",
+            "6", "-save", os.path.join(save, "weights"), "-params",
+            _train_config(dtype), "-data", data,
+            "-device", "cuda", "-log_every", "1", "-interval", "1000",
+            "-ckpt_interval", "1000", "-time_shards", "2"])
+        print()
+        steady = res["step_seconds"][2:]
+        log(f"[sp-train] CLI -time_shards 2 {dtype}: losses "
+            + " ".join(f"{v:.4f}" for v in res["losses"])
+            + f"; {len(steady) / sum(steady):.3f} steps/s over steps 3-6 "
+            f"(host clock, synchronised; first step "
+            f"{res['step_seconds'][0]:.2f} s; {layout})  ({card})")
+        log(f"[sp-train] {dtype}: kernel launches per rank {res['launches']}")
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"non-finite SP training loss ({dtype})")
+        for r in res["launches"]:
+            if min(r["train_stack_fwd_sp"], r["train_stack_bwd_sp"],
+                   r["vq_argmin"]) < 1:
+                raise AssertionError(f"a kernel of the SP path was never "
+                                     f"launched in a rank: {r}")
+            for k in launches:
+                launches[k] += r[k]
+        ckpt = res["path"] + ".npz"
+        if not os.path.exists(ckpt):
+            raise AssertionError(f"no SP checkpoint written ({dtype})")
+    audio = os.path.join(OUT, "sp_input.wav")
+    t = np.arange(2048) / 16000.0
+    wavfile.write(audio, 16000, (0.3 * np.sin(2 * np.pi * 200.0 * t)
+                                 * 32767).astype(np.int16))
+    res = gen_cli.main(["-restore", ckpt, "-audio", audio, "-speakers",
+                        "p226", "-mode", "greedy", "-params",
+                        _train_config("bf16"), "-data", data,
+                        "-device", "cuda"])
+    if res["audio"].shape != (1, 2048) or not np.isfinite(
+            res["audio"]).all():
+        raise AssertionError("generation from the SP checkpoint failed")
+    log(f"[sp-train] generated {res['audio'].shape[1]} samples from "
+        f"{os.path.basename(ckpt)} in {res['seconds']:.2f} s")
+    return launches
+
+
+PHASES = ("vq", "gen", "gen-int8", "e2e", "magenta", "train-stack",
+          "train-epilogue", "train-e2e", "sp-stack", "sp-train")
+
+
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", nargs="+", choices=PHASES, default=None,
+                        help="run only these phases (after device and "
+                             "build) and print no kernels' record")
+    only = parser.parse_args(argv).only
     card = phase_device()
     sys.path.insert(0, REPO)
     from vqvae_wavenet_torch.ops.conv import set_full_f32
     set_full_f32()
     phase_build()
+    if only is not None:
+        runs = {"vq": phase_vq, "gen": lambda: phase_gen(card),
+                "gen-int8": lambda: phase_gen_int8(card),
+                "e2e": lambda: phase_e2e(card),
+                "magenta": lambda: phase_magenta(card),
+                "train-stack": lambda: phase_train_stack(card),
+                "train-epilogue": lambda: phase_train_epilogue(card),
+                "train-e2e": lambda: phase_train_e2e(card),
+                "sp-stack": lambda: phase_sp_stack(card),
+                "sp-train": lambda: phase_sp_train(card)}
+        for name in only:
+            runs[name]()
+        log(f"[only] {' '.join(only)}: passed")
+        return 0
     vq = phase_vq()
     gen = phase_gen(card)
     gen8 = phase_gen_int8(card)
     launches = phase_e2e(card)
     magenta = phase_magenta(card)
-    train = {**phase_train_stack(card), **phase_train_epilogue(card)}
-    train_launches = phase_train_e2e(card)
+    train = {**phase_train_stack(card), **phase_train_epilogue(card),
+             **phase_sp_stack(card)}
+    train_launches = {**phase_train_e2e(card), **phase_sp_train(card)}
     kernels = [
         {"name": "vq_argmin", "route": "cuda", "source": VQ_SOURCE,
          "replaces": VQ_REPLACES, "launches": launches["vq_argmin"], **vq},

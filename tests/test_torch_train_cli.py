@@ -34,6 +34,8 @@ PORT_MODULES = [
     "vqvae_wavenet_torch.ops.gen_kernels",
     "vqvae_wavenet_torch.ops.train_kernels",
     "vqvae_wavenet_torch.ops.epilogue_kernels",
+    "vqvae_wavenet_torch.parallel", "vqvae_wavenet_torch.parallel.comm",
+    "vqvae_wavenet_torch.parallel.timeshard",
     "vqvae_wavenet_torch.training.optimizer",
     "vqvae_wavenet_torch.training.train_loop",
     "vqvae_wavenet_torch.training.checkpoint",
@@ -180,7 +182,8 @@ def test_cuda_device_without_gpu_raises(corpus, tmp_path):
         train.main(args)
 
 
-@pytest.mark.parametrize("flag", [["-time_shards", "2"],
+@pytest.mark.parametrize("flag", [["-time_shards", "2", "-decoder_halo",
+                                   "recompute"],
                                   ["-decoder_halo", "layer"],
                                   ["-coordinator", "localhost:1234"],
                                   ["-num_processes", "4"],

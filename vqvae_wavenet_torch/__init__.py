@@ -7,6 +7,8 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
                 with their plain PyTorch twins; ``_build`` compiles csrc/.
   models/     — Encoder_64, VQ lookup, VQVAE encode (local condition).
   generation/ — whole-clip autoregressive WaveNet generation.
+  training/   — train state, optimizer step, checkpoints, metrics.
+  parallel/   — ranks and exchanges of sequence-parallel training.
   params.py   — the weight bridge (JAX pytree <-> flat .npz <-> tensors).
   config.py, data.py — JSON config and wav/speaker-table readers.
   generate.py — the voice-conversion CLI (python -m vqvae_wavenet_torch.generate).

@@ -25,6 +25,17 @@
 // and a fixed-order second pass (no float atomics), so runs repeat bit for
 // bit.  dx0 on exit is dX16.
 //
+// Sequence-parallel variants (the sweep kernel's with_start and its dX
+// seed, train_pallas.py:739, :761-772, :845-848, :999-1009, :1579-1581):
+//   dxout   when given (the cotangent of the forward's stream output), dX
+//           starts from T(dxout) instead of zeros (seed_dx below);
+//   start   rows t < start lie outside the computation: the seed and every
+//           dX update leave them at zero (so dx0 is zero there), dgated
+//           writes dpre = 0 there, and the dk gather reads zeros for
+//           t - o_j < start.  The row sums (drb, dlc, dsk|drs, dk) then
+//           get nothing from those rows: their dX, dpre and gated (the
+//           forward wrote act = 0) are zero.
+//
 // What bounds it on the H100: the products, 3.77 TFLOP per step at the
 // shipped training shape (about twice the forward): ~3.8 ms at the bf16
 // tensor-core peak, ~56 ms at the f32 FFMA peak; plus ~1.6 GB of dpre
@@ -50,7 +61,7 @@ struct DgatedP {
   const T* wt;       // [resw | skipw][l]  [D, R+S]
   const T* act;      // act[l] [rows, 2D]
   T* dpre;           // [rows, 2D]
-  int R, S, D;
+  int R, S, D, T_, start;
   bool sigmoid_first;
 
   __device__ bool a8(int m, int k, T* v) const {
@@ -63,6 +74,12 @@ struct DgatedP {
     return true;
   }
   __device__ void col(int m, int c, float acc) const {
+    T* o = dpre + (long long)m * (2 * D);
+    if (m % T_ < start) {
+      o[c] = tg::from_f<T>(0.f);
+      o[D + c] = tg::from_f<T>(0.f);
+      return;
+    }
     const float dg = tg::rnd<T>(acc);
     const T* a = act + (long long)m * (2 * D);
     const float f = tg::to_f(a[c]), g = tg::to_f(a[D + c]);
@@ -81,7 +98,6 @@ struct DgatedP {
       da = tg::rnd<T>(u - tg::rnd<T>(v * f));
       db = tg::rnd<T>(v - tg::rnd<T>(v * g));
     }
-    T* o = dpre + (long long)m * (2 * D);
     o[c] = tg::from_f<T>(da);
     o[D + c] = tg::from_f<T>(db);
   }
@@ -130,12 +146,12 @@ struct DkP {
   const T* x;              // xs[l] [rows, R]
   const T* dpre;           // [rows, 2D]
   float* part;
-  int T_, R, D, KS, d;
+  int T_, R, D, KS, d, start;
 
   __device__ bool a8(int m, int k, T* v) const {     // x[k - o_j][c..c+7]
     const int j = m / R, c = m - j * R;
     const int o = (KS - 1 - j) * d;
-    if (k % T_ < o) return false;
+    if (k % T_ - o < start) return false;
     tg::ld8(x + (long long)(k - o) * R + c, v);
     return true;
   }
@@ -157,12 +173,14 @@ struct DxP {
   const T* kern;           // kernel[l] [KS, R, 2D]
   float* dx;               // [rows, R] f32, updated in place
   T* dx16;                 // [rows, R]
-  int T_, R, D, KS, d;
+  int T_, R, D, KS, d, start;
 
   __device__ bool a8(int m, int k, T* v) const {     // dpre[m + o_j][f..]
     const int j = k / (2 * D), f = k - j * 2 * D;
     const int o = (KS - 1 - j) * d;
-    if (m % T_ + o >= T_) return false;
+    const int t = m % T_;
+    // rows before start get nothing (their dX stays zero)
+    if (t < start || t + o >= T_) return false;
     tg::ld8(dpre + (long long)(m + o) * (2 * D) + f, v);
     return true;
   }
@@ -181,16 +199,33 @@ struct DxP {
   }
 };
 
+// dx16 = T(dxout) (zeros without dxout, and on rows t < start), dx = dx16
 template <typename T>
-int run(int L, int K, int R, int D, int S, int B, int T_, int FR,
+__global__ void seed_dx(const T* __restrict__ dxout, long long n, int T_,
+                        int R, int start, float* __restrict__ dx,
+                        T* __restrict__ dx16) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int t = (int)((i / R) % T_);
+  const T v = (dxout == nullptr || t < start) ? tg::from_f<T>(0.f) : dxout[i];
+  dx16[i] = v;
+  dx[i] = tg::to_f(v);
+}
+
+template <typename T>
+int run(int L, int K, int R, int D, int S, int B, int T_, int FR, int start,
         const int* dils, const T* rsk, const T* kern, const T* dskip,
-        const T* act, const T* xs, float* dk, float* dskrs, float* drb,
-        float* dlc, T* dx16, float* dx, T* dpre, float* part,
+        const T* act, const T* xs, const T* dxout, float* dk, float* dskrs,
+        float* drb, float* dlc, T* dx16, float* dx, T* dpre, float* part,
         bool sigmoid_first, cudaStream_t s) {
   const int rows = B * T_;
   const int F = T_ / FR;
   const int splits = tg::ceil_div(rows, ROW_CHUNK);
+  const long long n = (long long)rows * R;
+  seed_dx<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(dxout, n, T_, R,
+                                                           start, dx, dx16);
   cudaError_t e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   for (int l = L - 1; l >= 0; --l) {
     const int d = dils[l];
     const T* act_l = act + (long long)l * rows * 2 * D;
@@ -201,7 +236,8 @@ int run(int L, int K, int R, int D, int S, int B, int T_, int FR,
     g.dx16 = dx16; g.dskip = dskip;
     g.wt = rsk + (long long)l * D * (R + S);
     g.act = act_l; g.dpre = dpre;
-    g.R = R; g.S = S; g.D = D; g.sigmoid_first = sigmoid_first;
+    g.R = R; g.S = S; g.D = D; g.T_ = T_; g.start = start;
+    g.sigmoid_first = sigmoid_first;
     if ((e = tg::launch_gemm<T, true, true>(g, 1, s)) != cudaSuccess)
       return static_cast<int>(e);
 
@@ -231,7 +267,7 @@ int run(int L, int K, int R, int D, int S, int B, int T_, int FR,
     DkP<T> k;
     k.M = K * R; k.N = 2 * D; k.K = rows; k.kchunk = ROW_CHUNK;
     k.x = x_l; k.dpre = dpre; k.part = part;
-    k.T_ = T_; k.R = R; k.D = D; k.KS = K; k.d = d;
+    k.T_ = T_; k.R = R; k.D = D; k.KS = K; k.d = d; k.start = start;
     if ((e = tg::launch_gemm<T, false, false>(k, splits, s)) != cudaSuccess)
       return static_cast<int>(e);
     if ((e = tg::launch_reduce(part, splits, (long long)K * R * 2 * D,
@@ -243,7 +279,7 @@ int run(int L, int K, int R, int D, int S, int B, int T_, int FR,
     x.M = rows; x.N = R; x.K = K * 2 * D; x.kchunk = K * 2 * D;
     x.dpre = dpre; x.kern = kern + (long long)l * K * R * 2 * D;
     x.dx = dx; x.dx16 = dx16;
-    x.T_ = T_; x.R = R; x.D = D; x.KS = K; x.d = d;
+    x.T_ = T_; x.R = R; x.D = D; x.KS = K; x.d = d; x.start = start;
     if ((e = tg::launch_gemm<T, true, true>(x, 1, s)) != cudaSuccess)
       return static_cast<int>(e);
   }
@@ -262,35 +298,38 @@ extern "C" long long train_stack_bwd_part_floats(int K, int R, int D, int S,
   return tg::ceil_div(B * T, ROW_CHUNK) * width;
 }
 
-// dtype 0 = float32, 1 = bfloat16.  dx and dx16 must be zero on entry
-// (the stack's residual output is not used: dX_L = 0); part holds
-// train_stack_bwd_part_floats(K, R, D, S, B, T) floats.
+// dtype 0 = float32, 1 = bfloat16.  dxout may be null (the stack's
+// residual output is not used: dX_L = 0); dx and dx16 are set here; part
+// holds train_stack_bwd_part_floats(K, R, D, S, B, T) floats.
 extern "C" int train_stack_bwd(int dtype, int L, int K, int R, int D, int S,
-                               int B, int T, int FR, const int* dils,
-                               const void* rsk, const void* kern,
-                               const void* dskip, const void* act,
-                               const void* xs, void* dk, void* dskrs,
+                               int B, int T, int FR, int start,
+                               const int* dils, const void* rsk,
+                               const void* kern, const void* dskip,
+                               const void* act, const void* xs,
+                               const void* dxout, void* dk, void* dskrs,
                                void* drb, void* dlc, void* dx16, void* dx,
                                void* dpre, void* part, int sigmoid_first,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return run<bf16>(L, K, R, D, S, B, T, FR, dils,
+    return run<bf16>(L, K, R, D, S, B, T, FR, start, dils,
                      static_cast<const bf16*>(rsk),
                      static_cast<const bf16*>(kern),
                      static_cast<const bf16*>(dskip),
                      static_cast<const bf16*>(act),
-                     static_cast<const bf16*>(xs), static_cast<float*>(dk),
+                     static_cast<const bf16*>(xs),
+                     static_cast<const bf16*>(dxout), static_cast<float*>(dk),
                      static_cast<float*>(dskrs), static_cast<float*>(drb),
                      static_cast<float*>(dlc), static_cast<bf16*>(dx16),
                      static_cast<float*>(dx), static_cast<bf16*>(dpre),
                      static_cast<float*>(part), sigmoid_first != 0, s);
-  return run<float>(L, K, R, D, S, B, T, FR, dils,
+  return run<float>(L, K, R, D, S, B, T, FR, start, dils,
                     static_cast<const float*>(rsk),
                     static_cast<const float*>(kern),
                     static_cast<const float*>(dskip),
                     static_cast<const float*>(act),
-                    static_cast<const float*>(xs), static_cast<float*>(dk),
+                    static_cast<const float*>(xs),
+                    static_cast<const float*>(dxout), static_cast<float*>(dk),
                     static_cast<float*>(dskrs), static_cast<float*>(drb),
                     static_cast<float*>(dlc), static_cast<float*>(dx16),
                     static_cast<float*>(dx), static_cast<float*>(dpre),

@@ -45,7 +45,17 @@ def wavenet_logits(params, cfg, inputs: torch.Tensor,
                                        gate_order=gate_order)
     if return_skip:
         return skip
+    return wavenet_heads(params, skip, local_condition, global_condition, cd)
 
+
+def wavenet_heads(params, skip: torch.Tensor,
+                  local_condition: Optional[torch.Tensor],
+                  global_condition: Optional[torch.Tensor],
+                  cd: torch.dtype) -> torch.Tensor:
+    """relu -> 1x1 (+ conditions) -> relu -> 1x1: the logits [B, T, Q] f32
+    from the skip sum [B, T, S] f32, activations rounded to the compute
+    type ``cd`` (wavenet.py:286-301; timeshard.py:490-509 runs the same
+    tail on a time shard)."""
     pp1, pp2 = params["postprocess1"], params["postprocess2"]
     net = torch.relu(skip).to(cd).float() @ pp1["kernel"][0].float() \
         + pp1["bias"].float()

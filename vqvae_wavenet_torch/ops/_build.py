@@ -12,7 +12,10 @@ headers it includes (``#include "x.cuh"``), so an edited source or header
 is rebuilt.  The build directory, ``build/torch_kernels`` at the
 repository root, is listed in .gitignore.  ``build`` compiles several
 sources at once (one nvcc process each); ptxas's report of each kernel's
-registers, shared memory and spills is kept in ``ptxas_info``.
+registers, shared memory and spills is kept in ``ptxas_info``.  Processes
+that build at once (the ranks of a sequence-parallel run) take an
+exclusive lock on ``build/torch_kernels/.lock`` around the check and the
+build, so each library is compiled once and the others load it.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` as an int; ``check`` raises when it is not 0.
@@ -20,6 +23,7 @@ returns ``cudaGetLastError()`` as an int; ``check`` raises when it is not 0.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -73,8 +77,15 @@ def _library_path(name: str) -> str:
 
 def build(names: Iterable[str]) -> None:
     """Compile every named source whose library is missing, all nvcc
-    processes at once; raise if any fails."""
+    processes at once; raise if any fails.  Holds the build directory's
+    lock meanwhile (another process's build of the same sources waits)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_locked(names)
+
+
+def _build_locked(names: Iterable[str]) -> None:
     procs = []
     for name in names:
         so = _library_path(name)

@@ -12,6 +12,25 @@ signature and folds the per-layer condition and conv bias into
 (:1820-1835), so the condition weights' gradients come from autograd
 against the kernel's ``dlc``.
 
+Two paths run these kernels: single-device training (the whole stack in
+one call) and sequence-parallel training (parallel/timeshard.py, one call
+per dilation cycle on a halo-extended time shard).  The second uses the
+variants of the TPU kernels' ``with_start``/``with_xout``/``layer_range``
+options (train_pallas.py:1198, :739, :1561-1593):
+  start      rows t < start of every batch row lie outside the computation:
+             the first kept row sees zero history (the causal pad), act,
+             skip and xs[l >= 1] rows before start are zeros, and the
+             backward gives zero dx0 there and leaves those rows out of
+             every sum.  Equal to the stack on x0[:, start:] with
+             lc_encb[:, start/FR:], zero-padded in front.
+  with_xout  the forward also returns layer L-1's residual output
+             xout = T((x + res) + res_b); the backward's f32 dX starts
+             from T(dxout) instead of zeros.
+  layer_range  ``fused_residual_stack`` slices the layer parameters and
+             the dilations.
+Calls with start > 0 or with_xout count in ``fwd_sp_launches`` /
+``bwd_sp_launches``, the others in ``fwd_launches`` / ``bwd_launches``.
+
 Rounding points (kernel and plain version alike), in the compute type T
 (bfloat16 or float32) with float32 sums:
   forward   pre = conv + lc_encb (f32); f, g = gate(pre) each rounded to T
@@ -29,15 +48,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from vqvae_wavenet_torch.ops import _build
 
-# kernel launches: one added where each wrapper launches, nowhere else
+# kernel launches: one added where each wrapper launches, nowhere else;
+# the sequence-parallel variants (start > 0 or the stream output) apart
 fwd_launches = 0
 bwd_launches = 0
+fwd_sp_launches = 0
+bwd_sp_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,12 +71,25 @@ def _gate(pre: torch.Tensor, D: int, cd: torch.dtype, gate_order: str):
     return torch.sigmoid(a).to(cd), torch.tanh(b).to(cd)
 
 
+def _zero_head(t: torch.Tensor, start: int) -> torch.Tensor:
+    """t [B, T, ...] with rows t < start set to zero (a new tensor)."""
+    if start == 0:
+        return t
+    out = t.clone()
+    out[:, :start] = 0
+    return out
+
+
 def stack_forward_plain(kernel, skipw, resw, res_b, lc_encb, x0,
-                        dils: Sequence[int], gate_order: str = "tanh_first"):
+                        dils: Sequence[int], gate_order: str = "tanh_first",
+                        *, start: int = 0, with_xout: bool = False):
     """Plain forward.  kernel [L, K, R, 2D], skipw [L, D, S], resw [L, D, R]
     and x0 [B, T, R] in the compute type; res_b [L, R]; lc_encb
     [L, F, B, 2D] f32.  Returns (skip_sum [B, T, S], act [L, B, T, 2D],
-    xs [L, B, T, R]) in the compute type; xs[l] is layer l's input."""
+    xs [L, B, T, R]) in the compute type; xs[l] is layer l's input
+    (xs[0] = x0 as given).  With ``start`` the rows before it are left out
+    (module docstring); with ``with_xout`` the tuple ends with xout
+    [B, T, R], layer L-1's residual output."""
     L, K, R, D2 = kernel.shape
     D, S = D2 // 2, skipw.shape[2]
     B, T, _ = x0.shape
@@ -63,9 +98,9 @@ def stack_forward_plain(kernel, skipw, resw, res_b, lc_encb, x0,
     xs = torch.empty((L, B, T, R), dtype=cd, device=x0.device)
     act = torch.empty((L, B, T, D2), dtype=cd, device=x0.device)
     xs[0] = x0
-    skip = None
+    skip = xout = None
     for l, d in enumerate(dils):
-        x = xs[l].float()
+        x = _zero_head(xs[l].float(), start)
         pre = torch.zeros((B, T, D2), dtype=f32, device=x0.device)
         for j in range(K):
             o = (K - 1 - j) * d
@@ -74,29 +109,38 @@ def stack_forward_plain(kernel, skipw, resw, res_b, lc_encb, x0,
         pre = (pre.reshape(B, F, T // F, D2)
                + lc_encb[l].permute(1, 0, 2)[:, :, None, :]).reshape(B, T, D2)
         f, g = _gate(pre, D, cd, gate_order)
-        act[l] = torch.cat([f, g], dim=-1)
-        gated = (f * g).float()
+        act[l] = _zero_head(torch.cat([f, g], dim=-1), start)
+        gated = (act[l, ..., :D] * act[l, ..., D:]).float()
         out = gated @ torch.cat([skipw[l], resw[l]], dim=1).float()
         skip = out[..., :S] if skip is None else skip + out[..., :S]
-        if l < L - 1:
-            xs[l + 1] = ((x + out[..., S:]) + res_b[l].float()).to(cd)
-    return skip.to(cd), act, xs
+        if l < L - 1 or with_xout:
+            nxt = _zero_head(((x + out[..., S:]) + res_b[l].float()).to(cd),
+                             start)
+            if l < L - 1:
+                xs[l + 1] = nxt
+            else:
+                xout = nxt
+    res = (skip.to(cd), act, xs)
+    return res + (xout,) if with_xout else res
 
 
 def stack_backward_plain(dskip, act, xs, kernel, skipw, resw,
                          dils: Sequence[int], frames: int,
-                         gate_order: str = "tanh_first"):
+                         gate_order: str = "tanh_first", *, start: int = 0,
+                         dxout: Optional[torch.Tensor] = None):
     """Plain backward of ``stack_forward_plain`` for the cotangent dskip
-    [B, T, S] of skip_sum, with ``frames`` = F condition frames.  Returns
-    float32 (dk [L, K, R, 2D], dsk [L, D, S], drs [L, D, R], drb [L, R],
-    dlc [L, F, B, 2D]) and dx0 [B, T, R] in the compute type."""
+    [B, T, S] of skip_sum (and dxout [B, T, R] of xout, which seeds dX),
+    with ``frames`` = F condition frames.  Returns float32 (dk
+    [L, K, R, 2D], dsk [L, D, S], drs [L, D, R], drb [L, R], dlc
+    [L, F, B, 2D]) and dx0 [B, T, R] in the compute type."""
     L, K, R, D2 = kernel.shape
     D, S = D2 // 2, skipw.shape[2]
     _, B, T, _ = act.shape
     cd, f32, dev = act.dtype, torch.float32, act.device
     FR = T // frames
     dskip16 = dskip.to(cd)
-    dX = torch.zeros((B, T, R), dtype=f32, device=dev)
+    dX = (torch.zeros((B, T, R), dtype=f32, device=dev) if dxout is None
+          else _zero_head(dxout.to(cd).float(), start))
     dk = torch.zeros((L, K, R, D2), dtype=f32, device=dev)
     dsk = torch.empty((L, D, S), dtype=f32, device=dev)
     drs = torch.empty((L, D, R), dtype=f32, device=dev)
@@ -116,14 +160,14 @@ def stack_backward_plain(dskip, act, xs, kernel, skipw, resw,
             v = dg * g * f
             w = dg * f
             da, db = v - v * f, w - (w * g) * g
-        dpre = torch.cat([da, db], dim=-1).float()
+        dpre = _zero_head(torch.cat([da, db], dim=-1).float(), start)
         gated = (f * g).float().reshape(-1, D)
         dskrs = gated.T @ torch.cat([dskip16, dX16], dim=-1).reshape(
             -1, S + R).float()
         dsk[l], drs[l] = dskrs[:, :S], dskrs[:, S:]
         drb[l] = dX.sum(dim=(0, 1))
         dlc[l] = dpre.reshape(B, frames, FR, D2).sum(2).permute(1, 0, 2)
-        x = xs[l].float()
+        x = _zero_head(xs[l].float(), start)
         acc = torch.zeros_like(dX)
         for j in range(K):
             o = (K - 1 - j) * d
@@ -131,7 +175,7 @@ def stack_backward_plain(dskip, act, xs, kernel, skipw, resw,
                 dk[l, j] = (x[:, :T - o].reshape(-1, R).T
                             @ dpre[:, o:].reshape(-1, D2))
                 acc[:, :T - o] += dpre[:, o:] @ kernel[l, j].float().T
-        dX = dX + acc
+        dX = dX + _zero_head(acc, start)
     return dk, dsk, drs, drb, dlc, dX.to(cd)
 
 
@@ -162,8 +206,8 @@ def _fwd_lib():
     lib = _build.load("train_stack_fwd")
     lib.train_stack_fwd.restype = ctypes.c_int
     lib.train_stack_fwd.argtypes = (
-        [ctypes.c_int] * 9 + [ctypes.c_void_p] * 10 + [ctypes.c_int,
-                                                        ctypes.c_void_p])
+        [ctypes.c_int] * 10 + [ctypes.c_void_p] * 11 + [ctypes.c_int,
+                                                         ctypes.c_void_p])
     return lib
 
 
@@ -172,8 +216,8 @@ def _bwd_lib():
     lib = _build.load("train_stack_bwd")
     lib.train_stack_bwd.restype = ctypes.c_int
     lib.train_stack_bwd.argtypes = (
-        [ctypes.c_int] * 9 + [ctypes.c_void_p] * 14 + [ctypes.c_int,
-                                                        ctypes.c_void_p])
+        [ctypes.c_int] * 10 + [ctypes.c_void_p] * 15 + [ctypes.c_int,
+                                                         ctypes.c_void_p])
     # the scratch size, from the kernel's own row blocking
     lib.train_stack_bwd_part_floats.restype = ctypes.c_longlong
     lib.train_stack_bwd_part_floats.argtypes = [ctypes.c_int] * 6
@@ -190,15 +234,23 @@ def _dims(kernel, skipw, x0, lc_encb):
     return L, K, R, D2 // 2, skipw.shape[2], B, T, F
 
 
+def _check_start(start: int, T: int) -> int:
+    if not 0 <= int(start) <= T:
+        raise ValueError(f"start {start} outside [0, T={T}]")
+    return int(start)
+
+
 def stack_forward_cuda(kernel, skipw, resw, res_b, lc_encb, x0,
-                       dils: Sequence[int], gate_order: str = "tanh_first"):
+                       dils: Sequence[int], gate_order: str = "tanh_first",
+                       *, start: int = 0, with_xout: bool = False):
     """Launch the forward kernel; same contract as ``stack_forward_plain``."""
-    global fwd_launches
+    global fwd_launches, fwd_sp_launches
     cd = x0.dtype
     L, K, R, D, S, B, T, F = _dims(kernel, skipw, x0, lc_encb)
     if len(dils) != L or gate_order not in ("tanh_first", "sigmoid_first"):
         raise ValueError("dilations or gate order do not fit the stack")
     _check_widths(R=R, D=D, S=S)
+    start = _check_start(start, T)
     dev = x0.device
     # conv columns interleaved (2c = tanh half, 2c+1 = sigmoid half of
     # channel c) and transposed to [L, 2D, K*R]; [skipw | resw]^T [L, S+R, D]
@@ -219,27 +271,34 @@ def stack_forward_cuda(kernel, skipw, resw, res_b, lc_encb, x0,
     gated = torch.empty((B * T, D), dtype=cd, device=dev)
     skipacc = torch.empty((B * T, S), dtype=torch.float32, device=dev)
     skip_out = torch.empty((B, T, S), dtype=cd, device=dev)
+    xout = (torch.empty((B, T, R), dtype=cd, device=dev) if with_xout
+            else None)
     dil = (ctypes.c_int * L)(*[int(d) for d in dils])
     lib = _fwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_stack_fwd(
-            _DTYPES[cd], L, K, R, D, S, B, T, T // F,
+            _DTYPES[cd], L, K, R, D, S, B, T, T // F, start,
             ctypes.cast(dil, ctypes.c_void_p), wconv_t.data_ptr(),
             srw_t.data_ptr(), res_b32.data_ptr(), lc_encb.data_ptr(),
             xs.data_ptr(), act.data_ptr(), gated.data_ptr(),
             skipacc.data_ptr(), skip_out.data_ptr(),
+            None if xout is None else xout.data_ptr(),
             int(gate_order == "sigmoid_first"), stream)
     _build.check(lib, err, "train_stack_fwd")
-    fwd_launches += 1
-    return skip_out, act, xs
+    if start or with_xout:
+        fwd_sp_launches += 1
+    else:
+        fwd_launches += 1
+    return (skip_out, act, xs) + ((xout,) if with_xout else ())
 
 
 def stack_backward_cuda(dskip, act, xs, kernel, skipw, resw,
                         dils: Sequence[int], frames: int,
-                        gate_order: str = "tanh_first"):
+                        gate_order: str = "tanh_first", *, start: int = 0,
+                        dxout: Optional[torch.Tensor] = None):
     """Launch the backward kernel; same contract as ``stack_backward_plain``."""
-    global bwd_launches
+    global bwd_launches, bwd_sp_launches
     cd = act.dtype
     L, K, R, D2 = kernel.shape
     D, S = D2 // 2, skipw.shape[2]
@@ -248,25 +307,28 @@ def stack_backward_cuda(dskip, act, xs, kernel, skipw, resw,
             or gate_order not in ("tanh_first", "sigmoid_first"):
         raise ValueError("dilations, frames or gate order do not fit")
     _check_widths(R=R, D=D, S=S)
+    start = _check_start(start, T)
     dev = act.device
     rsk = torch.cat([resw, skipw], dim=2).contiguous()        # [L, D, R+S]
     kern = kernel.contiguous()
     dskip16 = dskip.to(cd).contiguous()
+    seed = [] if dxout is None else [dxout.to(cd).contiguous()]
     for t in (rsk, kern, xs):
         if t.dtype != cd:
             raise TypeError("stack weights and saved tensors must share one "
                             "dtype")
-    if tuple(dskip16.shape) != (B, T, S) or tuple(xs.shape) != (L, B, T, R):
-        raise ValueError("dskip or xs do not fit the stack")
-    _check_cuda(cd, rsk, kern, dskip16, act, xs)
+    if tuple(dskip16.shape) != (B, T, S) or tuple(xs.shape) != (L, B, T, R) \
+            or any(tuple(t.shape) != (B, T, R) for t in seed):
+        raise ValueError("dskip, dxout or xs do not fit the stack")
+    _check_cuda(cd, rsk, kern, dskip16, act, xs, *seed)
     f32 = torch.float32
     rows = B * T
     dk = torch.empty((L, K, R, D2), dtype=f32, device=dev)
     dskrs = torch.empty((L, D, S + R), dtype=f32, device=dev)
     drb = torch.empty((L, R), dtype=f32, device=dev)
     dlc = torch.empty((L, frames, B, D2), dtype=f32, device=dev)
-    dx16 = torch.zeros((B, T, R), dtype=cd, device=dev)
-    dx = torch.zeros((rows, R), dtype=f32, device=dev)
+    dx16 = torch.empty((B, T, R), dtype=cd, device=dev)
+    dx = torch.empty((rows, R), dtype=f32, device=dev)
     dpre = torch.empty((rows, D2), dtype=cd, device=dev)
     lib = _bwd_lib()
     part = torch.empty((lib.train_stack_bwd_part_floats(K, R, D, S, B, T),),
@@ -275,14 +337,18 @@ def stack_backward_cuda(dskip, act, xs, kernel, skipw, resw,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_stack_bwd(
-            _DTYPES[cd], L, K, R, D, S, B, T, T // frames,
+            _DTYPES[cd], L, K, R, D, S, B, T, T // frames, start,
             ctypes.cast(dil, ctypes.c_void_p), rsk.data_ptr(),
             kern.data_ptr(), dskip16.data_ptr(), act.data_ptr(),
-            xs.data_ptr(), dk.data_ptr(), dskrs.data_ptr(), drb.data_ptr(),
-            dlc.data_ptr(), dx16.data_ptr(), dx.data_ptr(), dpre.data_ptr(),
-            part.data_ptr(), int(gate_order == "sigmoid_first"), stream)
+            xs.data_ptr(), seed[0].data_ptr() if seed else None,
+            dk.data_ptr(), dskrs.data_ptr(), drb.data_ptr(), dlc.data_ptr(),
+            dx16.data_ptr(), dx.data_ptr(), dpre.data_ptr(), part.data_ptr(),
+            int(gate_order == "sigmoid_first"), stream)
     _build.check(lib, err, "train_stack_bwd")
-    bwd_launches += 1
+    if start or seed:
+        bwd_sp_launches += 1
+    else:
+        bwd_launches += 1
     return dk, dskrs[..., :S], dskrs[..., S:], drb, dlc, dx16
 
 
@@ -301,42 +367,55 @@ def stack_backward(*args, **kw):
 
 
 class _Stack(torch.autograd.Function):
-    """skip_sum = stack(kernel, skipw, resw, res_b, lc_encb, x0); the
-    backward is the backward kernel (or its plain version on the CPU).
+    """skip_sum (, xout) = stack(kernel, skipw, resw, res_b, lc_encb, x0);
+    the backward is the backward kernel (or its plain version on the CPU).
     Only the kernel's own saved tensors (act, xs) are kept."""
 
     @staticmethod
     def forward(ctx, kernel, skipw, resw, res_b, lc_encb, x0, dils,
-                gate_order):
-        skip_sum, act, xs = stack_forward(kernel, skipw, resw, res_b,
-                                          lc_encb, x0, dils, gate_order)
+                gate_order, start, with_xout):
+        out = stack_forward(kernel, skipw, resw, res_b, lc_encb, x0, dils,
+                            gate_order, start=start, with_xout=with_xout)
+        act, xs = out[1], out[2]
         ctx.save_for_backward(kernel, skipw, resw, act, xs)
         ctx.dils, ctx.gate_order = dils, gate_order
+        ctx.start, ctx.with_xout = start, with_xout
         ctx.frames, ctx.res_b_dtype = lc_encb.shape[1], res_b.dtype
-        return skip_sum
+        return (out[0], out[3]) if with_xout else out[0]
 
     @staticmethod
-    def backward(ctx, dskip):
+    def backward(ctx, dskip, dxout=None):
         kernel, skipw, resw, act, xs = ctx.saved_tensors
         dk, dsk, drs, drb, dlc, dx0 = stack_backward(
             dskip, act, xs, kernel, skipw, resw, ctx.dils, ctx.frames,
-            ctx.gate_order)
+            ctx.gate_order, start=ctx.start,
+            dxout=dxout if ctx.with_xout else None)
         return (dk.to(kernel.dtype), dsk.to(skipw.dtype), drs.to(resw.dtype),
-                drb.to(ctx.res_b_dtype), dlc, dx0, None, None)
+                drb.to(ctx.res_b_dtype), dlc, dx0, None, None, None, None)
 
 
 def fused_residual_stack(lp, cfg, x0: torch.Tensor,
                          local_condition: Optional[torch.Tensor],
                          global_condition: Optional[torch.Tensor] = None, *,
-                         gate_order: str = "tanh_first") -> torch.Tensor:
+                         gate_order: str = "tanh_first",
+                         start_rows: int = 0,
+                         layer_range: Optional[Tuple[int, int]] = None,
+                         with_xout: bool = False):
     """The residual stack over x0 [B, T, R] (the preprocess output, in the
     compute type) with the stacked layer parameters ``lp`` (JAX layouts:
     kernel [L, K, R, 2D], bias [L, 2D], lc_kernel [L, C, 2D], skip_kernel
     [L, D, S], skip_bias [L, S], res_kernel [L, D, R], res_bias [L, R],
     optional gc_kernel/gc_bias).  local_condition [B, F, C] or None;
     global_condition [B, 1, C_gc] or None.  Returns the skip sum [B, T, S]
-    float32 including the summed skip biases (train_pallas.py:1782-1850)."""
+    float32 including the summed skip biases (train_pallas.py:1782-1850),
+    or (skip sum, xout [B, T, R]) with ``with_xout``.  ``start_rows`` (a
+    per-shard int) and ``layer_range`` (lo, hi) select the
+    sequence-parallel variants of the module docstring."""
     B, T, _ = x0.shape
+    lo, hi = layer_range if layer_range is not None else (
+        0, lp["bias"].shape[0])
+    if layer_range is not None:
+        lp = {k: v[lo:hi] for k, v in lp.items()}
     L, D2 = lp["bias"].shape
     if local_condition is not None and "lc_kernel" in lp:
         lc_encb = torch.einsum("bsc,lcf->lsbf", local_condition.float(),
@@ -354,8 +433,11 @@ def fused_residual_stack(lp, cfg, x0: torch.Tensor,
         lc_encb = lc_encb + genc[:, None]
         if "gc_bias" in lp:
             lc_encb = lc_encb + lp["gc_bias"].float()[:, None, None, :]
-    skip_sum = _Stack.apply(
+    out = _Stack.apply(
         lp["kernel"], lp["skip_kernel"], lp["res_kernel"], lp["res_bias"],
-        lc_encb.contiguous(), x0, tuple(int(d) for d in cfg.dilation_rates),
-        gate_order)
-    return skip_sum.float() + lp["skip_bias"].float().sum(dim=0)
+        lc_encb.contiguous(), x0,
+        tuple(int(d) for d in cfg.dilation_rates[lo:hi]), gate_order,
+        int(start_rows), with_xout)
+    skip_sum, xout = out if with_xout else (out, None)
+    skip = skip_sum.float() + lp["skip_bias"].float().sum(dim=0)
+    return (skip, xout) if with_xout else skip

@@ -1,0 +1,144 @@
+"""Exchanges between time shards (port of the lax.ppermute / pmean uses in
+vqvae_wavenet_tpu/parallel/timeshard.py:37-57, :121-134, :221-226).
+
+``shift(x, k)`` is the one point-to-point primitive, JAX's ppermute with
+the pairs (i, i + k): rank r sends x to rank r + k and receives rank
+r - k's x, zeros where that rank does not exist.  Its gradient is the
+transposed shift (the cotangent goes back to the rank that sent the
+value), so every exchange built from it is differentiable:
+
+  left_halo(x, halo)        the ``halo`` columns before this shard, over
+                            several left neighbours when halo > T_l; rank
+                            0's are zeros (the causal pad)
+  exchange_both(x, l, r)    l columns from the left neighbour, r from the
+                            right, zeros at the ends (the SAME pad)
+  sharded_shift_right(x)    shift_right over the whole sequence
+  pmean(x)                  mean over the ranks; its gradient is the mean
+                            of the cotangents (the sum of the per-rank
+                            shares of a loss, see timeshard.py)
+
+Tensors are [B, T_l, C] with time on axis 1.  Under gloo a CUDA tensor is
+staged through host memory (gloo moves CUDA tensors only for collectives,
+and not point to point).  Every rank must make the same calls in the same
+order, which running the same program on equal shapes gives.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from vqvae_wavenet_torch.parallel import Shards
+
+
+def _host(t: torch.Tensor, sh: Shards) -> torch.Tensor:
+    return t.cpu() if sh.staged else t
+
+
+def all_reduce_(t: torch.Tensor, sh: Shards) -> torch.Tensor:
+    """Sum ``t`` over the ranks in place (returns it); no gradient."""
+    buf = _host(t.detach(), sh)
+    dist.all_reduce(buf)
+    if buf is not t:
+        t.copy_(buf)
+    return t
+
+
+def broadcast_(t: torch.Tensor, sh: Shards, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank, in place (returns it)."""
+    buf = _host(t, sh)
+    dist.broadcast(buf, src)
+    if buf is not t:
+        t.copy_(buf)
+    return t
+
+
+def _sendrecv(x: torch.Tensor, dst: Optional[int], src: Optional[int],
+              sh: Shards) -> torch.Tensor:
+    """Send x to rank ``dst`` and receive a tensor shaped like x from rank
+    ``src`` (None: no peer); returns what arrived, zeros without a
+    source."""
+    send = _host(x.detach().contiguous(), sh)
+    recv = torch.zeros_like(send)
+    ops = []
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, send, dst))
+    if src is not None:
+        ops.append(dist.P2POp(dist.irecv, recv, src))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return recv.to(x.device) if sh.staged else recv
+
+
+def _peers(k: int, sh: Shards) -> Tuple[Optional[int], Optional[int]]:
+    dst, src = sh.rank + k, sh.rank - k
+    return (dst if 0 <= dst < sh.world else None,
+            src if 0 <= src < sh.world else None)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k: int, sh: Shards):
+        ctx.k, ctx.sh = k, sh
+        return _sendrecv(x, *_peers(k, sh), sh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sendrecv(g, *_peers(-ctx.k, ctx.sh), ctx.sh), None, None
+
+
+def shift(x: torch.Tensor, k: int, sh: Shards) -> torch.Tensor:
+    """Rank r gets rank r - k's x (zeros if there is none)."""
+    return _Shift.apply(x, k, sh)
+
+
+def left_halo(x: torch.Tensor, halo: int, sh: Shards) -> torch.Tensor:
+    """The ``halo`` columns of left context of each shard ([B, halo, C]);
+    positions before the sequence start are zeros.  When halo exceeds the
+    shard length T_l, hop h ships the whole shard to rank r + h and the
+    tail of the concatenation is kept (timeshard.py:37-57)."""
+    if halo == 0:
+        return x[:, :0]
+    t_l = x.shape[1]
+    if halo <= t_l:
+        return shift(x[:, -halo:], 1, sh)
+    hops = -(-halo // t_l)
+    parts: List[torch.Tensor] = [shift(x, h, sh) for h in range(hops, 0, -1)]
+    return torch.cat(parts, dim=1)[:, hops * t_l - halo:]
+
+
+def exchange_both(x: torch.Tensor, left: int, right: int,
+                  sh: Shards) -> torch.Tensor:
+    """[left neighbour's last ``left`` columns | x | right neighbour's
+    first ``right`` columns]; the end shards get zeros (timeshard.py:
+    121-134)."""
+    parts = [x]
+    if left:
+        parts.insert(0, shift(x[:, -left:], 1, sh))
+    if right:
+        parts.append(shift(x[:, :right], -1, sh))
+    return torch.cat(parts, dim=1)
+
+
+def sharded_shift_right(x: torch.Tensor, sh: Shards) -> torch.Tensor:
+    """shift_right with the time axis sharded: column 0 of each shard is
+    its left neighbour's last column (zero on rank 0)."""
+    return torch.cat([left_halo(x, 1, sh), x], dim=1)[:, :-1]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sh: Shards):
+        ctx.sh = sh
+        return all_reduce_(x.detach().clone(), sh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.sh), None
+
+
+def pmean(x: torch.Tensor, sh: Shards) -> torch.Tensor:
+    """The mean of x over the ranks, differentiable."""
+    return _AllReduceSum.apply(x, sh) / sh.world

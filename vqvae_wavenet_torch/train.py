@@ -3,7 +3,8 @@ which keeps the reference's train.py:12-37, plus -device):
 
     python -m vqvae_wavenet_torch.train -dataset VCTK -length 6656 -batch 8 \
         -step 100000 -save saved_model/weights [-restore saved_model/weights-N] \
-        [-interval 200] [-params model_parameters.json] [-device cuda|cpu]
+        [-interval 200] [-params model_parameters.json] [-device cuda|cpu] \
+        [-time_shards N [-decoder_halo auto|fused]]
 
 One step is vqvae_forward + autograd (the stack, loss-head and VQ kernels
 on the card) + the fused Adam/EMA update.  Scalars go to
@@ -11,12 +12,23 @@ on the card) + the fused Adam/EMA update.  Scalars go to
 every -log_every steps; weights-<step>.npz is written every -ckpt_interval
 steps and at the end (training/checkpoint.py; the port's generate.py
 restores it).  The initial weights and the crop sampler draw from numpy
-seed 0.  -time_shards > 1, -coordinator, -loader native and -profile
-belong to parts that are not ported yet and raise.
+seed 0.
+
+-time_shards N trains sequence-parallel (parallel/timeshard.py): N ranks
+are spawned, rank r on cuda:(r % device_count) (or the CPU), each with its
+time slice of every batch, which rank 0 reads and broadcasts; the stack
+kernels run per dilation cycle on halo-extended shards (their SP variants)
+and the gradients are summed over the ranks before the update.  Rank 0
+alone prints, writes metrics.jsonl and the checkpoints, which are the
+single-device format.  -decoder_halo auto is 'fused' on every device
+('layer' and 'recompute' are not ported).  -coordinator, -num_processes,
+-process_id, -loader native and -profile belong to parts that are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 import time
@@ -72,22 +84,25 @@ def parse_args(argv=None):
                         help="trim leading/trailing silence before the "
                              "random crop (dataset.py:23-31)")
     parser.add_argument("-time_shards", default=1, type=int, metavar="N",
-                        help="sequence parallelism: not ported (ROADMAP.md "
-                             "queue A, SP)")
+                        help="sequence parallelism: split the time axis of "
+                             "every batch over N spawned ranks (-length/N a "
+                             "multiple of 64)")
     parser.add_argument("-decoder_halo", default="auto",
                         choices=["auto", "fused", "layer", "recompute"],
-                        help="SP decoder scheme: not ported (ROADMAP.md "
-                             "queue A, SP)")
+                        help="SP decoder scheme: 'fused' (= 'auto') runs "
+                             "one stack kernel call per dilation cycle with "
+                             "its recompute halo; 'layer' and 'recompute' "
+                             "are not ported (ROADMAP.md queue A, SP)")
     parser.add_argument("-device", default="cuda",
                         help="torch device (default cuda)")
     return parser.parse_args(argv)
 
 
 def _refuse_unported(args) -> None:
-    if args.time_shards > 1 or args.decoder_halo != "auto":
-        raise NotImplementedError("-time_shards > 1 and -decoder_halo "
-                                  "(sequence parallelism) are not ported "
-                                  "yet: ROADMAP.md queue A, SP")
+    if args.decoder_halo in ("layer", "recompute"):
+        raise NotImplementedError(f"-decoder_halo {args.decoder_halo} is not "
+                                  f"ported (only 'fused'): ROADMAP.md queue "
+                                  f"A, SP")
     if args.coordinator is not None or args.num_processes not in (None, 1) \
             or args.process_id not in (None, 0):
         raise NotImplementedError("-coordinator, -num_processes and "
@@ -102,13 +117,47 @@ def _refuse_unported(args) -> None:
 
 
 def main(argv=None):
-    """Train; returns {"losses", "step_seconds", "path", "step"} (the
-    per-step wall seconds end in a device synchronise on CUDA)."""
+    """Train; returns {"losses", "step_seconds", "path", "step",
+    "launches"} (the per-step wall seconds end in a device synchronise on
+    CUDA; "launches" holds the kernels' launch counts, under -time_shards a
+    list with one dict per rank and the other keys rank 0's)."""
     args = parse_args(argv)
     _refuse_unported(args)
+    from vqvae_wavenet_torch.generate import resolve_device
+    device = resolve_device(args.device)
+    if args.time_shards == 1:
+        return _train(args, device, None)
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.parallel import run_ranks
+    from vqvae_wavenet_torch.parallel.timeshard import check_supported
+    check_supported(ModelConfig.from_json(args.parameter_path),
+                    args.max_len, args.time_shards, args.decoder_halo)
+    results = run_ranks(_sp_rank, args.time_shards, device.type, vars(args))
+    return dict(results[0], launches=[r["launches"] for r in results])
+
+
+def _sp_rank(sh, args: dict):
+    """One rank of a -time_shards run (spawned by run_ranks)."""
+    return _train(argparse.Namespace(**args), sh.device, sh)
+
+
+def _launch_counts() -> dict:
+    from vqvae_wavenet_torch.ops import (epilogue_kernels, train_kernels,
+                                         vq_kernels)
+    return {"vq_argmin": vq_kernels.launches,
+            "train_stack_fwd": train_kernels.fwd_launches,
+            "train_stack_bwd": train_kernels.bwd_launches,
+            "train_stack_fwd_sp": train_kernels.fwd_sp_launches,
+            "train_stack_bwd_sp": train_kernels.bwd_sp_launches,
+            "train_epilogue_fwd": epilogue_kernels.fwd_launches,
+            "train_epilogue_bwd": epilogue_kernels.bwd_launches}
+
+
+def _train(args, device: torch.device, sh):
+    """The training loop on one device (sh None) or as rank sh.rank of a
+    sequence-parallel run."""
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.data import DATASETS
-    from vqvae_wavenet_torch.generate import resolve_device
     from vqvae_wavenet_torch.ops.conv import set_full_f32
     from vqvae_wavenet_torch.params import random_params_np, to_torch
     from vqvae_wavenet_torch.training.checkpoint import (
@@ -117,16 +166,18 @@ def main(argv=None):
     from vqvae_wavenet_torch.training.train_loop import (
         init_train_state, to_device, train_step)
 
-    device = resolve_device(args.device)
     set_full_f32()
+    lead = sh is None or sh.rank == 0
     if args.dataset not in DATASETS:
         raise NotImplementedError(f"dataset {args.dataset} not implemented")
     dataset = DATASETS[args.dataset](
         batch_size=args.batch_size, max_len=args.max_len,
         relative_path=args.data_path, seed=SEED,
-        trim_silence=args.trim_silence).start()
+        trim_silence=args.trim_silence)
+    if lead:
+        dataset.start()
     cfg = ModelConfig.from_json(args.parameter_path)
-    if cfg.verbose:
+    if cfg.verbose and lead:
         print("wavenet receptive_field:", cfg.wavenet.receptive_field)
     if args.restore_path is not None:
         ts = to_device(restore_checkpoint(args.restore_path), device)
@@ -136,25 +187,44 @@ def main(argv=None):
         ts = init_train_state(to_torch(params, device),
                               to_torch(state, device))
     gs = ts["step"]
-    print(f"[restore] last global step: {gs}")
+    if sh is None:
+        def step_fn(ts, batch):
+            return train_step(ts, batch, cfg)
+    else:
+        from vqvae_wavenet_torch.parallel.timeshard import sp_loss_and_grads
+        t_l = args.max_len // sh.world
+        grads_fn = functools.partial(sp_loss_and_grads, sh=sh,
+                                     decoder_halo=args.decoder_halo)
+
+        def step_fn(ts, batch):
+            x_l = batch["x"][:, sh.rank * t_l:(sh.rank + 1) * t_l]
+            return train_step(ts, {"x": x_l.contiguous(), "y": batch["y"]},
+                              cfg, grads_fn=grads_fn)
+    if lead:
+        print(f"[restore] last global step: {gs}")
+        if sh is not None:
+            print(f"[sp] {sh.world} time shards of {args.max_len // sh.world}"
+                  f" samples, backend {sh.backend}"
+                  + (", ranks share a GPU: halos and gradients staged "
+                     "through host memory" if sh.staged else ""))
 
     save_dir = os.path.dirname(args.save_path) or "."
-    os.makedirs(save_dir, exist_ok=True)
-    writer = MetricWriter(save_dir)
+    writer = None
+    if lead:
+        os.makedirs(save_dir, exist_ok=True)
+        writer = MetricWriter(save_dir)
     losses, step_seconds = [], []
     t_win, last_print = time.perf_counter(), 0
     path = None
     try:
         for step in range(1, 1 + args.num_steps):
             t0 = time.perf_counter()
-            host = dataset.next()
-            batch = {k: torch.from_numpy(v).to(device) for k, v in
-                     host.items()}
-            ts, metrics = train_step(ts, batch, cfg)
+            batch = _next_batch(dataset, args, device, sh, lead)
+            ts, metrics = step_fn(ts, batch)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             step_seconds.append(time.perf_counter() - t0)
-            if (gs + step) % args.interval == 0:
+            if lead and (gs + step) % args.interval == 0:
                 writer.scalars(gs + step, metrics)
                 writer.flush()
             if step % args.log_every == 0 or step == args.num_steps:
@@ -168,18 +238,39 @@ def main(argv=None):
                 line += " [recons %.5f] [lr %.5f]" % (rl, metrics["lr"])
                 if "distances_mean" in metrics:
                     line += " [dist %.2f]" % float(metrics["distances_mean"])
-                print(line + display_time(t, (args.num_steps - step) * t),
-                      end="")
-                sys.stdout.flush()
-            if step % args.ckpt_interval == 0:
+                if lead:
+                    print(line + display_time(t, (args.num_steps - step) * t),
+                          end="")
+                    sys.stdout.flush()
+            if lead and step % args.ckpt_interval == 0:
                 save_checkpoint(save_dir, ts)
-        path = save_checkpoint(save_dir, ts)
-        print(f"\nsaved {path}")
+        if lead:
+            path = save_checkpoint(save_dir, ts)
+            print(f"\nsaved {path}")
     finally:
         dataset.stop()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return {"losses": losses, "step_seconds": step_seconds, "path": path,
-            "step": ts["step"]}
+            "step": ts["step"], "launches": _launch_counts()}
+
+
+def _next_batch(dataset, args, device, sh, lead: bool):
+    """The next batch on ``device``: read here, or under SP read by rank 0
+    and broadcast to every rank."""
+    if lead:
+        batch = {k: torch.from_numpy(v).to(device) for k, v in
+                 dataset.next().items()}
+    else:
+        batch = {"x": torch.empty((args.batch_size, args.max_len, 1),
+                                  device=device),
+                 "y": torch.empty((args.batch_size, 1, dataset.num_speakers),
+                                  device=device)}
+    if sh is not None:
+        from vqvae_wavenet_torch.parallel.comm import broadcast_
+        for k in sorted(batch):
+            broadcast_(batch[k], sh)
+    return batch
 
 
 if __name__ == "__main__":

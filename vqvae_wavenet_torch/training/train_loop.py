@@ -70,13 +70,16 @@ def loss_and_grads(params, model_state, cfg, batch):
     return loss.detach(), _detach(aux), list(grads)
 
 
-def train_step(ts, batch, cfg, *, ema_decay: float = 0.999):
+def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
+               grads_fn=loss_and_grads):
     """One optimizer step.  batch = {"x": [B, T, 1], "y": [B, 1, S] or
     None} on the parameters' device.  Returns (new train state, metrics);
-    the metrics are 0-d tensors (no host sync here) except the ints."""
+    the metrics are 0-d tensors (no host sync here) except the ints.
+    ``grads_fn(params, model_state, cfg, batch)`` gives (loss, aux, grads):
+    ``loss_and_grads`` here, the sequence-parallel one under -time_shards
+    (parallel/timeshard.py)."""
     schedule = piecewise_constant_schedule(cfg.learning_rate_schedule)
-    loss, aux, grads = loss_and_grads(ts["params"], ts["model_state"], cfg,
-                                      batch)
+    loss, aux, grads = grads_fn(ts["params"], ts["model_state"], cfg, batch)
     params, ema_params, opt_state = fused_adam_ema_step(
         ts["params"], ts["ema_params"], ts["opt_state"], grads, schedule,
         b1=0.9, ema_decay=ema_decay)
