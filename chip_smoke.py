@@ -5,7 +5,7 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device  torch/CUDA versions and the card's name and power limit;
-  2. build   compile the five sources under vqvae_wavenet_torch/csrc with
+  2. build   compile the six sources under vqvae_wavenet_torch/csrc with
              nvcc, one process each, all at once (ptxas registers/spills
              of the training kernels are printed);
   3. vq      the VQ kernel against its plain twin at N = 384 (generation),
@@ -54,6 +54,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              and bf16 and generate from the bf16 checkpoint; the SP kernels'
              launches are read from the ranks of those runs.  Both ranks
              share the one GPU, so they talk over gloo through host memory.
+  13. train-bwd2  the two-kernel stack backward (the chain kernel, then
+             the one-launch dk kernel) against its plain twins and against
+             the layer sweep on the same inputs, at B=8 x 6656, the
+             shipped widths and the Magenta widths (50 layers, K=2), f32
+             and bf16; times beside the sweep's, the bounds, and a
+             torch.bmm yardstick for dk;
+  14. magenta-train  vqvae_wavenet_torch.train -params
+             magenta_parameters.json at -length 6656 -batch 8, six steps
+             each in f32 and bf16 (the layer sweep) and in bf16 with
+             train_kernels.BWD_FUSED_DK = "off" (the two-kernel backward),
+             counters reset before each run and read after; generate from
+             the bf16 checkpoint; the "off" step's loss and gradients
+             against the default's on one fixed batch.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and
 prints no result.  Outputs go under build/chip_smoke/ (gitignored).
@@ -79,7 +92,7 @@ GEN_SOURCE = "vqvae_wavenet_torch/csrc/gen_wavenet.cu"
 VQ_REPLACES = "vqvae_wavenet_tpu/ops/vq_pallas.py:32"
 GEN_REPLACES = "vqvae_wavenet_tpu/ops/gen_pallas.py:346"
 SOURCES = ("vq_argmin", "gen_wavenet", "train_stack_fwd", "train_stack_bwd",
-           "train_epilogue")
+           "train_stack_bwd2", "train_epilogue")
 TRAIN = {   # name -> (source, the TPU kernel it replaces)
     "train_stack_fwd": ("vqvae_wavenet_torch/csrc/train_stack_fwd.cu",
                         "vqvae_wavenet_tpu/ops/train_pallas.py:1196"),
@@ -93,6 +106,10 @@ TRAIN = {   # name -> (source, the TPU kernel it replaces)
                            "vqvae_wavenet_tpu/ops/train_pallas.py:1196"),
     "train_stack_bwd_sp": ("vqvae_wavenet_torch/csrc/train_stack_bwd.cu",
                            "vqvae_wavenet_tpu/ops/train_pallas.py:735"),
+    "train_stack_bwd_chain": ("vqvae_wavenet_torch/csrc/train_stack_bwd2.cu",
+                              "vqvae_wavenet_tpu/ops/train_pallas.py:180"),
+    "train_stack_bwd_dk": ("vqvae_wavenet_torch/csrc/train_stack_bwd2.cu",
+                           "vqvae_wavenet_tpu/ops/train_pallas.py:493"),
 }
 
 # the H100 SXM's published peaks: bf16 tensor cores, f32 outside the
@@ -629,16 +646,18 @@ def _check_leaves(tag, dtype, pairs):
     return max(errs.values())
 
 
-def _stack_inputs(B, T, F, dtype, gate_gc: bool, seed: int):
-    """Shipped-width stack operands: random full-width decoder layers from
-    a seed, x0 [B, T, R], the folded condition lc_encb [L, F, B, 2D] (with
-    a random global condition folded in when gate_gc), dskip [B, T, S].
-    The conv and residual biases, which random_params_np sets to zero as
-    the initialiser does, are drawn at random here, so that the kernel's
-    per-layer bias reads are checked too."""
+def _stack_inputs(B, T, F, dtype, gate_gc: bool, seed: int,
+                  params_json: str = "model_parameters.json"):
+    """Full-width stack operands of the config ``params_json`` (the shipped
+    one by default): random decoder layers from a seed, x0 [B, T, R], the
+    folded condition lc_encb [L, F, B, 2D] (with a random global
+    condition folded in when gate_gc: through the layers' own gc_kernel
+    and gc_bias where they have them, the Magenta family), dskip
+    [B, T, S].  The conv and residual biases are drawn at random here, so
+    that the kernel's per-layer bias reads are checked too."""
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.params import random_params_np, to_torch
-    cfg = ModelConfig.from_json(os.path.join(REPO, "model_parameters.json"))
+    cfg = ModelConfig.from_json(os.path.join(REPO, params_json))
     params, _ = random_params_np(cfg, 109, seed)
     lp = to_torch(params["decoder"]["layers"], "cuda")
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -651,7 +670,12 @@ def _stack_inputs(B, T, F, dtype, gate_gc: bool, seed: int):
     lc = (torch.randn((B, F, c_lc), generator=g) * 0.5).cuda()
     lc_encb = torch.einsum("bsc,lcf->lsbf", lc, lp["lc_kernel"]) \
         + lp["bias"][:, None, None, :]
-    if gate_gc:
+    if gate_gc and "gc_kernel" in lp:
+        gc = torch.randn((B, lp["gc_kernel"].shape[1]), generator=g).cuda()
+        lc_encb = (lc_encb + torch.einsum("bc,lcf->lbf", gc,
+                                          lp["gc_kernel"])[:, None]
+                   + lp["gc_bias"][:, None, None, :])
+    elif gate_gc:
         gc = torch.randn((B, 16), generator=g).cuda()
         gck = (torch.randn((L, 16, D2), generator=g) * 0.05).cuda()
         lc_encb = lc_encb + torch.einsum("bc,lcf->lbf", gc, gck)[:, None]
@@ -730,6 +754,170 @@ def phase_train_stack(card: str):
                     "bound_ms": b_bound[0], "bound_by": b_bound[1],
                     "library_ms": None}
             del sk, sp, act, xs
+            torch.cuda.empty_cache()
+    return out
+
+
+def _shifted_inputs(xs, dils, K: int):
+    """[L, K*R, B*T]: for every layer and tap the layer input shifted down
+    by o_j = (K-1-j) d_l rows within each batch row (zeros in front),
+    transposed: the operand with which one torch.bmm against dpre_all
+    [L, B*T, 2D] computes dk (the library yardstick of the dk kernel)."""
+    L, B, T, R = xs.shape
+    out = torch.zeros((L, K, R, B, T), dtype=xs.dtype, device=xs.device)
+    for l, d in enumerate(dils):
+        for j in range(K):
+            o = (K - 1 - j) * d
+            if o < T:
+                out[l, j, :, :, o:] = xs[l, :, :T - o].permute(2, 0, 1)
+    return out.reshape(L, K * R, B * T)
+
+
+def _check_forward(tag, dtype, w, x0, dils, gate, sk, act, xs) -> float:
+    """The forward kernel's outputs (skip_sum sk, act, xs) against its
+    plain twin on the same inputs.  Layer by layer, teacher-forced: the
+    twin runs layer l alone from the kernel's own input xs[l], and its act
+    and its output (the next layer's input) must lie within TRAIN_TOL of
+    the kernel's, so each comparison sees one kernel layer.  skip_sum over
+    the whole stack: f32 within TRAIN_TOL of the twin's; bf16 no farther
+    from the f32 twin on the same inputs than 1.1x the bf16 twin is (the
+    distance-to-f32 rule of [sp-train]): in bf16 an f32 difference of one
+    ulp rounds a layer's input to the neighbouring value and that spreads
+    through the later layers, in the twin as in the kernel (over 50
+    layers past 2e-2 of the max).  Returns the largest error held to
+    TRAIN_TOL."""
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    tol, L = TRAIN_TOL[dtype], len(dils)
+    per_layer = []
+    for l in range(L):
+        _, a, _, xo = tk.stack_forward_plain(
+            *(t[l:l + 1] for t in w[:4]), w[4][l:l + 1].contiguous(), xs[l],
+            dils[l:l + 1], gate, with_xout=True)
+        per_layer.append((_leaf_err(act[l], a[0]),
+                          _leaf_err(xs[l + 1], xo) if l < L - 1 else 0.0))
+    e_act, e_x = (max(e[i] for e in per_layer) for i in (0, 1))
+    worst = max(range(L), key=lambda l: max(per_layer[l]))
+    sp = tk.stack_forward_plain(*w, x0, dils, gate)[0]
+    e_skip = _leaf_err(sk, sp)
+    msg = (f"[{tag} fwd] {dtype}: per layer from the kernel's own input, "
+           f"max |kernel - plain| / max |plain|: act {e_act:.3g}, next "
+           f"input {e_x:.3g} (worst layer {worst}, dilation "
+           f"{dils[worst]}); skip_sum over {L} layers {e_skip:.3g}")
+    bad = [k for k, v in (("act", e_act), ("next input", e_x))
+           if not v <= tol]
+    if dtype == "f32":
+        log(msg + f" (tolerance {tol})")
+        bad += ["skip_sum"] if not e_skip <= tol else []
+    else:
+        s32 = tk.stack_forward_plain(*(t.float() for t in w), x0.float(),
+                                     dils, gate)[0]
+        k32, p32 = _leaf_err(sk, s32), _leaf_err(sp, s32)
+        log(msg + f"; to the f32 twin: kernel {k32:.3g}, bf16 twin "
+            f"{p32:.3g} (tolerance {tol}; skip_sum <= 1.1x the twin's "
+            f"distance to f32)")
+        bad += ["skip_sum"] if not k32 <= 1.1 * p32 else []
+        del s32
+    del sp
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"{tag} fwd {dtype}: kernel disagrees with "
+                             f"plain: {bad}")
+    return max(e_act, e_x, e_skip if dtype == "f32" else 0.0)
+
+
+def phase_train_bwd2(card: str):
+    """The two-kernel stack backward (the chain kernel, then the one-launch
+    dk kernel) against its plain twins and against the layer sweep
+    (train_stack_bwd) on the same inputs, at B=8, T=6656, 104 frames:
+    the shipped widths (L=30, K=3, R=D=256, S=512, tanh_first) and the
+    Magenta widths (L=50, K=2, dilations 2^(i%10), the per-layer gc folded
+    into the condition, sigmoid_first), f32 and bf16.  The forward kernel
+    is first held against its plain twin on the same inputs
+    (_check_forward); the saved tensors the backwards read come from the
+    forward kernel; the dk kernel and its twin read the
+    chain kernel's dpre_all, so each comparison sees one kernel.
+    Tolerance per output as in [train-stack] (TRAIN_TOL).  Times (CUDA
+    events) of the chain, of dk and of the sweep on the same shape, the
+    plain twins', the bounds, and as dk's library yardstick one torch.bmm
+    of the pre-gathered shifted inputs [L, K*R, B*T] with dpre_all
+    [L, B*T, 2D] (the gather not timed); the forward kernel's time on the
+    same shape beside them.  Returns the JSON fields of both kernels
+    (Magenta, bf16: the shape of the magenta-train path)."""
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    B, T, F = 8, 6656, 104
+    out = {}
+    for name, params_json, gate in (
+            ("shipped", "model_parameters.json", "tanh_first"),
+            ("magenta", "magenta_parameters.json", "sigmoid_first")):
+        for dtype in ("f32", "bf16"):
+            cfg, w, x0, dskip = _stack_inputs(B, T, F, dtype,
+                                              name == "magenta", seed=13,
+                                              params_json=params_json)
+            dils = tuple(cfg.wavenet.dilation_rates)
+            L, K, R, D2 = w[0].shape
+            D, S, N = D2 // 2, w[1].shape[2], B * T
+            sk, act, xs = tk.stack_forward_cuda(*w, x0, dils, gate)
+            f_err = _check_forward(f"train-bwd2 {name}", dtype, w, x0,
+                                   dils, gate, sk, act, xs)
+            del sk
+            bargs = (dskip, act, xs, w[0], w[1], w[2], dils, F, gate)
+            ck = tk.stack_bwd_chain_cuda(*bargs)
+            cp = tk.stack_bwd_chain_plain(*bargs)
+            names = ("dpre_all", "dsk", "drs", "drb", "dlc", "dx0")
+            c_err = _check_leaves(f"train-bwd2 {name} chain", dtype,
+                                  dict(zip(names, zip(ck, cp))))
+            del cp
+            dkk = tk.stack_dk_cuda(ck[0], xs, dils, K)
+            dkp = tk.stack_dk_plain(ck[0], xs, dils, K)
+            d_err = _check_leaves(f"train-bwd2 {name} dk", dtype,
+                                  {"dk": (dkk, dkp)})
+            del dkp
+            sw = tk.stack_backward_cuda(*bargs)
+            _check_leaves(f"train-bwd2 {name} two-kernel vs sweep", dtype,
+                          dict(zip(("dk", "dsk", "drs", "drb", "dlc",
+                                    "dx0"),
+                                   zip((dkk,) + tuple(ck[1:]), sw))))
+            del sw
+            torch.cuda.empty_cache()
+            c_ms = cuda_ms(lambda: tk.stack_bwd_chain_cuda(*bargs), 3)
+            cp_ms = cuda_ms(lambda: tk.stack_bwd_chain_plain(*bargs), 2)
+            d_ms = cuda_ms(lambda: tk.stack_dk_cuda(ck[0], xs, dils, K), 3)
+            dp_ms = cuda_ms(lambda: tk.stack_dk_plain(ck[0], xs, dils, K), 2)
+            sw_ms = cuda_ms(lambda: tk.stack_backward_cuda(*bargs), 3)
+            f_ms = cuda_ms(lambda: tk.stack_forward_cuda(*w, x0, dils, gate),
+                           3)
+            gathered = _shifted_inputs(xs, dils, K)
+            dpre2 = ck[0].reshape(L, N, D2)
+            lib_ms = cuda_ms(lambda: torch.bmm(gathered, dpre2), 3)
+            lib_err = _leaf_err(torch.bmm(gathered, dpre2).float(),
+                                dkk.reshape(L, K * R, D2))
+            del gathered, dpre2
+            c_bound = bound(2.0 * N * L * (2 * (R + S) * D + K * D2 * R),
+                            nbytes(dskip, act, w[0], w[1], w[2]) + nbytes(
+                                *ck), dtype)
+            d_bound = bound(2.0 * N * L * K * R * D2,
+                            nbytes(ck[0], xs, dkk), dtype)
+            log(f"[train-bwd2] {name} {dtype} B={B} T={T} L={L} K={K}: "
+                f"forward kernel vs plain {f_err:.3g} of its max; chain "
+                f"kernel {c_ms:.2f} ms (plain {cp_ms:.2f}, bound "
+                f"{c_bound[0]:.2f} by {c_bound[1]}), dk kernel {d_ms:.2f} "
+                f"ms (plain {dp_ms:.2f}, bound {d_bound[0]:.2f} by "
+                f"{d_bound[1]}, one torch.bmm of the pre-gathered shifted "
+                f"inputs {lib_ms:.2f}, its gather not timed, "
+                f"max |bmm - kernel| / max |kernel| {lib_err:.3g}); "
+                f"two-kernel total {c_ms + d_ms:.2f} ms against the layer "
+                f"sweep {sw_ms:.2f} ms on the same inputs (the forward "
+                f"kernel {f_ms:.2f} ms)  ({card})")
+            if name == "magenta" and dtype == "bf16":
+                out["train_stack_bwd_chain"] = {
+                    "max_abs_err": c_err, "ms": c_ms, "plain_ms": cp_ms,
+                    "bound_ms": c_bound[0], "bound_by": c_bound[1],
+                    "library_ms": None}
+                out["train_stack_bwd_dk"] = {
+                    "max_abs_err": d_err, "ms": d_ms, "plain_ms": dp_ms,
+                    "bound_ms": d_bound[0], "bound_by": d_bound[1],
+                    "library_ms": lib_ms}
+            del ck, dkk, act, xs, bargs, w, x0, dskip
             torch.cuda.empty_cache()
     return out
 
@@ -897,6 +1085,145 @@ def phase_train_e2e(card: str):
     return launches
 
 
+def _magenta_config(dtype: str) -> str:
+    """build/chip_smoke/magenta_<dtype>.json: magenta_parameters.json with
+    "train_dtype": dtype."""
+    path = os.path.join(OUT, f"magenta_{dtype}.json")
+    with open(os.path.join(REPO, "magenta_parameters.json")) as f:
+        mp = json.load(f)
+    os.makedirs(OUT, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(dict(mp, train_dtype=dtype), f)
+    return path
+
+
+def _magenta_fixed_batch_check(card: str):
+    """One fixed batch (B=8 x 6656, random weights from a seed, bf16):
+    loss and gradients of the Magenta step with BWD_FUSED_DK "off" (the
+    two-kernel backward) against "auto" (the layer sweep).  Both compute
+    one function with the same rounding points, and only dk sums its rows
+    in another blocking, so: loss within rtol 1e-5, every gradient leaf
+    within 2e-2 of its largest |value|."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    from vqvae_wavenet_torch.params import random_params_np, to_torch
+    from vqvae_wavenet_torch.training.train_loop import loss_and_grads
+    cfg = ModelConfig.from_json(_magenta_config("bf16"))
+    params, _ = random_params_np(cfg, 109, seed=SP_SEED)
+    p = to_torch(params, "cuda")
+    x, y = _fixed_batch(8, "cuda")
+    batch = {"x": x, "y": y}
+    res = {}
+    try:
+        for mode in ("auto", "off"):
+            tk.BWD_FUSED_DK = mode
+            loss, _, grads = loss_and_grads(p, {}, cfg, batch)
+            res[mode] = (float(loss), grads)
+    finally:
+        tk.BWD_FUSED_DK = "auto"
+    rel = abs(res["off"][0] - res["auto"][0]) / abs(res["auto"][0])
+    errs = [_leaf_err(a, b) for a, b in zip(res["off"][1], res["auto"][1])
+            if b is not None]
+    worst = int(np.argmax(errs))
+    log(f"[magenta-train] fixed batch bf16: loss off {res['off'][0]:.6f} "
+        f"auto {res['auto'][0]:.6f} (relative {rel:.3g}); {len(errs)} "
+        f"gradient leaves, max |off - auto| / max |auto| {errs[worst]:.3g} "
+        f"(leaf {worst})  ({card})")
+    if not (rel <= 1e-5 and errs[worst] <= 2e-2):
+        raise AssertionError("magenta-train: the two-kernel backward's "
+                             "step disagrees with the layer sweep's")
+
+
+def phase_magenta_train(card: str):
+    """The Magenta family's training entry point at its full preset
+    (magenta_parameters.json: 50 layers, K=2, R=D=256, S=512) and the full
+    training shape (-length 6656 -batch 8), six steps each on the
+    synthetic corpus of [train-e2e]: f32 and bf16 with the default
+    backward (the layer sweep), and bf16 with
+    train_kernels.BWD_FUSED_DK = "off" (the two-kernel backward), reset
+    to "auto" after.  The counters are set to 0 before each run and read
+    after: every run launches the VQ and stack forward kernels, the
+    default runs the sweep, the "off" run the chain and dk kernels and
+    not the sweep.  Finite losses, the loss at step 6 below the loss at
+    step 1, a checkpoint; steps/s over steps 3-6.  Then generate -params
+    magenta_parameters.json converts 2,048 samples from the bf16
+    checkpoint, and the fixed-batch check above.  Returns the chain and
+    dk kernels' launches in the "off" run."""
+    from scipy.io import wavfile
+    from vqvae_wavenet_torch import generate as gen_cli
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    from vqvae_wavenet_torch.ops import vq_kernels
+    data = _train_corpus()
+    launches = {}
+    ckpt = None
+    for dtype, mode in (("f32", "auto"), ("bf16", "auto"), ("bf16", "off")):
+        save = os.path.join(OUT, f"magenta_train_{dtype}_{mode}")
+        vq_kernels.launches = 0
+        tk.fwd_launches = tk.bwd_launches = 0
+        tk.chain_launches = tk.dk_launches = 0
+        tk.BWD_FUSED_DK = mode
+        try:
+            res = train_cli.main([
+                "-dataset", "VCTK", "-length", "6656", "-batch", "8",
+                "-step", "6", "-save", os.path.join(save, "weights"),
+                "-params", _magenta_config(dtype), "-data", data,
+                "-device", "cuda", "-log_every", "1", "-interval", "1000",
+                "-ckpt_interval", "1000"])
+        finally:
+            tk.BWD_FUSED_DK = "auto"
+        counts = {"vq_argmin": vq_kernels.launches,
+                  "train_stack_fwd": tk.fwd_launches,
+                  "train_stack_bwd": tk.bwd_launches,
+                  "train_stack_bwd_chain": tk.chain_launches,
+                  "train_stack_bwd_dk": tk.dk_launches}
+        print()
+        steady = res["step_seconds"][2:]
+        log(f"[magenta-train] {dtype} BWD_FUSED_DK={mode}: losses "
+            + " ".join(f"{v:.4f}" for v in res["losses"])
+            + f"; {len(steady) / sum(steady):.3f} steps/s over steps 3-6 "
+            f"(host clock, synchronised; first step "
+            f"{res['step_seconds'][0]:.2f} s)  ({card})")
+        log(f"[magenta-train] {dtype} {mode}: kernel launches {counts}")
+        losses = res["losses"]
+        if len(losses) != 6 or not np.isfinite(losses).all() \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"magenta-train {dtype} {mode}: losses "
+                                 f"not finite or not falling: {losses}")
+        if not os.path.exists(res["path"] + ".npz"):
+            raise AssertionError(f"no checkpoint written ({dtype} {mode})")
+        need = ["vq_argmin", "train_stack_fwd"]
+        if mode == "auto":
+            need.append("train_stack_bwd")
+            idle = ["train_stack_bwd_chain", "train_stack_bwd_dk"]
+            if dtype == "bf16":
+                ckpt = res["path"] + ".npz"
+        else:
+            need += ["train_stack_bwd_chain", "train_stack_bwd_dk"]
+            idle = ["train_stack_bwd"]
+            launches = {k: counts[k] for k in
+                        ("train_stack_bwd_chain", "train_stack_bwd_dk")}
+        if min(counts[k] for k in need) < 1 or max(counts[k]
+                                                   for k in idle) > 0:
+            raise AssertionError(f"magenta-train {dtype} {mode}: the "
+                                 f"launches do not fit the path: {counts}")
+    audio = os.path.join(OUT, "magenta_train_input.wav")
+    t = np.arange(2048) / 16000.0
+    wavfile.write(audio, 16000, (0.3 * np.sin(2 * np.pi * 200.0 * t)
+                                 * 32767).astype(np.int16))
+    res = gen_cli.main(["-restore", ckpt, "-audio", audio, "-speakers",
+                        "p226", "-mode", "greedy", "-params",
+                        os.path.join(REPO, "magenta_parameters.json"),
+                        "-data", data, "-device", "cuda"])
+    if res["audio"].shape != (1, 2048) or not np.isfinite(
+            res["audio"]).all():
+        raise AssertionError("generation from the Magenta checkpoint failed")
+    log(f"[magenta-train] generated {res['audio'].shape[1]} samples from "
+        f"{os.path.basename(ckpt)} in {res['seconds']:.2f} s")
+    _magenta_fixed_batch_check(card)
+    return launches
+
+
 def phase_sp_stack(card: str):
     """The stack kernels' SP variants against their plain twins on one
     dilation cycle (layers 0-9, dilations 1-512) of the 2-rank shape:
@@ -1003,6 +1330,18 @@ def _train_config(dtype: str) -> str:
     return path
 
 
+def _fixed_batch(B: int, device):
+    """B random 6,656-sample clips (x [B, 6656, 1]) and speaker one-hots
+    (y [B, 1, 109]) from SP_SEED, the same in every process."""
+    rng = np.random.default_rng(SP_SEED)
+    x = (0.5 * np.sin(np.cumsum(rng.uniform(0.01, 0.2, (B, 6656)), axis=1))
+         + 0.05 * rng.standard_normal((B, 6656))).astype(np.float32)
+    y = np.zeros((B, 1, 109), np.float32)
+    y[np.arange(B), 0, rng.integers(0, 109, B)] = 1.0
+    return (torch.from_numpy(x[..., None]).to(device),
+            torch.from_numpy(y).to(device))
+
+
 def _sp_case(B: int, dtype: str, device):
     """The [sp-train] inputs, the same in every process: the shipped config
     (train_dtype ``dtype``) with random weights from SP_SEED and every bias
@@ -1019,14 +1358,8 @@ def _sp_case(B: int, dtype: str, device):
         if isinstance(tree, list):
             return [bump(v) for v in tree]
         return tree + np.float32(0.05) if "bias" in name else tree
-    rng = np.random.default_rng(SP_SEED)
-    x = (0.5 * np.sin(np.cumsum(rng.uniform(0.01, 0.2, (B, 6656)), axis=1))
-         + 0.05 * rng.standard_normal((B, 6656))).astype(np.float32)
-    y = np.zeros((B, 1, 109), np.float32)
-    y[np.arange(B), 0, rng.integers(0, 109, B)] = 1.0
     return (cfg, to_torch(bump(params), device), to_torch(state, device),
-            torch.from_numpy(x[..., None]).to(device),
-            torch.from_numpy(y).to(device))
+            *_fixed_batch(B, device))
 
 
 def _host_ms(fn, device) -> float:
@@ -1216,7 +1549,8 @@ def phase_sp_train(card: str):
 
 
 PHASES = ("vq", "gen", "gen-int8", "e2e", "magenta", "train-stack",
-          "train-epilogue", "train-e2e", "sp-stack", "sp-train")
+          "train-epilogue", "train-e2e", "sp-stack", "sp-train",
+          "train-bwd2", "magenta-train")
 
 
 def main(argv=None) -> int:
@@ -1240,7 +1574,9 @@ def main(argv=None) -> int:
                 "train-epilogue": lambda: phase_train_epilogue(card),
                 "train-e2e": lambda: phase_train_e2e(card),
                 "sp-stack": lambda: phase_sp_stack(card),
-                "sp-train": lambda: phase_sp_train(card)}
+                "sp-train": lambda: phase_sp_train(card),
+                "train-bwd2": lambda: phase_train_bwd2(card),
+                "magenta-train": lambda: phase_magenta_train(card)}
         for name in only:
             runs[name]()
         log(f"[only] {' '.join(only)}: passed")
@@ -1251,8 +1587,9 @@ def main(argv=None) -> int:
     launches = phase_e2e(card)
     magenta = phase_magenta(card)
     train = {**phase_train_stack(card), **phase_train_epilogue(card),
-             **phase_sp_stack(card)}
-    train_launches = {**phase_train_e2e(card), **phase_sp_train(card)}
+             **phase_sp_stack(card), **phase_train_bwd2(card)}
+    train_launches = {**phase_train_e2e(card), **phase_sp_train(card),
+                      **phase_magenta_train(card)}
     kernels = [
         {"name": "vq_argmin", "route": "cuda", "source": VQ_SOURCE,
          "replaces": VQ_REPLACES, "launches": launches["vq_argmin"], **vq},

@@ -11,11 +11,13 @@ parameters plus the model state (encoder batch-norm statistics) as the flat
 ``params/...`` / ``state/...`` npz that vqvae_wavenet_torch.params.load_npz
 reads.  For the Magenta family (``-params magenta_parameters.json``) it
 writes the raw parameters, which is what generate.py restores for that
-family; its model state is empty.  With -train_state it writes the whole train state (params, EMA
-shadows, Adam moments and count, model state, step) through
+family; its model state is empty.  With -train_state it writes the whole
+train state (params, EMA shadows, Adam moments and count, model state,
+step) of either family through
 vqvae_wavenet_torch.params.from_jax_train_state in the port's checkpoint
 layout, so ``python -m vqvae_wavenet_torch.train -restore <out>`` resumes
-the JAX run.  -num_speakers is the speaker-table size the model was trained
+the JAX run (and the port's generate.py reads it: the Magenta family its
+train/params).  -num_speakers is the speaker-table size the model was trained
 with (VCTK 109, aishell 340, LibriSpeech 251).
 """
 import argparse
@@ -53,9 +55,6 @@ def main(argv=None):
 
     cfg = ModelConfig.from_json(args.parameter_path)
     magenta = cfg.model_family == "magenta"
-    if magenta and args.train_state:
-        raise NotImplementedError("Magenta training is not ported to torch "
-                                  "yet: -train_state takes the VQVAE family")
     # an abstract template: restoring needs the tree's shapes only
     ts = jax.eval_shape(lambda k: init_train_state(k, cfg, args.num_speakers),
                         jax.random.PRNGKey(0))

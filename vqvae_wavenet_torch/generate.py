@@ -5,9 +5,11 @@
         -speakers p225 p226 None -mode sample [-params model_parameters.json] \
         [-dtype bf16|f32|int8] [-device cuda|cpu]
 
-``-restore`` names the port's ``.npz`` (tools/export_torch_npz.py writes
-one from an orbax checkpoint: the EMA parameters, or for the Magenta family
-the raw ones, as the JAX generate.py restores).  The conditioning wav is
+``-restore`` names the port's ``.npz``: a training checkpoint of the
+port's train.py, or an export by tools/export_torch_npz.py of an orbax
+checkpoint.  The main family generates from the EMA parameters, the
+Magenta family from the raw ones (a checkpoint's train/params), as the
+JAX generate.py restores.  The conditioning wav is
 trimmed to a multiple of 512 samples and encoded once (Encoder_64 -> VQ ->
 speaker concat; or, with ``-params magenta_parameters.json``, the Magenta
 encoder -> VQ, with the speaker as a per-layer global condition); the local
@@ -157,7 +159,9 @@ def main(argv=None):
                          ).float().to(device)
     y = speaker_one_hots(args.speakers, args.data_path)
 
-    params, state = load_npz(args.restore_path, device)
+    # the Magenta family generates from the raw parameters (a training
+    # checkpoint's train/params), the main family from the EMA shadows
+    params, state = load_npz(args.restore_path, device, raw_params=magenta)
     save_path = (args.restore_path.split("/weights")[0]
                  if "/weights" in args.restore_path
                  else os.path.dirname(os.path.abspath(args.restore_path)))

@@ -1,5 +1,5 @@
-"""The Magenta family's voice-conversion path (port of
-vqvae_wavenet_tpu/models/magenta.py:39-69, 120-136, 217-257).
+"""The Magenta family: its voice-conversion path and its training forward
+(port of vqvae_wavenet_tpu/models/magenta.py:39-69, 120-205, 217-257).
 
 The hyperparameters are module constants, as in the JAX package (they are
 hard-coded in the reference's Magenta/config.py:4-16); the port keeps its
@@ -8,6 +8,15 @@ width 2 as its preprocess, per-layer biased global conditioning and the
 gate halves swapped (sigmoid first).  Generation runs through the shared
 whole-clip generation (generation/fast.py), so on the card it launches
 the same kernel as the main family.
+
+Training (``magenta_forward``) runs the decoder through the same
+teacher-forced WaveNet as the main family (models/wavenet.py), so on the
+card the stack goes through the training kernels with K=2, the gate
+sigmoid first and the per-layer biased global condition folded into the
+frame condition; the loss head is plain, as in JAX.  The loss adds the L2
+regularization (``regularization_loss``) and the VQ losses (beta 0.25);
+the optimizer is Adam with beta1 = 0.5 and MAGENTA_LR_SCHEDULE
+(training/train_loop.py).
 
 Reference quirk kept (magenta.py:245-246): an all-zero one-hot ('None'
 speaker) argmax-selects index 0, so "no speaker" conditions on speaker 0's
@@ -22,6 +31,8 @@ import torch.nn.functional as F
 
 from vqvae_wavenet_torch.config import WavenetConfig
 from vqvae_wavenet_torch.models import vq as vq_mod
+from vqvae_wavenet_torch.models.vqvae import _cast
+from vqvae_wavenet_torch.models.wavenet import wavenet_logits, wavenet_loss
 from vqvae_wavenet_torch.ops.conv import causal_conv1d, conv1d
 from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
 from vqvae_wavenet_torch.ops.signal import pool1d
@@ -77,6 +88,58 @@ def magenta_encode(params, x: torch.Tensor) -> torch.Tensor:
         en = pool1d(en, 2)
     return conv1d(en, params["bottleneck"]["kernel"],
                   params["bottleneck"]["bias"], padding="SAME")
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def regularization_loss(params) -> torch.Tensor:
+    """Sum over the leaves of decay * ||w||^2, with decay * 10 on every
+    leaf whose path holds "embedding" (the codebook vq/embedding; not
+    speaker_emb), decay = MAGENTA_DECAY (magenta.py:139-148)."""
+    return sum(MAGENTA_DECAY * (10.0 if "embedding" in path else 1.0)
+               * torch.sum(torch.square(leaf))
+               for path, leaf in _named_leaves(params))
+
+
+def magenta_forward(params, x: torch.Tensor, gc_one_hot: torch.Tensor,
+                    train_dtype: str = "f32"):
+    """The training forward (magenta.py:150-205).  x [B, T, 1] raw
+    waveform, gc_one_hot [B, 1, num_speakers].  The encoder and the VQ run
+    in float32; under train_dtype 'bf16' the decoder's parameters, its
+    input, z_q and the speaker vector are cast to bfloat16 (master weights
+    stay float32; labels and losses float32).  Returns (loss, aux)."""
+    cfg = magenta_wavenet_config()
+    z_e = magenta_encode(params["encoder"], x)
+    q = vq_mod.quantize(params["vq"], z_e, mode="st")
+    e_k, z_q = q["e_k"], q["z_q"]
+    vq_loss, commitment = vq_mod.vq_losses(z_e, e_k, 0.25, mode="st")
+    gc = params["speaker_emb"][torch.argmax(gc_one_hot, dim=-1)]  # [B, 1, 64]
+    Q = cfg.quantization_channels
+    labels = mu_law_encode(x, Q, to_int=True).reshape(-1)
+    dec, x_dec, z_q_dec, gc_dec = params["decoder"], x, z_q, gc
+    if train_dtype == "bf16":
+        bf = torch.bfloat16
+        dec = _cast(dec, bf)
+        x_dec, z_q_dec, gc_dec = x.to(bf), z_q.to(bf), gc.to(bf)
+    logits = wavenet_logits(dec, cfg, x_dec, z_q_dec, gc_dec,
+                            gate_order="sigmoid_first")
+    recon = wavenet_loss(logits.float().reshape(-1, Q), labels)
+    reg = regularization_loss(params)
+    loss = recon + reg + vq_loss + commitment
+    return loss, {"reconstruction_loss": recon, "vq_loss": vq_loss,
+                  "commitment_loss": commitment, "reg_loss": reg,
+                  "perplexity": q["perplexity"], "z_e": z_e, "encoding": e_k,
+                  "q_z_x": q["q_z_x"],
+                  "distances_mean": q["distances_mean"]}
 
 
 def magenta_generate(params, x_cond: torch.Tensor, gc_one_hot: torch.Tensor,

@@ -1,12 +1,19 @@
 """The WaveNet training residual stack: plain PyTorch forward and backward,
-the wrappers of the CUDA kernels ``csrc/train_stack_fwd.cu`` and
-``csrc/train_stack_bwd.cu``, and the autograd Function that joins them.
+the wrappers of the CUDA kernels ``csrc/train_stack_fwd.cu``,
+``csrc/train_stack_bwd.cu`` and ``csrc/train_stack_bwd2.cu``, and the
+autograd Function that joins them.
 
 The forward kernel replaces
 vqvae_wavenet_tpu/ops/train_pallas.py::_make_fused_stack (Pallas call at
 train_pallas.py:1502); the backward kernel replaces
 ``_make_bwd_sweep_kernel`` (call at :1100, driven from the custom VJP's
-``fused_bwd`` :1560-1610).  ``fused_residual_stack`` keeps the JAX
+``fused_bwd`` :1560-1610).  Under ``BWD_FUSED_DK = "off"`` the backward
+is instead the two-kernel form (:1612-1663): the chain kernel
+(``_make_bwd_kernel``, call at :470) writes every layer's dpre and the
+other gradients, then one dW launch (``_make_dk_kernel``, call at :638)
+computes dk for every layer and tap; counters ``chain_launches`` and
+``dk_launches``.  Both backwards compute one function with the same
+rounding points.  ``fused_residual_stack`` keeps the JAX
 signature and folds the per-layer condition and conv bias into
 ``lc_encb`` [L, F, B, 2D] (f32) outside the kernels, as JAX does
 (:1820-1835), so the condition weights' gradients come from autograd
@@ -60,6 +67,17 @@ fwd_launches = 0
 bwd_launches = 0
 fwd_sp_launches = 0
 bwd_sp_launches = 0
+chain_launches = 0
+dk_launches = 0
+
+# the backward of a single-device stack call, read at call time (JAX's
+# train_pallas._BWD_FUSED_DK, read at trace time): "auto" takes the layer
+# sweep (train_stack_bwd.cu), "off" the two-kernel form
+# (train_stack_bwd2.cu: the chain, then dk for every layer in one launch).
+# Calls with start > 0 or a dxout take the sweep either way.  The sweep
+# holds one layer's dpre, the two-kernel form every layer's
+# ([L, B, T, 2D] in the compute type).
+BWD_FUSED_DK = "auto"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -124,15 +142,27 @@ def stack_forward_plain(kernel, skipw, resw, res_b, lc_encb, x0,
     return res + (xout,) if with_xout else res
 
 
-def stack_backward_plain(dskip, act, xs, kernel, skipw, resw,
-                         dils: Sequence[int], frames: int,
-                         gate_order: str = "tanh_first", *, start: int = 0,
-                         dxout: Optional[torch.Tensor] = None):
-    """Plain backward of ``stack_forward_plain`` for the cotangent dskip
-    [B, T, S] of skip_sum (and dxout [B, T, R] of xout, which seeds dX),
-    with ``frames`` = F condition frames.  Returns float32 (dk
-    [L, K, R, 2D], dsk [L, D, S], drs [L, D, R], drb [L, R], dlc
-    [L, F, B, 2D]) and dx0 [B, T, R] in the compute type."""
+def _dk_layer(x, dpre, d: int, K: int):
+    """[K, R, 2D] f32: sum over t of x[t - o_j]^T dpre[t], o_j = (K-1-j) d,
+    rows t - o_j < 0 of each batch row reading zero; x [B, T, R] and dpre
+    [B, T, 2D] float32."""
+    B, T, R = x.shape
+    out = torch.zeros((K, R, dpre.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    for j in range(K):
+        o = (K - 1 - j) * d
+        if o < T:
+            out[j] = (x[:, :T - o].reshape(-1, R).T
+                      @ dpre[:, o:].reshape(-1, dpre.shape[-1]))
+    return out
+
+
+def _backward_plain(dskip, act, xs, kernel, skipw, resw, dils, frames,
+                    gate_order, start, dxout, keep_dpre: bool):
+    """The reverse layer walk of both backwards: with ``keep_dpre`` every
+    layer's dpre is kept in dpre_all [L, B, T, 2D] (compute type) and no
+    dk is computed (the chain); else dk is summed layer by layer (the
+    sweep).  Returns (dk or dpre_all, dsk, drs, drb, dlc, dx0)."""
     L, K, R, D2 = kernel.shape
     D, S = D2 // 2, skipw.shape[2]
     _, B, T, _ = act.shape
@@ -141,7 +171,10 @@ def stack_backward_plain(dskip, act, xs, kernel, skipw, resw,
     dskip16 = dskip.to(cd)
     dX = (torch.zeros((B, T, R), dtype=f32, device=dev) if dxout is None
           else _zero_head(dxout.to(cd).float(), start))
-    dk = torch.zeros((L, K, R, D2), dtype=f32, device=dev)
+    if keep_dpre:
+        first = torch.empty((L, B, T, D2), dtype=cd, device=dev)
+    else:
+        first = torch.zeros((L, K, R, D2), dtype=f32, device=dev)
     dsk = torch.empty((L, D, S), dtype=f32, device=dev)
     drs = torch.empty((L, D, R), dtype=f32, device=dev)
     drb = torch.empty((L, R), dtype=f32, device=dev)
@@ -167,16 +200,51 @@ def stack_backward_plain(dskip, act, xs, kernel, skipw, resw,
         dsk[l], drs[l] = dskrs[:, :S], dskrs[:, S:]
         drb[l] = dX.sum(dim=(0, 1))
         dlc[l] = dpre.reshape(B, frames, FR, D2).sum(2).permute(1, 0, 2)
-        x = _zero_head(xs[l].float(), start)
+        if keep_dpre:
+            first[l] = dpre          # exact: dpre holds compute-type values
+        else:
+            first[l] = _dk_layer(_zero_head(xs[l].float(), start), dpre, d,
+                                 K)
         acc = torch.zeros_like(dX)
         for j in range(K):
             o = (K - 1 - j) * d
             if o < T:
-                dk[l, j] = (x[:, :T - o].reshape(-1, R).T
-                            @ dpre[:, o:].reshape(-1, D2))
                 acc[:, :T - o] += dpre[:, o:] @ kernel[l, j].float().T
         dX = dX + _zero_head(acc, start)
-    return dk, dsk, drs, drb, dlc, dX.to(cd)
+    return first, dsk, drs, drb, dlc, dX.to(cd)
+
+
+def stack_backward_plain(dskip, act, xs, kernel, skipw, resw,
+                         dils: Sequence[int], frames: int,
+                         gate_order: str = "tanh_first", *, start: int = 0,
+                         dxout: Optional[torch.Tensor] = None):
+    """Plain backward of ``stack_forward_plain`` for the cotangent dskip
+    [B, T, S] of skip_sum (and dxout [B, T, R] of xout, which seeds dX),
+    with ``frames`` = F condition frames.  Returns float32 (dk
+    [L, K, R, 2D], dsk [L, D, S], drs [L, D, R], drb [L, R], dlc
+    [L, F, B, 2D]) and dx0 [B, T, R] in the compute type."""
+    return _backward_plain(dskip, act, xs, kernel, skipw, resw, dils,
+                           frames, gate_order, start, dxout, keep_dpre=False)
+
+
+def stack_bwd_chain_plain(dskip, act, xs, kernel, skipw, resw,
+                          dils: Sequence[int], frames: int,
+                          gate_order: str = "tanh_first"):
+    """Plain chain of the two-kernel backward (JAX's ``bwd_call``,
+    train_pallas.py:193-196, with dsk in the body): the walk of
+    ``stack_backward_plain`` without dk.  Returns (dpre_all [L, B, T, 2D]
+    in the compute type, float32 dsk [L, D, S], drs [L, D, R], drb [L, R],
+    dlc [L, F, B, 2D], dx0 [B, T, R] in the compute type)."""
+    return _backward_plain(dskip, act, xs, kernel, skipw, resw, dils,
+                           frames, gate_order, 0, None, keep_dpre=True)
+
+
+def stack_dk_plain(dpre_all, xs, dils: Sequence[int], K: int):
+    """Plain dW pass of the two-kernel backward: dk [L, K, R, 2D] f32 with
+    dk[l, j] = sum_t xs[l][t - o_j]^T dpre_all[l][t], o_j = (K-1-j) d_l,
+    zero where t - o_j < 0 within a batch row (train_pallas.py:493-508)."""
+    return torch.stack([_dk_layer(xs[l].float(), dpre_all[l].float(), d, K)
+                        for l, d in enumerate(dils)])
 
 
 # ----------------------------------------------------------------- kernels
@@ -221,6 +289,24 @@ def _bwd_lib():
     # the scratch size, from the kernel's own row blocking
     lib.train_stack_bwd_part_floats.restype = ctypes.c_longlong
     lib.train_stack_bwd_part_floats.argtypes = [ctypes.c_int] * 6
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd2_lib():
+    lib = _build.load("train_stack_bwd2")
+    lib.train_stack_bwd_chain.restype = ctypes.c_int
+    lib.train_stack_bwd_chain.argtypes = (
+        [ctypes.c_int] * 9 + [ctypes.c_void_p] * 12 + [ctypes.c_int,
+                                                        ctypes.c_void_p])
+    lib.train_stack_bwd_dk.restype = ctypes.c_int
+    lib.train_stack_bwd_dk.argtypes = ([ctypes.c_int] * 7
+                                       + [ctypes.c_void_p] * 6)
+    # the scratch sizes, from the kernels' own row blocking
+    lib.train_stack_bwd_chain_part_floats.restype = ctypes.c_longlong
+    lib.train_stack_bwd_chain_part_floats.argtypes = [ctypes.c_int] * 5
+    lib.train_stack_bwd_dk_part_floats.restype = ctypes.c_longlong
+    lib.train_stack_bwd_dk_part_floats.argtypes = [ctypes.c_int] * 6
     return lib
 
 
@@ -293,6 +379,42 @@ def stack_forward_cuda(kernel, skipw, resw, res_b, lc_encb, x0,
     return (skip_out, act, xs) + ((xout,) if with_xout else ())
 
 
+def _bwd_operands(dskip, act, xs, kernel, skipw, resw, dils, frames,
+                  gate_order, seed):
+    """Check the operands of a backward kernel (the sweep or the chain;
+    ``seed`` the sweep's dxout, if any, already in the compute type) and
+    return them as the kernels read them, rsk = [resw | skipw]
+    [L, D, R+S], kernel and dskip contiguous in the compute type, with the
+    outputs and scratch both write: dskrs [L, D, S+R], drb [L, R], dlc
+    [L, F, B, 2D] (f32), dx16 [B, T, R] (compute type), dx [B*T, R] f32."""
+    cd = act.dtype
+    L, K, R, D2 = kernel.shape
+    D, S = D2 // 2, skipw.shape[2]
+    _, B, T, _ = act.shape
+    if len(dils) != L or T % frames \
+            or gate_order not in ("tanh_first", "sigmoid_first"):
+        raise ValueError("dilations, frames or gate order do not fit")
+    _check_widths(R=R, D=D, S=S)
+    rsk = torch.cat([resw, skipw], dim=2).contiguous()        # [L, D, R+S]
+    kern = kernel.contiguous()
+    dskip16 = dskip.to(cd).contiguous()
+    for t in (rsk, kern, xs):
+        if t.dtype != cd:
+            raise TypeError("stack weights and saved tensors must share one "
+                            "dtype")
+    if tuple(dskip16.shape) != (B, T, S) or tuple(xs.shape) != (L, B, T, R) \
+            or any(tuple(t.shape) != (B, T, R) for t in seed):
+        raise ValueError("dskip, dxout or xs do not fit the stack")
+    _check_cuda(cd, rsk, kern, dskip16, act, xs, *seed)
+    f32, dev = torch.float32, act.device
+    outs = (torch.empty((L, D, S + R), dtype=f32, device=dev),
+            torch.empty((L, R), dtype=f32, device=dev),
+            torch.empty((L, frames, B, D2), dtype=f32, device=dev),
+            torch.empty((B, T, R), dtype=cd, device=dev),
+            torch.empty((B * T, R), dtype=f32, device=dev))
+    return rsk, kern, dskip16, outs
+
+
 def stack_backward_cuda(dskip, act, xs, kernel, skipw, resw,
                         dils: Sequence[int], frames: int,
                         gate_order: str = "tanh_first", *, start: int = 0,
@@ -303,36 +425,16 @@ def stack_backward_cuda(dskip, act, xs, kernel, skipw, resw,
     L, K, R, D2 = kernel.shape
     D, S = D2 // 2, skipw.shape[2]
     _, B, T, _ = act.shape
-    if len(dils) != L or T % frames \
-            or gate_order not in ("tanh_first", "sigmoid_first"):
-        raise ValueError("dilations, frames or gate order do not fit")
-    _check_widths(R=R, D=D, S=S)
     start = _check_start(start, T)
-    dev = act.device
-    rsk = torch.cat([resw, skipw], dim=2).contiguous()        # [L, D, R+S]
-    kern = kernel.contiguous()
-    dskip16 = dskip.to(cd).contiguous()
     seed = [] if dxout is None else [dxout.to(cd).contiguous()]
-    for t in (rsk, kern, xs):
-        if t.dtype != cd:
-            raise TypeError("stack weights and saved tensors must share one "
-                            "dtype")
-    if tuple(dskip16.shape) != (B, T, S) or tuple(xs.shape) != (L, B, T, R) \
-            or any(tuple(t.shape) != (B, T, R) for t in seed):
-        raise ValueError("dskip, dxout or xs do not fit the stack")
-    _check_cuda(cd, rsk, kern, dskip16, act, xs, *seed)
-    f32 = torch.float32
-    rows = B * T
-    dk = torch.empty((L, K, R, D2), dtype=f32, device=dev)
-    dskrs = torch.empty((L, D, S + R), dtype=f32, device=dev)
-    drb = torch.empty((L, R), dtype=f32, device=dev)
-    dlc = torch.empty((L, frames, B, D2), dtype=f32, device=dev)
-    dx16 = torch.empty((B, T, R), dtype=cd, device=dev)
-    dx = torch.empty((rows, R), dtype=f32, device=dev)
-    dpre = torch.empty((rows, D2), dtype=cd, device=dev)
+    rsk, kern, dskip16, (dskrs, drb, dlc, dx16, dx) = _bwd_operands(
+        dskip, act, xs, kernel, skipw, resw, dils, frames, gate_order, seed)
+    dev = act.device
+    dk = torch.empty((L, K, R, D2), dtype=torch.float32, device=dev)
+    dpre = torch.empty((B * T, D2), dtype=cd, device=dev)
     lib = _bwd_lib()
     part = torch.empty((lib.train_stack_bwd_part_floats(K, R, D, S, B, T),),
-                       dtype=f32, device=dev)
+                       dtype=torch.float32, device=dev)
     dil = (ctypes.c_int * L)(*[int(d) for d in dils])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -352,6 +454,71 @@ def stack_backward_cuda(dskip, act, xs, kernel, skipw, resw,
     return dk, dskrs[..., :S], dskrs[..., S:], drb, dlc, dx16
 
 
+def stack_bwd_chain_cuda(dskip, act, xs, kernel, skipw, resw,
+                         dils: Sequence[int], frames: int,
+                         gate_order: str = "tanh_first"):
+    """Launch the chain kernel of the two-kernel backward; same contract
+    as ``stack_bwd_chain_plain``."""
+    global chain_launches
+    cd = act.dtype
+    L, K, R, D2 = kernel.shape
+    D, S = D2 // 2, skipw.shape[2]
+    _, B, T, _ = act.shape
+    rsk, kern, dskip16, (dskrs, drb, dlc, dx16, dx) = _bwd_operands(
+        dskip, act, xs, kernel, skipw, resw, dils, frames, gate_order, [])
+    dev = act.device
+    dpre_all = torch.empty((L, B, T, D2), dtype=cd, device=dev)
+    lib = _bwd2_lib()
+    part = torch.empty(
+        (lib.train_stack_bwd_chain_part_floats(R, D, S, B, T),),
+        dtype=torch.float32, device=dev)
+    dil = (ctypes.c_int * L)(*[int(d) for d in dils])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.train_stack_bwd_chain(
+            _DTYPES[cd], L, K, R, D, S, B, T, T // frames,
+            ctypes.cast(dil, ctypes.c_void_p), rsk.data_ptr(),
+            kern.data_ptr(), dskip16.data_ptr(), act.data_ptr(),
+            dskrs.data_ptr(), drb.data_ptr(), dlc.data_ptr(),
+            dx16.data_ptr(), dx.data_ptr(), dpre_all.data_ptr(),
+            part.data_ptr(), int(gate_order == "sigmoid_first"), stream)
+    _build.check(lib, err, "train_stack_bwd_chain")
+    chain_launches += 1
+    return dpre_all, dskrs[..., :S], dskrs[..., S:], drb, dlc, dx16
+
+
+def stack_dk_cuda(dpre_all, xs, dils: Sequence[int], K: int):
+    """Launch the dW kernel of the two-kernel backward (one launch for
+    every layer and tap); same contract as ``stack_dk_plain``."""
+    global dk_launches
+    cd = dpre_all.dtype
+    L, B, T, D2 = dpre_all.shape
+    R = xs.shape[-1]
+    if len(dils) != L or tuple(xs.shape) != (L, B, T, R):
+        raise ValueError("dilations or xs do not fit dpre_all")
+    if xs.dtype != cd:
+        raise TypeError("dpre_all and xs must share one dtype")
+    _check_widths(R=R, D=D2 // 2)
+    dev = dpre_all.device
+    dil = torch.tensor([int(d) for d in dils], dtype=torch.int32,
+                       device=dev)
+    _check_cuda(cd, dpre_all, xs, dil)
+    dk = torch.empty((L, K, R, D2), dtype=torch.float32, device=dev)
+    lib = _bwd2_lib()
+    part = torch.empty(
+        (lib.train_stack_bwd_dk_part_floats(L, K, R, D2 // 2, B, T),),
+        dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.train_stack_bwd_dk(
+            _DTYPES[cd], L, K, R, D2 // 2, B, T, dil.data_ptr(),
+            dpre_all.data_ptr(), xs.data_ptr(), dk.data_ptr(),
+            part.data_ptr(), stream)
+    _build.check(lib, err, "train_stack_bwd_dk")
+    dk_launches += 1
+    return dk
+
+
 def stack_forward(*args, **kw):
     """The forward kernel for CUDA tensors, the plain version for CPU."""
     x0 = args[5]
@@ -364,6 +531,20 @@ def stack_backward(*args, **kw):
     act = args[1]
     return (stack_backward_cuda if act.is_cuda else stack_backward_plain)(
         *args, **kw)
+
+
+def stack_bwd_chain(*args, **kw):
+    """The chain kernel for CUDA tensors, the plain version for CPU."""
+    act = args[1]
+    return (stack_bwd_chain_cuda if act.is_cuda else stack_bwd_chain_plain)(
+        *args, **kw)
+
+
+def stack_dk(*args, **kw):
+    """The dW kernel for CUDA tensors, the plain version for CPU."""
+    dpre_all = args[0]
+    return (stack_dk_cuda if dpre_all.is_cuda else stack_dk_plain)(*args,
+                                                                    **kw)
 
 
 class _Stack(torch.autograd.Function):
@@ -386,10 +567,22 @@ class _Stack(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dskip, dxout=None):
         kernel, skipw, resw, act, xs = ctx.saved_tensors
-        dk, dsk, drs, drb, dlc, dx0 = stack_backward(
-            dskip, act, xs, kernel, skipw, resw, ctx.dils, ctx.frames,
-            ctx.gate_order, start=ctx.start,
-            dxout=dxout if ctx.with_xout else None)
+        if BWD_FUSED_DK not in ("auto", "off"):
+            raise ValueError(f"BWD_FUSED_DK {BWD_FUSED_DK!r}: want 'auto' "
+                             f"or 'off'")
+        if BWD_FUSED_DK == "auto" or ctx.start or ctx.with_xout:
+            # the layer sweep; the sequence-parallel variants always take
+            # it, as in JAX (train_pallas.py:1561-1566)
+            dk, dsk, drs, drb, dlc, dx0 = stack_backward(
+                dskip, act, xs, kernel, skipw, resw, ctx.dils, ctx.frames,
+                ctx.gate_order, start=ctx.start,
+                dxout=dxout if ctx.with_xout else None)
+        else:
+            dpre_all, dsk, drs, drb, dlc, dx0 = stack_bwd_chain(
+                dskip, act, xs, kernel, skipw, resw, ctx.dils, ctx.frames,
+                ctx.gate_order)
+            dk = stack_dk(dpre_all, xs, ctx.dils, kernel.shape[1])
+            del dpre_all
         return (dk.to(kernel.dtype), dsk.to(skipw.dtype), drs.to(resw.dtype),
                 drb.to(ctx.res_b_dtype), dlc, dx0, None, None, None, None)
 

@@ -98,6 +98,9 @@ def check_supported(cfg, length: int, world: int,
         raise NotImplementedError(
             f"-decoder_halo {decoder_halo} is not ported (only 'fused'; "
             f"ROADMAP.md queue A, SP)")
+    if cfg.model_family == "magenta":
+        raise NotImplementedError("SP training of the Magenta family is not "
+                                  "ported (ROADMAP.md queue A, item 7: SP)")
     if cfg.model_family != "vqvae" or cfg.encoder != "64":
         raise NotImplementedError(
             "SP training covers the main family with Encoder_64 only "

@@ -55,7 +55,9 @@ def from_jax_tree(params, state=None, device=None):
 def from_jax_train_state(ts, device=None):
     """A JAX train state with numpy leaves (jax.device_get of
     training/train_loop.py::init_train_state's dict; opt_state is optax's
-    (ScaleByAdamState, ScaleByScheduleState)) -> the port's train state."""
+    (ScaleByAdamState, ScaleByScheduleState)) -> the port's train state.
+    Both families: the Magenta family's state has the same layout (its
+    Adam runs with beta1 0.5) and an empty model state."""
     adam = ts["opt_state"][0]
 
     def tree(t):
@@ -113,18 +115,27 @@ def save_npz(path: str, params, state) -> None:
 
 def load_tree(path: str, device=None, prefixes=None):
     """Read a flat npz -> its tree of torch tensors (only the keys under
-    ``prefixes`` when given)."""
+    ``prefixes``, such as "params" or "train/params", when given)."""
     with np.load(path) as z:
-        keys = [k for k in z.files
-                if prefixes is None or k.split("/", 1)[0] in prefixes]
+        keys = [k for k in z.files if prefixes is None
+                or any(k.startswith(p + "/") for p in prefixes)]
         return to_torch(_unflatten({k: z[k] for k in keys}), device)
 
 
-def load_npz(path: str, device=None):
+def load_npz(path: str, device=None, *, raw_params: bool = False):
     """Read a ``save_npz`` file (or a training checkpoint) -> (params,
-    state) of torch tensors."""
-    tree = load_tree(path, device, prefixes=("params", "state"))
-    return tree.get("params", {}), tree.get("state", {})
+    state) of torch tensors.  With ``raw_params`` a training checkpoint's
+    trained parameters (train/params) are returned instead of its EMA
+    shadows: the Magenta family generates from those, as the JAX
+    generate.py does (generate.py:121-124); a file without them gives its
+    params.  Only the one parameter tree returned is read."""
+    with np.load(path) as z:
+        raw = raw_params and any(k.startswith("train/params/")
+                                 for k in z.files)
+    tree = load_tree(path, device, prefixes=(
+        "train/params" if raw else "params", "state"))
+    params = tree["train"]["params"] if raw else tree.get("params", {})
+    return params, tree.get("state", {})
 
 
 def lc_channels(cfg, num_speakers: Optional[int]) -> int:

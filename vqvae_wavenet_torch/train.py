@@ -6,8 +6,12 @@ which keeps the reference's train.py:12-37, plus -device):
         [-interval 200] [-params model_parameters.json] [-device cuda|cpu] \
         [-time_shards N [-decoder_halo auto|fused]]
 
-One step is vqvae_forward + autograd (the stack, loss-head and VQ kernels
-on the card) + the fused Adam/EMA update.  Scalars go to
+One step is vqvae_forward (with -params magenta_parameters.json, the
+Magenta family's magenta_forward) + autograd (the stack, loss-head and VQ
+kernels on the card) + the fused Adam/EMA update.  "train_dtype": "bf16"
+in the params JSON trains in bf16 mixed precision in either family.  The
+stack's backward is the layer sweep, or the two-kernel form when
+vqvae_wavenet_torch.ops.train_kernels.BWD_FUSED_DK is "off".  Scalars go to
 <save dir>/metrics.jsonl every -interval steps; the progress line prints
 every -log_every steps; weights-<step>.npz is written every -ckpt_interval
 steps and at the end (training/checkpoint.py; the port's generate.py
@@ -21,7 +25,8 @@ kernels run per dilation cycle on halo-extended shards (their SP variants)
 and the gradients are summed over the ranks before the update.  Rank 0
 alone prints, writes metrics.jsonl and the checkpoints, which are the
 single-device format.  -decoder_halo auto is 'fused' on every device
-('layer' and 'recompute' are not ported).  -coordinator, -num_processes,
+('layer' and 'recompute' are not ported); SP of the Magenta family is not
+ported and raises.  -coordinator, -num_processes,
 -process_id, -loader native and -profile belong to parts that are not
 ported yet and raise.
 """
@@ -149,6 +154,8 @@ def _launch_counts() -> dict:
             "train_stack_bwd": train_kernels.bwd_launches,
             "train_stack_fwd_sp": train_kernels.fwd_sp_launches,
             "train_stack_bwd_sp": train_kernels.bwd_sp_launches,
+            "train_stack_bwd_chain": train_kernels.chain_launches,
+            "train_stack_bwd_dk": train_kernels.dk_launches,
             "train_epilogue_fwd": epilogue_kernels.fwd_launches,
             "train_epilogue_bwd": epilogue_kernels.bwd_launches}
 

@@ -2,8 +2,9 @@
 in the flat layout of ``params.save_npz`` (keys ``a/b/c``, list entries by
 index), so the port's generate.py restores one as it is:
 
-  params/...   the EMA parameters (what generation reads, as the JAX
-               generate.py restores the EMA shadows)
+  params/...   the EMA parameters (what generation of the main family
+               reads, as the JAX generate.py restores the EMA shadows;
+               the Magenta family generates from train/params)
   state/...    the model state (BN running statistics, VQ EMA state)
   train/...    what -restore needs besides: the trained parameters
                (train/params), the Adam moments (train/mu, train/nu),

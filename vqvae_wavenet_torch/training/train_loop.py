@@ -1,5 +1,5 @@
 """Training state and one optimizer step (port of
-vqvae_wavenet_tpu/training/train_loop.py:33-118).
+vqvae_wavenet_tpu/training/train_loop.py:26-118), for both model families.
 
 The train state is a dict of torch trees:
   params       the trained parameters (f32 master weights)
@@ -10,11 +10,13 @@ The train state is a dict of torch trees:
   opt_state    {"mu", "nu": Adam moments shaped like params, "count": int}
   step         int
 
-``train_step`` takes gradients of ``vqvae_forward`` with autograd (the
-stack and loss-head kernels' backwards on the card), applies the fused
-Adam + EMA step, keeps the new BN statistics, and under vq_mode 'ema'
-moves the codebook by its EMA after the optimizer step, with the EMA
-shadow following the updated codebook (train_loop.py:89-98).
+``train_step`` takes gradients of ``vqvae_forward`` (the Magenta family:
+``magenta_forward``) with autograd (the stack and loss-head kernels'
+backwards on the card), applies the fused Adam + EMA step (beta1 0.9;
+the Magenta family 0.5, train_loop.py:85), keeps the new BN statistics,
+and under vq_mode 'ema' moves the codebook by its EMA after the optimizer
+step, with the EMA shadow following the updated codebook
+(train_loop.py:89-98).  The Magenta family has no model state.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Optional
 import torch
 
 from vqvae_wavenet_torch.models import vq as vq_mod
+from vqvae_wavenet_torch.models.magenta import magenta_forward
 from vqvae_wavenet_torch.models.vqvae import vqvae_forward
 from vqvae_wavenet_torch.training.optimizer import (
     ema_update, fused_adam_ema_step, piecewise_constant_schedule,
@@ -64,8 +67,12 @@ def loss_and_grads(params, model_state, cfg, batch):
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     p = tree_unflatten(params, leaves)
     with torch.enable_grad():
-        loss, aux = vqvae_forward(p, model_state, cfg, batch["x"],
-                                  batch.get("y"), train=True)
+        if cfg.model_family == "magenta":
+            loss, aux = magenta_forward(p, batch["x"], batch["y"],
+                                        train_dtype=cfg.train_dtype)
+        else:
+            loss, aux = vqvae_forward(p, model_state, cfg, batch["x"],
+                                      batch.get("y"), train=True)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), _detach(aux), list(grads)
 
@@ -82,7 +89,8 @@ def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
     loss, aux, grads = grads_fn(ts["params"], ts["model_state"], cfg, batch)
     params, ema_params, opt_state = fused_adam_ema_step(
         ts["params"], ts["ema_params"], ts["opt_state"], grads, schedule,
-        b1=0.9, ema_decay=ema_decay)
+        b1=0.5 if cfg.model_family == "magenta" else 0.9,
+        ema_decay=ema_decay)
     model_state = aux.get("state", ts["model_state"])
     if cfg.use_vq and cfg.vq_mode == "ema":
         with torch.no_grad():
@@ -101,7 +109,8 @@ def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
     metrics = {"loss": loss,
                "reconstruction_loss": aux["reconstruction_loss"],
                "lr": schedule(ts["step"]), "step": step}
-    for k in ("vq_loss", "commitment_loss", "perplexity", "distances_mean"):
+    for k in ("vq_loss", "commitment_loss", "perplexity", "reg_loss",
+              "distances_mean"):
         if k in aux:
             metrics[k] = aux[k]
     return new_ts, metrics
