@@ -368,6 +368,12 @@ def phase_gen(card: str):
             log(f"[gen] {str(dtype).split('.')[-1]} B={b}: kernel "
                 f"{kern * 1e3:.1f} us/sample, plain {plain * 1e3:.1f} "
                 f"us/sample  ({card})")
+    for b in (1, 3):
+        lcb = lc[:1].expand(b, 4, c_lc).repeat_interleave(8, dim=1) \
+            .contiguous()
+        _gen_breakdown("gen", gk, dec,
+                       gk.pack_gen_params(dec, wcfg, torch.bfloat16, dev), lcb,
+                       card)
     out["ms"], out["plain_ms"] = times[("bfloat16", 3)]
     # per sample at B=3, bf16: the weights read once per clip (2,048
     # samples) and every layer's products for 3 rows
@@ -438,6 +444,64 @@ def phase_gen_int8(card: str):
         f"{weight_bytes / PEAK_BYTES * 1e6:.2f} us (int8), "
         f"{_weight_bytes(wb) / PEAK_BYTES * 1e6:.2f} us (bf16)")
     return out
+
+
+def _gen_breakdown(tag, gk, params, w, lcb, card, length: int = 2048,
+                   lo: int = 512, n: int = 256):
+    """Per-phase breakdown of the generation kernel from its stamped build
+    (globaltimer stamps of samples lo .. lo+n-1 of a ``length``-sample
+    clip, means in us per phase): for block 0 and for the last block to
+    reach the barrier, activation staging (phase start -> staged), weight
+    load (staged -> first weight vector in registers; 0 where it landed
+    before), arithmetic (-> every warp done, with later load rounds and
+    the writes) and barrier wait (done -> exit); and the barrier's
+    propagation, the last block's arrival to the first block's exit.
+    Returns {phase group: {segment: us}} of block 0."""
+    L = w.dims[0]
+    gcon, g_pp1 = gk.condition_terms(params, w, lcb.shape[0])
+    _, _, st = gk.generate_clip_stamped(w, lcb, gcon, g_pp1, length=length,
+                                        stamp_from=lo, stamp_samples=n)
+    st = st.double().cpu() / 1e3                       # us
+    groups = {"P0": [0], "A": list(range(1, 2 * L + 1, 2)),
+              "B": list(range(2, 2 * L + 2, 2)), "H1": [2 * L + 1],
+              "H2": [2 * L + 2], "S": [2 * L + 3]}
+
+    def segments(e):                                    # e [..., 5]
+        start, staged, wts, done, ex = e.unbind(-1)
+        stg = torch.where(staged > 0, staged - start, torch.zeros_like(start))
+        after = torch.maximum(start, staged)
+        wl = torch.where(wts > 0, wts - after, torch.zeros_like(start))
+        ar = done - torch.maximum(after, wts)
+        return {"staging": stg, "weights": wl, "arithmetic": ar,
+                "barrier": ex - done, "phase": ex - start}
+
+    wt = str(w.w_a.dtype).split(".")[-1]
+    res = {}
+    for name, phs in groups.items():
+        sel = st[:, phs]                                # [n, p, G, 5]
+        b0 = {k: float(v.mean()) for k, v in segments(sel[:, :, 0]).items()}
+        last_i = sel[..., 3].argmax(-1)                 # [n, p]
+        last = torch.gather(sel, 2, last_i[..., None, None].expand(
+            -1, -1, 1, 5))[:, :, 0]
+        lseg = {k: float(v.mean()) for k, v in segments(last).items()}
+        ex = sel[..., 4]
+        prop = float((torch.where(ex > 0, ex, torch.full_like(ex, 1e30))
+                      .amin(-1) - sel[..., 3].amax(-1)).mean())
+        late = float((last[..., 0] - sel[:, :, 0, 0]).mean())
+        res[name] = b0
+        log(f"[{tag}] stamps {wt} B={lcb.shape[0]} phase {name} (x{len(phs)} "
+            f"per sample): block 0 staging {b0['staging']:.2f} us, weights "
+            f"{b0['weights']:.2f}, arithmetic {b0['arithmetic']:.2f}, barrier "
+            f"wait {b0['barrier']:.2f} (phase {b0['phase']:.2f}); last block "
+            f"to arrive (block {int(last_i.mode().values.mode().values)} most "
+            f"often; starts {late:.2f} us after block 0) staging "
+            f"{lseg['staging']:.2f}, weights {lseg['weights']:.2f}, "
+            f"arithmetic {lseg['arithmetic']:.2f}; barrier propagation "
+            f"{prop:.2f} us  ({card})")
+    per_sample = sum(res[k]["phase"] * len(v) for k, v in groups.items())
+    log(f"[{tag}] stamps {wt} B={lcb.shape[0]}: {per_sample:.1f} us per "
+        f"sample in the stamped build (phases of block 0 summed)")
+    return res
 
 
 def _gen_macs(w) -> int:
@@ -825,6 +889,38 @@ def _check_forward(tag, dtype, w, x0, dils, gate, sk, act, xs) -> float:
     return max(e_act, e_x, e_skip if dtype == "f32" else 0.0)
 
 
+def _check_dk_edge(card: str) -> None:
+    """The dk kernel against its plain twin at a small ragged shape, f32
+    and bf16: L=2, K=3, R=D=136 (channel and output tiles cut by the
+    width), B=3, T=5000 (64-row tiles cut at each batch row's end; 15,000
+    rows in two splits whose boundary falls inside a batch row),
+    dilations 1 and 2,600 (tap 0 of layer 1 shifts by 5,200 >= T and
+    reads only zeros).  Within TRAIN_TOL of each output's max, and two
+    runs bitwise equal."""
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    g = torch.Generator(device="cpu").manual_seed(21)
+    L, K, R, D, B, T = 2, 3, 136, 136, 3, 5000
+    dils = (1, 2600)
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xs = torch.randn((L, B, T, R), generator=g).to("cuda", dt)
+        dpre = (torch.randn((L, B, T, 2 * D), generator=g) * 0.1).to("cuda",
+                                                                    dt)
+        got = tk.stack_dk_cuda(dpre, xs, dils, K)
+        again = tk.stack_dk_cuda(dpre, xs, dils, K)
+        ref = tk.stack_dk_plain(dpre, xs, dils, K)
+        err = _leaf_err(got, ref)
+        dead = float(got[1, 0].abs().max())
+        log(f"[train-bwd2] dk edge {dtype} L={L} K={K} R=D={R} B={B} "
+            f"T={T} dilations {dils}: max |kernel - plain| / max |plain| "
+            f"{err:.3g} (tolerance {TRAIN_TOL[dtype]}); the tap shifted by "
+            f"{2 * dils[1]} >= T: max |dk| {dead:.3g}; two runs bitwise "
+            f"equal: {torch.equal(got, again)}  ({card})")
+        if not (err <= TRAIN_TOL[dtype] and dead == 0.0
+                and torch.equal(got, again)):
+            raise AssertionError(f"dk kernel disagrees at the edge shape "
+                                 f"({dtype})")
+
+
 def phase_train_bwd2(card: str):
     """The two-kernel stack backward (the chain kernel, then the one-launch
     dk kernel) against its plain twins and against the layer sweep
@@ -844,6 +940,7 @@ def phase_train_bwd2(card: str):
     same shape beside them.  Returns the JSON fields of both kernels
     (Magenta, bf16: the shape of the magenta-train path)."""
     from vqvae_wavenet_torch.ops import train_kernels as tk
+    _check_dk_edge(card)
     B, T, F = 8, 6656, 104
     out = {}
     for name, params_json, gate in (
@@ -872,6 +969,12 @@ def phase_train_bwd2(card: str):
             d_err = _check_leaves(f"train-bwd2 {name} dk", dtype,
                                   {"dk": (dkk, dkp)})
             del dkp
+            same = torch.equal(dkk, tk.stack_dk_cuda(ck[0], xs, dils, K))
+            log(f"[train-bwd2] {name} {dtype}: dk twice on the same inputs "
+                f"bitwise equal: {same}")
+            if not same:
+                raise AssertionError(f"train-bwd2 {name} {dtype}: dk does "
+                                     f"not repeat bit for bit")
             sw = tk.stack_backward_cuda(*bargs)
             _check_leaves(f"train-bwd2 {name} two-kernel vs sweep", dtype,
                           dict(zip(("dk", "dsk", "drs", "drb", "dlc",

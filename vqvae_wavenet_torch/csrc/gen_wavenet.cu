@@ -111,17 +111,33 @@ struct Args {
   unsigned long long* barrier;  // zeroed arrival counter
   int sample, sigmoid_first;
   unsigned long long seed;
+  // stamped build only: globaltimer stamps [st_n samples from st_lo][2L+4
+  // phases][gridDim.x blocks][NEV events], written by thread 0 of a block
+  unsigned long long* stamps;
+  int st_lo, st_n;
 };
+
+// stamped build: events of one phase in one block (thread 0's view, the
+// first staging pass of a phase)
+enum Ev { EV_START, EV_STAGED, EV_WEIGHTS, EV_DONE, EV_EXIT, NEV };
+
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");
+  return t;
+}
 
 // Monotonic-counter grid barrier; the cooperative launch guarantees that
 // every block is resident, so spinning cannot deadlock.  A wait of ~2^34
 // cycles (seconds, where a legitimate wait is microseconds) means a bug:
 // trap, so the launch fails instead of hanging the card.
 __device__ __forceinline__ void grid_sync(unsigned long long* ctr,
-                                          unsigned long long& target) {
+                                          unsigned long long& target,
+                                          unsigned long long* st = nullptr) {
   target += gridDim.x;
   __syncthreads();
   if (threadIdx.x == 0) {
+    if (st) st[EV_DONE] = gtime();
     __threadfence();
     atomicAdd(ctr, 1ULL);
     volatile unsigned long long* v = ctr;
@@ -130,6 +146,7 @@ __device__ __forceinline__ void grid_sync(unsigned long long* ctr,
       if (clock64() - t0 > (1LL << 34)) __trap();
     }
     __threadfence();
+    if (st) st[EV_EXIT] = gtime();
   }
   __syncthreads();
 }
@@ -219,7 +236,8 @@ template <typename W, int NR>
 __device__ __forceinline__ void warp_dots(const W* const* w, const float* xs,
                                           int xw, int off, int n, int nb,
                                           int lane, float acc[NR][BCH],
-                                          const float* sc) {
+                                          const float* sc,
+                                          unsigned long long* st = nullptr) {
   constexpr int V = Vec16<W>::N;
 #pragma unroll
   for (int i = 0; i < NR; ++i)
@@ -231,6 +249,11 @@ __device__ __forceinline__ void warp_dots(const W* const* w, const float* xs,
 #pragma unroll
     for (int i = 0; i < NR; ++i)
       Vec16<W>::unpack(ld_weights(w[i] + v * V), wf[i], sc + v * V);
+    if (st && v == lane) {        // stamped build: the first vector has landed
+      __shared__ float sink;      // the store waits for the load's register
+      *static_cast<volatile float*>(&sink) = wf[0][0];
+      st[EV_WEIGHTS] = gtime();
+    }
     fma_vec<W, NR>(wf, xs, xw, off + v * V, nb, acc);
   }
 #pragma unroll
@@ -243,10 +266,11 @@ template <typename W>
 __device__ __forceinline__ void warp_dot(const W* w, const float* xs, int xw,
                                          int off, int n, int nb, int lane,
                                          float acc[BCH],
-                                         const float* sc = nullptr) {
+                                         const float* sc = nullptr,
+                                         unsigned long long* st = nullptr) {
   const W* rows[1] = {w};
   float a[1][BCH];
-  warp_dots<W, 1>(rows, xs, xw, off, n, nb, lane, a, sc);
+  warp_dots<W, 1>(rows, xs, xw, off, n, nb, lane, a, sc, st);
 #pragma unroll
   for (int bb = 0; bb < BCH; ++bb) acc[bb] = a[0][bb];
 }
@@ -283,7 +307,8 @@ __device__ __forceinline__ float gumbel(unsigned long long seed, int t, int b, i
   return -logf(-logf(u));
 }
 
-template <typename T, typename W>
+// ST: the stamped build (per-phase globaltimer stamps, see Args::stamps)
+template <typename T, typename W, bool ST>
 __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
   constexpr bool Q8 = sizeof(W) == 1;            // int8 weights
   extern __shared__ float xs[];                  // [BCH][xw] (+ int8: scales [xw])
@@ -299,12 +324,22 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
   const float log1p_mu = (float)log1p((double)mu);
   unsigned long long target = 0;
   float acc[BCH], acc2[BCH];
+  // stamped build: this block's events of phase ph of sample t (thread 0)
+  auto stamp_at = [&](int t, int ph) -> unsigned long long* {
+    const int ts = t - a.st_lo;
+    if (!ST || tid != 0 || ts < 0 || ts >= a.st_n) return nullptr;
+    unsigned long long* p =
+        a.stamps + (((size_t)ts * (2 * L + 4) + ph) * G + blk) * NEV;
+    p[EV_START] = gtime();
+    return p;
+  };
 
   for (int t = 0; t < a.length; ++t) {
     const int tf = t / a.ratio;
     const T* lc_t = a.lc + (size_t)tf * B * C;
 
     // ---- P0: preprocess conv -> cur[0]
+    unsigned long long* st = stamp_at(t, 0);
     if (blk < R) {
       for (int b0 = 0; b0 < B; b0 += BCH) {
         const int nb = min(BCH, B - b0);
@@ -316,8 +351,10 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
           xs[bb * xw + p] = to_f(from_f<T>(u));
         }
         __syncthreads();
+        if (st && b0 == 0) st[EV_STAGED] = gtime();
         for (int r = job0; r < R; r += TW) {
-          warp_dot(a.w_pre + (size_t)r * PK, xs, xw, 0, PK, nb, lane, acc);
+          warp_dot(a.w_pre + (size_t)r * PK, xs, xw, 0, PK, nb, lane, acc,
+                   nullptr, b0 == 0 && r == job0 ? st : nullptr);
           if (lane == 0) {
             const float bias = to_f(a.b_pre[r]);
 #pragma unroll
@@ -328,7 +365,7 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
         __syncthreads();
       }
     }
-    grid_sync(a.barrier, target);
+    grid_sync(a.barrier, target, st);
 
     for (int l = 0; l < L; ++l) {
       const int d = a.dil[l], size = (K - 1) * d, off = a.ring_off[l];
@@ -336,6 +373,7 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
       T* cur_out = a.cur + (size_t)((l + 1) & 1) * B * R;
 
       // ---- A: gate columns
+      st = stamp_at(t, 1 + 2 * l);
       if (blk < D) {
         for (int b0 = 0; b0 < B; b0 += BCH) {
           const int nb = min(BCH, B - b0);
@@ -356,11 +394,13 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
           if constexpr (Q8)
             for (int k = tid; k < KRC; k += NT) sc[k] = __ldg(&a.s_a[(size_t)l * KRC + k]);
           __syncthreads();
+          if (st && b0 == 0) st[EV_STAGED] = gtime();
           for (int j = job0; j < D; j += TW) {
             const W* w0 = a.w_a + ((size_t)l * 2 * D + j) * KRC;
             const W* rows[2] = {w0, w0 + (size_t)D * KRC};
             float pair[2][BCH];
-            warp_dots<W, 2>(rows, xs, xw, 0, KRC, nb, lane, pair, sc);
+            warp_dots<W, 2>(rows, xs, xw, 0, KRC, nb, lane, pair, sc,
+                            b0 == 0 && j == job0 ? st : nullptr);
 #pragma unroll
             for (int bb = 0; bb < BCH; ++bb) { acc[bb] = pair[0][bb]; acc2[bb] = pair[1][bb]; }
             if (lane == 0) {
@@ -381,9 +421,10 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
           __syncthreads();
         }
       }
-      grid_sync(a.barrier, target);
+      grid_sync(a.barrier, target, st);
 
       // ---- B: [skip | res] columns, ring push, residual update
+      st = stamp_at(t, 2 + 2 * l);
       if (blk < SR) {
         const int nbw = (l == 0) ? D + R : D;    // layer 0 also stages cur for skip start
         for (int b0 = 0; b0 < B; b0 += BCH) {
@@ -396,14 +437,18 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
           if constexpr (Q8)
             for (int k = tid; k < D; k += NT) sc[k] = __ldg(&a.s_s[(size_t)l * D + k]);
           __syncthreads();
+          if (st && b0 == 0) st[EV_STAGED] = gtime();
           for (int c = job0; c < SR; c += TW) {
+            unsigned long long* sw = b0 == 0 && c == job0 ? st : nullptr;
             if constexpr (Q8) {                  // int8 skip half, bf16 res half
               if (c < S)
-                warp_dot(a.w_sr + ((size_t)l * S + c) * D, xs, xw, 0, D, nb, lane, acc, sc);
+                warp_dot(a.w_sr + ((size_t)l * S + c) * D, xs, xw, 0, D, nb, lane, acc, sc, sw);
               else
-                warp_dot(a.w_r + ((size_t)l * R + c - S) * D, xs, xw, 0, D, nb, lane, acc);
+                warp_dot(a.w_r + ((size_t)l * R + c - S) * D, xs, xw, 0, D, nb, lane, acc,
+                         nullptr, sw);
             } else {
-              warp_dot(a.w_sr + ((size_t)l * SR + c) * D, xs, xw, 0, D, nb, lane, acc);
+              warp_dot(a.w_sr + ((size_t)l * SR + c) * D, xs, xw, 0, D, nb, lane, acc,
+                       nullptr, sw);
             }
             const bool start = (l == 0) && (c < S);
             if (start) warp_dot(a.w_ss + (size_t)c * R, xs, xw, D, R, nb, lane, acc2);
@@ -430,10 +475,11 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
           __syncthreads();
         }
       }
-      grid_sync(a.barrier, target);
+      grid_sync(a.barrier, target, st);
     }
 
     // ---- H1: postprocess1 on [relu(skip) | lc_t]
+    st = stamp_at(t, 2 * L + 1);
     if (blk < S) {
       const int n = S + C;
       for (int b0 = 0; b0 < B; b0 += BCH) {
@@ -445,8 +491,10 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
               : to_f(lc_t[(size_t)b * C + k - S]);
         }
         __syncthreads();
+        if (st && b0 == 0) st[EV_STAGED] = gtime();
         for (int c = job0; c < S; c += TW) {
-          warp_dot(a.w_h1 + (size_t)c * n, xs, xw, 0, n, nb, lane, acc);
+          warp_dot(a.w_h1 + (size_t)c * n, xs, xw, 0, n, nb, lane, acc,
+                   nullptr, b0 == 0 && c == job0 ? st : nullptr);
           if (lane == 0) {
             const float bias = to_f(a.b_h1[c]);
 #pragma unroll
@@ -461,9 +509,10 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
         __syncthreads();
       }
     }
-    grid_sync(a.barrier, target);
+    grid_sync(a.barrier, target, st);
 
     // ---- H2: postprocess2 -> logits
+    st = stamp_at(t, 2 * L + 2);
     if (blk < Q) {
       for (int b0 = 0; b0 < B; b0 += BCH) {
         const int nb = min(BCH, B - b0);
@@ -472,8 +521,10 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
           xs[bb * xw + k] = ld_cg(&a.h1[(size_t)(b0 + bb) * S + k]);
         }
         __syncthreads();
+        if (st && b0 == 0) st[EV_STAGED] = gtime();
         for (int q = job0; q < Q; q += TW) {
-          warp_dot(a.w_pp2 + (size_t)q * S, xs, xw, 0, S, nb, lane, acc);
+          warp_dot(a.w_pp2 + (size_t)q * S, xs, xw, 0, S, nb, lane, acc,
+                   nullptr, b0 == 0 && q == job0 ? st : nullptr);
           if (lane == 0) {
             const float bias = to_f(a.b_pp2[q]);
 #pragma unroll
@@ -489,9 +540,10 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
         __syncthreads();
       }
     }
-    grid_sync(a.barrier, target);
+    grid_sync(a.barrier, target, st);
 
     // ---- S: sampling (block 0); lowest index wins ties
+    st = stamp_at(t, 2 * L + 3);
     if (blk == 0) {
       float* rv = xs;
       int* ri = reinterpret_cast<int*>(xs + NW);
@@ -521,11 +573,11 @@ __global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
         __syncthreads();
       }
     }
-    if (t + 1 < a.length) grid_sync(a.barrier, target);
+    if (t + 1 < a.length) grid_sync(a.barrier, target, st);
   }
 }
 
-template <typename T, typename W>
+template <typename T, typename W, bool ST>
 int launch(Args<T, W> a, cudaStream_t stream) {
   const int KRC = a.K * a.R + a.C;
   int xw = KRC;
@@ -537,21 +589,21 @@ int launch(Args<T, W> a, cudaStream_t stream) {
   a.xw = xw;
   const size_t smem = sizeof(float) * (size_t)(BCH + (sizeof(W) == 1)) * xw;
   cudaError_t e = cudaFuncSetAttribute(
-      gen_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gen_kernel<T, W, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gen_kernel<T, W>, NT, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gen_kernel<T, W, ST>, NT, smem);
   if (e != cudaSuccess) return (int)e;
   // one block per SM: more co-resident blocks measured faster than fewer
   // (16..132 blocks, PERF.md), and the launch needs every block resident
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int grid = sms;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)gen_kernel<T, W>, dim3(grid), dim3(NT),
+  e = cudaLaunchCooperativeKernel((const void*)gen_kernel<T, W, ST>, dim3(grid), dim3(NT),
                                   args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -564,7 +616,8 @@ int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
         const void* g_pp1, void* inputs, int forced, void* ring, void* cur,
         void* gated, void* skip, void* h1, void* logits, void* logits_out,
         void* bins, void* barrier, int sample, int sigmoid_first,
-        unsigned long long seed, void* stream) {
+        unsigned long long seed, void* stamps, int st_lo, int st_n,
+        void* stream) {
   Args<T, W> a;
   a.L = L; a.K = K; a.R = R; a.D = D; a.S = S; a.Q = Q; a.C = C; a.PK = PK;
   a.B = B; a.length = length; a.ratio = ratio; a.xw = 0;
@@ -595,7 +648,11 @@ int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
   a.sample = sample;
   a.sigmoid_first = sigmoid_first;
   a.seed = seed;
-  return launch<T, W>(a, static_cast<cudaStream_t>(stream));
+  a.stamps = static_cast<unsigned long long*>(stamps);
+  a.st_lo = st_lo;
+  a.st_n = st_n;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return stamps ? launch<T, W, true>(a, s) : launch<T, W, false>(a, s);
 }
 
 }  // namespace
@@ -607,7 +664,9 @@ extern "C" const char* vqw_error_string(int err) {
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 weights with bfloat16
 // activations.  The weight pointers are in the order w_a b_a w_sr b_sr
 // w_pre b_pre w_ss b_ss w_h1 b_h1 w_pp2 b_pp2, then (int8 only, else null)
-// s_a s_s w_r.
+// s_a s_s w_r.  stamps: null, or the stamped build's buffer of
+// st_n * (2L+4) * gridDim.x * 5 u64, zeroed (gen_wavenet_grid gives
+// gridDim.x), for samples st_lo .. st_lo + st_n - 1.
 extern "C" int gen_wavenet(
     int dtype, int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
     int length, int ratio, const void* dil, const void* ring_off,
@@ -617,23 +676,36 @@ extern "C" int gen_wavenet(
     const void* s_a, const void* s_s, const void* w_r, const void* lc, const void* gcon, const void* g_pp1, void* inputs,
     int forced, void* ring, void* cur, void* gated, void* skip, void* h1,
     void* logits, void* logits_out, void* bins, void* barrier, int sample,
-    int sigmoid_first, unsigned long long seed, void* stream) {
+    int sigmoid_first, unsigned long long seed, void* stamps, int st_lo,
+    int st_n, void* stream) {
   const void* w[15] = {w_a, b_a, w_sr, b_sr, w_pre, b_pre, w_ss, b_ss,
                        w_h1, b_h1, w_pp2, b_pp2, s_a, s_s, w_r};
   if (dtype == 0)
     return run<float, float>(L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off,
                       w, lc, gcon, g_pp1, inputs, forced, ring, cur, gated,
                       skip, h1, logits, logits_out, bins, barrier, sample,
-                      sigmoid_first, seed, stream);
+                      sigmoid_first, seed, stamps, st_lo, st_n, stream);
   if (dtype == 1)
     return run<__nv_bfloat16, __nv_bfloat16>(
         L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
         g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
-        bins, barrier, sample, sigmoid_first, seed, stream);
+        bins, barrier, sample, sigmoid_first, seed, stamps, st_lo, st_n,
+        stream);
   if (dtype == 2)
     return run<__nv_bfloat16, int8_t>(
         L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
         g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
-        bins, barrier, sample, sigmoid_first, seed, stream);
+        bins, barrier, sample, sigmoid_first, seed, stamps, st_lo, st_n,
+        stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The grid the launch uses (one block per SM): sizes the stamp buffer.
+extern "C" int gen_wavenet_grid() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return -1;
+  return sms;
 }

@@ -41,58 +41,97 @@
 // C interface (ctypes): pointers and the stream as void*, returns
 // cudaGetLastError() of the first failing launch (0 on success).
 
+#include "hopper_gemm.cuh"
 #include "train_stack_bwd.cuh"
 
-namespace {
-
 using tg::bf16;
-using bwd::DkP;
 
-constexpr int DK_ROW_CHUNK = 8192;   // rows per split of the dk product
+namespace dkp {
 
-// every layer's dk product in one grid: blockIdx.z = layer * splits + split
-template <typename T>
-struct DkAll {
-  const T* xs;          // [L, rows, R]
-  const T* dpre_all;    // [L, rows, 2D]
+constexpr int DK_SPLIT_ROWS = 12288;   // rows per split of the dk product, about
+
+// Splits of the row reduction: ceil(B*T / DK_SPLIT_ROWS), at most one per
+// 64-row tile.  The same for both dtypes, so the scratch size depends on
+// the shapes alone.
+inline int dk_splits(int B, int T) {
+  const long long rows = (long long)B * T;
+  const long long cap = (long long)B * tg::ceil_div(T, 64);
+  long long s = tg::ceil_div(rows, DK_SPLIT_ROWS);
+  if (s > cap) s = cap;
+  return s < 1 ? 1 : (int)s;
+}
+
+// dk for every layer and tap in one grid: blockIdx.x = tile of 2D,
+// blockIdx.y = tap j x channel tile, blockIdx.z = layer x row split.
+// k-tile it of a split is Cfg::BK rows t0 .. t0+BK-1 of batch row b (a
+// tile never crosses a batch row); tap j's A box starts at row t0 - o_j,
+// and TMA fills rows before 0 (the causal head, or a whole tap with
+// o_j >= T) and past T with zeros.
+template <class C>
+struct DkTma {
+  using Cfg = C;
+  CUtensorMap xs;       // xs [L][B][T][R]
+  CUtensorMap dpre;     // dpre_all [L][B][T][2D]
   const int* dils;      // [L], device memory
-  float* part;          // [splits, L, K*R, 2D]
-  int L, KS, R, D, T_, rows, splits;
+  float* part;          // [splits][L][K*R][2D]
+  int L, K, R, N, tpb, row_tiles, chunk, ctiles, splits;
+
+  __device__ void k_range(int& it0, int& it1) const {
+    it0 = (blockIdx.z % splits) * chunk;
+    it1 = min(row_tiles, it0 + chunk);
+  }
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    const int l = blockIdx.z / splits;
+    const int j = blockIdx.y / ctiles;
+    const int c0 = (blockIdx.y - j * ctiles) * Cfg::BM;
+    const int b = it / tpb, t0 = (it - b * tpb) * Cfg::BK;
+    const int o = (K - 1 - j) * dils[l];
+#pragma unroll
+    for (int i = 0; i < Cfg::BM / Cfg::BOX; ++i)
+      hg::tma_load_4d(sA + i * Cfg::BOX_BYTES, &xs, bar, c0 + i * Cfg::BOX,
+                      t0 - o, b, l);
+#pragma unroll
+    for (int i = 0; i < Cfg::BN / Cfg::BOX; ++i)
+      hg::tma_load_4d(sB + i * Cfg::BOX_BYTES, &dpre, bar,
+                      blockIdx.x * Cfg::BN + i * Cfg::BOX, t0, b, l);
+  }
+  __device__ void store(int r, int c, float v0, float v1) const {
+    const int l = blockIdx.z / splits, split = blockIdx.z % splits;
+    const int j = blockIdx.y / ctiles;
+    const int m = (blockIdx.y - j * ctiles) * Cfg::BM + r;
+    const int n = blockIdx.x * Cfg::BN + c;
+    if (m >= R || n >= N) return;                 // N even, so n + 1 < N too
+    float* o = part + (((long long)split * L + l) * K * R + (long long)j * R +
+                       m) * N + n;
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+  }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(tg::NT) dk_all(const DkAll<T> a) {
-  const int l = blockIdx.z / a.splits, split = blockIdx.z % a.splits;
-  DkP<T> p;
-  p.M = a.KS * a.R; p.N = 2 * a.D; p.K = a.rows; p.kchunk = DK_ROW_CHUNK;
-  p.x = a.xs + (long long)l * a.rows * a.R;
-  p.dpre = a.dpre_all + (long long)l * a.rows * 2 * a.D;
-  p.part = a.part + (long long)l * p.M * p.N;
-  p.pstride = (long long)a.L * p.M * p.N;
-  p.T_ = a.T_; p.R = a.R; p.D = a.D; p.KS = a.KS; p.d = a.dils[l];
-  p.start = 0;
-  tg::gemm_tile<T, false, false>(p, blockIdx.y * tg::BM, blockIdx.x * tg::BN,
-                                 split);
-}
-
-template <typename T>
+template <class Cfg>
 int dk(int L, int K, int R, int D, int B, int T_, const int* dils_dev,
-       const T* dpre_all, const T* xs, float* dk_out, float* part,
-       cudaStream_t s) {
-  DkAll<T> a;
-  a.xs = xs; a.dpre_all = dpre_all; a.dils = dils_dev; a.part = part;
-  a.L = L; a.KS = K; a.R = R; a.D = D; a.T_ = T_; a.rows = B * T_;
-  a.splits = tg::ceil_div(a.rows, DK_ROW_CHUNK);
-  dim3 grid(tg::ceil_div(2 * D, tg::BN),
-            tg::ceil_div((long long)K * R, tg::BM), L * a.splits);
-  dk_all<T><<<grid, tg::NT, 0, s>>>(a);
+       const typename Cfg::T* dpre_all, const typename Cfg::T* xs,
+       float* dk_out, float* part, cudaStream_t s) {
+  DkTma<Cfg> p;
   cudaError_t e;
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if ((e = hg::encode_tensor_map<Cfg>(&p.xs, xs, R, T_, B, L)) != cudaSuccess ||
+      (e = hg::encode_tensor_map<Cfg>(&p.dpre, dpre_all, 2 * D, T_, B, L)) !=
+          cudaSuccess)
+    return static_cast<int>(e);
+  p.dils = dils_dev; p.part = part;
+  p.L = L; p.K = K; p.R = R; p.N = 2 * D;
+  p.tpb = tg::ceil_div(T_, Cfg::BK);
+  p.row_tiles = B * p.tpb;
+  p.splits = dk_splits(B, T_);
+  p.chunk = tg::ceil_div(p.row_tiles, p.splits);
+  p.ctiles = tg::ceil_div(R, Cfg::BM);
+  dim3 grid(tg::ceil_div(2 * D, Cfg::BN), K * p.ctiles, L * p.splits);
+  if ((e = hg::launch_mn_gemm(p, grid, s)) != cudaSuccess)
+    return static_cast<int>(e);
   return static_cast<int>(tg::launch_reduce(
-      part, a.splits, (long long)L * K * R * 2 * D, dk_out, s));
+      part, p.splits, (long long)L * K * R * 2 * D, dk_out, s));
 }
 
-}  // namespace
+}  // namespace dkp
 
 // The floats of scratch (part) each entry needs; the caller sizes part
 // with these, so the row blocking is known to this file alone.
@@ -103,8 +142,7 @@ extern "C" long long train_stack_bwd_chain_part_floats(int R, int D, int S,
 
 extern "C" long long train_stack_bwd_dk_part_floats(int L, int K, int R,
                                                     int D, int B, int T) {
-  return tg::ceil_div((long long)B * T, DK_ROW_CHUNK) * (long long)L * K * R *
-         2 * D;
+  return (long long)dkp::dk_splits(B, T) * L * K * R * 2 * D;
 }
 
 // The chain: the walk of train_stack_bwd.cu without dk, T = float or bf16.
@@ -151,10 +189,14 @@ extern "C" int train_stack_bwd_dk(int dtype, int L, int K, int R, int D,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* d = static_cast<const int*>(dils);
   if (dtype == 1)
-    return dk<bf16>(L, K, R, D, B, T, d, static_cast<const bf16*>(dpre_all),
-                    static_cast<const bf16*>(xs), static_cast<float*>(dk_out),
-                    static_cast<float*>(part), s);
-  return dk<float>(L, K, R, D, B, T, d, static_cast<const float*>(dpre_all),
-                   static_cast<const float*>(xs), static_cast<float*>(dk_out),
-                   static_cast<float*>(part), s);
+    return dkp::dk<hg::Bf16Cfg>(L, K, R, D, B, T, d,
+                           static_cast<const bf16*>(dpre_all),
+                           static_cast<const bf16*>(xs),
+                           static_cast<float*>(dk_out),
+                           static_cast<float*>(part), s);
+  return dkp::dk<hg::F32Cfg>(L, K, R, D, B, T, d,
+                        static_cast<const float*>(dpre_all),
+                        static_cast<const float*>(xs),
+                        static_cast<float*>(dk_out), static_cast<float*>(part),
+                        s);
 }

@@ -396,9 +396,16 @@ def _lib():
         + [ctypes.c_void_p, ctypes.c_int]   # inputs, forced
         + [ctypes.c_void_p] * 8        # ring cur gated skip h1 logits logits_out bins
         + [ctypes.c_void_p]            # barrier counter
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong,
-           ctypes.c_void_p])           # mode gate seed stream
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong]  # mode gate seed
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]    # stamps lo n
+        + [ctypes.c_void_p])           # stream
+    lib.gen_wavenet_grid.restype = ctypes.c_int
+    lib.gen_wavenet_grid.argtypes = []
     return lib
+
+
+# the stamped build's events per phase and block (csrc/gen_wavenet.cu, Ev)
+STAMP_EVENTS = ("start", "staged", "weights", "done", "exit")
 
 
 def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
@@ -409,6 +416,30 @@ def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
     """Launch the persistent whole-clip kernel once (one block per SM):
     its float32, bfloat16 or int8-weight variant, by the weights' type.
     Same contract as ``generate_clip_plain``."""
+    return _launch(w, lc, gcon, g_pp1, length=length, mode=mode, seed=seed,
+                   gate_order=gate_order, forced=forced,
+                   want_logits=want_logits)[:2]
+
+
+def generate_clip_stamped(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
+                          length: int, stamp_from: int, stamp_samples: int,
+                          **kw):
+    """The kernel's stamped build (a measurement, not a path of the port):
+    as ``generate_clip_cuda``, and also the globaltimer stamps (ns) of
+    samples stamp_from .. stamp_from + stamp_samples - 1 as int64
+    [samples, 2L+4 phases, blocks, STAMP_EVENTS], 0 where an event did
+    not happen (thread 0 idle in that phase).  Phases: 0 the preprocess
+    conv, 1 + 2l / 2 + 2l layer l's gate and [skip | res] phases, 2L+1 and
+    2L+2 the two postprocess convs, 2L+3 the sampling."""
+    return _launch(w, lc, gcon, g_pp1, length=length,
+                   stamp=(stamp_from, stamp_samples), **kw)
+
+
+def _launch(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *, length: int,
+            mode: str = "greedy", seed: int = 0,
+            gate_order: str = "tanh_first",
+            forced: Optional[torch.Tensor] = None, want_logits: bool = False,
+            stamp: Optional[Tuple[int, int]] = None):
     global launches, int8_launches
     L, K, R, D, S, Q, C, PK = w.dims
     dev = w.device
@@ -486,6 +517,17 @@ def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
     ptrs = [x.data_ptr() for x in tensors] + [None] * (15 - len(tensors))
 
     lib = _lib()
+    stamps = None
+    if stamp is not None:
+        st_lo, st_n = stamp
+        if not (0 <= st_lo and st_n >= 1 and st_lo + st_n <= length):
+            raise ValueError(f"stamped samples {stamp} outside the clip")
+        with torch.cuda.device(dev):
+            grid = lib.gen_wavenet_grid()
+        stamps = torch.zeros((st_n, 2 * L + 4, grid, len(STAMP_EVENTS)),
+                             dtype=torch.int64, device=dev)
+    else:
+        st_lo, st_n = 0, 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gen_wavenet(
@@ -499,14 +541,16 @@ def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
             logits_out.data_ptr() if want_logits else None,
             bins.data_ptr(), barrier.data_ptr(),
             int(mode == "sample"), int(gate_order == "sigmoid_first"),
-            seed & 0xFFFFFFFFFFFFFFFF, stream)
+            seed & 0xFFFFFFFFFFFFFFFF,
+            None if stamps is None else stamps.data_ptr(), st_lo, st_n,
+            stream)
     _build.check(lib, err, "gen_wavenet")
     if q8:
         int8_launches += 1
     else:
         launches += 1
     return (bins.T.long(),
-            logits_out.transpose(0, 1) if want_logits else None)
+            logits_out.transpose(0, 1) if want_logits else None, stamps)
 
 
 def generate_clip(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, **kw):
