@@ -71,12 +71,12 @@ struct F32Cfg {
 constexpr int NCONS = 256;               // consumer threads: 2 warpgroups
 constexpr int NTHREADS = NCONS + 32;     // and one producer warp
 
-template <class Cfg> constexpr int stage_bytes() {
+template <class Cfg> __host__ __device__ constexpr int stage_bytes() {
   return Cfg::A_BYTES + Cfg::B_BYTES;
 }
 // dynamic shared memory of one block: the stages (1024-byte aligned, for
 // the 128-byte swizzle), the alignment slack and the 2 x STAGES barriers
-template <class Cfg> constexpr int smem_bytes() {
+template <class Cfg> __host__ __device__ constexpr int smem_bytes() {
   return Cfg::STAGES * stage_bytes<Cfg>() + 1024 + 2 * Cfg::STAGES * 8;
 }
 
