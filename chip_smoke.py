@@ -180,7 +180,7 @@ def phase_build():
     log(f"[build] {time.perf_counter() - t0:.2f}s total; nvcc seconds per "
         f"source (in parallel): "
         f"{json.dumps({k: round(v, 2) for k, v in _build.build_seconds.items()})}")
-    for name in SOURCES[2:]:
+    for name in SOURCES[1:]:
         info = _build.ptxas_info.get(name, "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", info)]
         spills = sum(int(b) for b in re.findall(
@@ -462,9 +462,9 @@ def _gen_breakdown(tag, gk, params, w, lcb, card, length: int = 2048,
     _, _, st = gk.generate_clip_stamped(w, lcb, gcon, g_pp1, length=length,
                                         stamp_from=lo, stamp_samples=n)
     st = st.double().cpu() / 1e3                       # us
-    groups = {"P0": [0], "A": list(range(1, 2 * L + 1, 2)),
+    groups = {"SP": [0], "A": list(range(1, 2 * L + 1, 2)),
               "B": list(range(2, 2 * L + 2, 2)), "H1": [2 * L + 1],
-              "H2": [2 * L + 2], "S": [2 * L + 3]}
+              "H2": [2 * L + 2]}
 
     def segments(e):                                    # e [..., 5]
         start, staged, wts, done, ex = e.unbind(-1)

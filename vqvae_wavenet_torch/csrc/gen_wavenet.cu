@@ -6,53 +6,76 @@
 // the streamed float mode is a VMEM fact that this kernel, which reads its
 // weights from device memory at every size, does not need).  The TPU
 // kernel ran the sample loop as a sequential grid on one core with weights
-// and rings in VMEM.  Here one cooperative launch keeps gridDim.x co-resident blocks
-// (one per SM by default) alive for the whole clip; the blocks loop over
-// samples and, inside, over layers, and meet at grid barriers between
-// phases that depend on each other:
+// and rings in VMEM.  Here one cooperative launch keeps one block per SM
+// alive for the whole clip; the blocks loop over samples and, inside, over
+// layers, and meet at grid barriers between phases that depend on each
+// other (2L + 3 per sample):
 //
-//   P0   preprocess conv over the last PK mu-law inputs -> current   barrier
+//   SP   every block picks the previous step's bins from its logits
+//        (argmax, or Gumbel-max with Philox-4x32-10 bits keyed on seed,
+//        step, row, bin; the same pick in every block, block 0 writes it),
+//        then the preprocess conv over the last PK mu-law inputs -> cur   barrier
 //   per layer l:
-//     A  gate: the warp owning gate column j computes pre[:, j] and
-//        pre[:, D+j] from [ring taps | current | lc_t] (one fused
-//        [K*R+C] dot per column), adds bias + gc term, applies
-//        tanh*sigmoid and writes gated[:, j]                          barrier
-//     B  the warp owning column c of [skip | res] computes gated . w[c];
-//        skip columns accumulate into the f32 skip sum (layer 0 adds the
-//        skip-start conv), res columns push the layer input into the ring
-//        and write the new current (double-buffered)                  barrier
-//   H1   relu(skip) and lc_t -> postprocess1 -> relu                  barrier
-//   H2   postprocess2 -> f32 logits                                   barrier
-//   S    block 0 picks the bin (argmax, or Gumbel-max with Philox-4x32-10
-//        bits keyed on seed, step, row, bin), writes it, and feeds the
-//        mu-law decoded sample to the next step's input                barrier
+//     A  gate: pre[:, j] and pre[:, D+j] from [ring taps | cur | lc_t]
+//        (one fused [K*R+C] dot per column pair), + bias + gc term,
+//        tanh*sigmoid -> gated[:, j]                                    barrier
+//     B  [skip | res] columns from gated: skip columns accumulate into
+//        the f32 skip sum (layer 0 adds the skip-start conv), res columns
+//        push the layer input into the ring and write the new current    barrier
+//   H1   relu(skip) and lc_t -> postprocess1 -> relu                     barrier
+//   H2   postprocess2 -> f32 logits                                      barrier
 //
-// 2L + 4 grid barriers per sample.  Work is spread over warps "blocks
-// first" (job = block + warp * gridDim.x), so every SM streams its share
-// of the weights.  Each block stages the activations it needs (<= 8 batch
-// rows at a time) as f32 in shared memory; weights are read straight from
-// device memory, 16 bytes per lane, in the [out_column][in] layout the
-// wrapper packs, so a warp's loads are contiguous.  Every packed width
-// (K*R+C, D, R, S, S+C, PK) is a multiple of 8; the wrapper refuses others.
+// What bounds it on the H100: latency, not bytes or operations.  At B=1 a
+// sample is ~12 us of weight traffic at 3.35 TB/s if it came from HBM
+// (39 MB of bf16 weights mostly stay in the 50 MB L2) and ~0.1 us of
+// arithmetic, spread over 2L+3 dependent phases; each phase costs a grid
+// barrier (~1 us: one arrival counter in L2) plus the L2 round trips its
+// data needs.  The first version of this kernel spent 7 us in each gate
+// phase at B=1 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py [gen] stamps):
+// 1.9 staging activations element by element, 3.7 in dependent rounds of
+// weight loads on the ~2 warps per block that had a column, 1.4 in the
+// barrier.  This design takes each of those off the critical path:
+//
+// * Every warp works.  A phase's J output columns (A: column pairs) go to
+//   blocks first (column j -> block j % G), and each column's dot is cut
+//   into P slices of the input, P = 8 / (columns per block), one per warp;
+//   the slices' partial sums meet in shared memory and are added in slice
+//   order, so a run repeats bit for bit.  The assignment is static.
+// * Weights before the barrier.  Weights do not depend on the phase's
+//   data, so each warp loads its next slice's weights (<= MAXV 16-byte
+//   vectors per lane and row) into registers before it waits at the
+//   barrier; the loads land while it waits.
+// * Inputs that do not depend on the previous phase (the ring taps, which
+//   were written samples ago, lc_t, the int8 scales) are staged before the
+//   barrier too; after it a warp stages only the rest of its own slice,
+//   8 values per load, one round for all staged batch rows, with no
+//   division per element, and needs no block-wide sync before its products.
+// * The barrier is a release-add and an acquire-load poll of one counter
+//   (no __threadfence), and the sampling lives in the preprocess phase of
+//   every block: one barrier fewer per sample than a sampling phase of its
+//   own.
+//
+// Data written by other blocks during the launch is read with ld.global.cg
+// (L2, not L1).  Every packed width (K*R+C, D, R, S, S+C, PK) is a multiple
+// of 8 (16 for int8 rows); the wrapper refuses others.
 //
 // int8 variant (gen_pallas.py:104-159, 584-588): the gate weights w_a and
 // the skip half of [skip | res] are int8 with one scale per *input* index
-// (the JAX row scales of the transposed layout), staged per layer into a
-// shared-memory row beside the activations; a 16-byte load carries 16
-// weights, each used as bf16(float(q) * scale) -- the scale is a bf16
-// value, so the product is exact in f32 and rounds once, as the plain twin
-// and the TPU kernel's bf16 multiply do.  Activations are bf16; the res half
-// is a separate bf16 array, the biases bf16 (dequantized at pack time).
-//
-// Weights (39 MB bf16 / 79 MB f32 for the shipped 30-layer model) and the
-// rings live in device memory: they do not fit in 227 KB of shared memory.
-// What bounds it on the H100 at small batch: grid-barrier latency (62+
-// per sample) and the per-sample weight stream from L2/HBM.  Data written
-// by other blocks during the launch is read with ld.global.cg (L2, not L1).
+// (the JAX row scales of the transposed layout), staged beside the slice's
+// activations; a 16-byte load carries 16 weights, each used as
+// bf16(float(q) * scale) -- the scale is a bf16 value, so the product is
+// exact in f32 and rounds once, as the plain twin and the TPU kernel's bf16
+// multiply do.  Activations are bf16; the res half is a separate bf16
+// array, the biases bf16 (dequantized at pack time).
 //
 // Numerics: f32 accumulation everywhere; current is rounded to the
 // activation type after each residual add, gated after the gate; the skip
 // sum and the logits stay f32 (gen_pallas.py:548, 647, 679-680, 740-742).
+//
+// Stamped build (ST = true, chosen only by a non-null stamp buffer): thread
+// 0 of every block writes globaltimer stamps of each phase's events, for a
+// window of samples, from which chip_smoke.py splits a phase into staging,
+// weight loads, arithmetic and barrier wait.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the CUDA
 // error code (0 = launched).
@@ -66,22 +89,71 @@ namespace {
 
 constexpr int NT = 256;          // threads per block
 constexpr int NW = NT / 32;      // warps per block
-constexpr int BCH = 8;           // batch rows staged per pass
+constexpr int MAXV = 4;          // prefetched 16-byte vectors per lane and row
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
 // loads of data that other blocks write during the launch: through L2
 __device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ld_cg(const __nv_bfloat16* p) {
+__device__ __forceinline__ float ld_cg(const bf16* p) {
   unsigned short bits = __ldcg(reinterpret_cast<const unsigned short*>(p));
   return __bfloat162float(__ushort_as_bfloat16(bits));
+}
+
+// 8 consecutive values as float; CG: through L2 (data of this launch)
+template <bool CG>
+__device__ __forceinline__ void ld8f(const bf16* p, float* o) {
+  const uint4 v = CG ? __ldcg(reinterpret_cast<const uint4*>(p))
+                     : __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+template <bool CG>
+__device__ __forceinline__ void ld8f(const float* p, float* o) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  const float4 a = CG ? __ldcg(q) : __ldg(q);
+  const float4 b = CG ? __ldcg(q + 1) : __ldg(q + 1);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+__device__ __forceinline__ void st8(float* d, const float* o) {
+  reinterpret_cast<float4*>(d)[0] = make_float4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<float4*>(d)[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+constexpr int BCH = 4;           // batch rows staged per pass
+
+// Stage 8 values of nb batch rows (src + bb * stride) as float at dst +
+// bb * xw: every row's load issued before the first store, so the rows
+// share one round trip.  RELU: relu, then round to T (the skip sum).
+template <bool CG, bool RELU, typename T, typename S>
+__device__ __forceinline__ void rows8(const S* src, size_t stride, int nb,
+                                      float* dst, int xw) {
+  float v[BCH][8];
+#pragma unroll
+  for (int bb = 0; bb < BCH; ++bb)
+    if (bb < nb) ld8f<CG>(src + bb * stride, v[bb]);
+#pragma unroll
+  for (int bb = 0; bb < BCH; ++bb)
+    if (bb < nb) {
+      if (RELU)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[bb][i] = to_f(from_f<T>(fmaxf(v[bb][i], 0.f)));
+      st8(dst + bb * xw, v[bb]);
+    }
 }
 
 // T: the activation type; W: the type of w_a and w_sr (T, or int8_t)
@@ -111,7 +183,7 @@ struct Args {
   unsigned long long* barrier;  // zeroed arrival counter
   int sample, sigmoid_first;
   unsigned long long seed;
-  // stamped build only: globaltimer stamps [st_n samples from st_lo][2L+4
+  // stamped build only: globaltimer stamps [st_n samples from st_lo][2L+3
   // phases][gridDim.x blocks][NEV events], written by thread 0 of a block
   unsigned long long* stamps;
   int st_lo, st_n;
@@ -125,30 +197,6 @@ __device__ __forceinline__ unsigned long long gtime() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");
   return t;
-}
-
-// Monotonic-counter grid barrier; the cooperative launch guarantees that
-// every block is resident, so spinning cannot deadlock.  A wait of ~2^34
-// cycles (seconds, where a legitimate wait is microseconds) means a bug:
-// trap, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void grid_sync(unsigned long long* ctr,
-                                          unsigned long long& target,
-                                          unsigned long long* st = nullptr) {
-  target += gridDim.x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (st) st[EV_DONE] = gtime();
-    __threadfence();
-    atomicAdd(ctr, 1ULL);
-    volatile unsigned long long* v = ctr;
-    const long long t0 = clock64();
-    while (*v < target) {
-      if (clock64() - t0 > (1LL << 34)) __trap();
-    }
-    __threadfence();
-    if (st) st[EV_EXIT] = gtime();
-  }
-  __syncthreads();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -168,7 +216,7 @@ template <> struct Vec16<float> {
     out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
   }
 };
-template <> struct Vec16<__nv_bfloat16> {
+template <> struct Vec16<bf16> {
   static constexpr int N = 8;
   __device__ __forceinline__ static void unpack(const uint4& v, float out[8],
                                                 const float*) {
@@ -203,76 +251,94 @@ __device__ __forceinline__ uint4 ld_weights(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-template <typename W, int NR>
-__device__ __forceinline__ void fma_vec(const float wf[NR][Vec16<W>::N],
-                                        const float* xs, int xw, int k0,
-                                        int nb, float acc[NR][BCH]) {
-  constexpr int V = Vec16<W>::N;
+// acc[i][bb] += w_i . x[bb] for one 16-byte weight vector per row i
+template <typename WV, int NR>
+__device__ __forceinline__ void fma_vec(const uint4 (&wv)[NR], const float* x,
+                                        int xw, int nb, const float* sc,
+                                        float (&acc)[NR][BCH]) {
+  constexpr int V = Vec16<WV>::N;
+  float wf[NR][V];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) Vec16<WV>::unpack(wv[i], wf[i], sc);
 #pragma unroll
   for (int bb = 0; bb < BCH; ++bb) {
     if (bb < nb) {
-      const float4* x4 = reinterpret_cast<const float4*>(xs + bb * xw + k0);
+      const float4* x4 = reinterpret_cast<const float4*>(x + bb * xw);
 #pragma unroll
       for (int q = 0; q < V / 4; ++q) {
-        const float4 x = x4[q];
+        const float4 xv = x4[q];
 #pragma unroll
         for (int i = 0; i < NR; ++i) {
-          acc[i][bb] = fmaf(wf[i][4 * q], x.x, acc[i][bb]);
-          acc[i][bb] = fmaf(wf[i][4 * q + 1], x.y, acc[i][bb]);
-          acc[i][bb] = fmaf(wf[i][4 * q + 2], x.z, acc[i][bb]);
-          acc[i][bb] = fmaf(wf[i][4 * q + 3], x.w, acc[i][bb]);
+          acc[i][bb] = fmaf(wf[i][4 * q], xv.x, acc[i][bb]);
+          acc[i][bb] = fmaf(wf[i][4 * q + 1], xv.y, acc[i][bb]);
+          acc[i][bb] = fmaf(wf[i][4 * q + 2], xv.z, acc[i][bb]);
+          acc[i][bb] = fmaf(wf[i][4 * q + 3], xv.w, acc[i][bb]);
         }
       }
     }
   }
 }
 
-// acc[i][bb] = sum_k w_i[k] * xs[bb][off + k] for NR weight rows w_i and
-// bb < nb, summed over the warp, with 16-byte weight loads and float4
-// shared-memory loads.  n, off and xw are multiples of 8 (n of 16 for int8)
-// and every weight row starts 16-byte aligned (the wrapper checks the
-// packed widths).  int8 rows take their per-index scales from sc[k].
-template <typename W, int NR>
-__device__ __forceinline__ void warp_dots(const W* const* w, const float* xs,
-                                          int xw, int off, int n, int nb,
-                                          int lane, float acc[NR][BCH],
-                                          const float* sc,
-                                          unsigned long long* st = nullptr) {
-  constexpr int V = Vec16<W>::N;
+// A warp's dot of NR weight rows (elements [k0, k0 + n) of each row, of
+// type WV) with its staged x [bb][xw] (slice-relative), summed over the
+// warp into acc[i][bb] (every lane holds the sums).  The first MAXV
+// vectors per lane come from wr (loaded before the barrier); the rest, if
+// the slice is longer, are loaded here.  int8 rows take their scales from
+// sc (slice-relative).
+template <typename WV, int NR>
+__device__ __forceinline__ void slice_dot(const WV* const (&rows)[NR], int k0,
+                                          int n, const uint4 (&wr)[2][MAXV],
+                                          const float* x, int xw, int nb,
+                                          const float* sc, int lane,
+                                          float (&acc)[NR][BCH],
+                                          unsigned long long* st) {
+  constexpr int V = Vec16<WV>::N;
 #pragma unroll
   for (int i = 0; i < NR; ++i)
 #pragma unroll
     for (int bb = 0; bb < BCH; ++bb) acc[i][bb] = 0.f;
   const int nv = n / V;
-  for (int v = lane; v < nv; v += 32) {
-    float wf[NR][V];
 #pragma unroll
-    for (int i = 0; i < NR; ++i)
-      Vec16<W>::unpack(ld_weights(w[i] + v * V), wf[i], sc + v * V);
-    if (st && v == lane) {        // stamped build: the first vector has landed
-      __shared__ float sink;      // the store waits for the load's register
-      *static_cast<volatile float*>(&sink) = wf[0][0];
-      st[EV_WEIGHTS] = gtime();
+  for (int m = 0; m < MAXV; ++m) {
+    const int v = lane + 32 * m;
+    if (v < nv) {
+      uint4 wv[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) wv[i] = wr[i][m];
+      if (st && m == 0) {        // stamped build: the first vector is here
+        __shared__ unsigned sink;
+        *static_cast<volatile unsigned*>(&sink) = wv[0].x;
+        st[EV_WEIGHTS] = gtime();
+      }
+      fma_vec<WV, NR>(wv, x + v * V, xw, nb, sc ? sc + v * V : nullptr, acc);
     }
-    fma_vec<W, NR>(wf, xs, xw, off + v * V, nb, acc);
+  }
+  for (int v = lane + 32 * MAXV; v < nv; v += 32) {
+    uint4 wv[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) wv[i] = ld_weights(rows[i] + k0 + v * V);
+    fma_vec<WV, NR>(wv, x + v * V, xw, nb, sc ? sc + v * V : nullptr, acc);
   }
 #pragma unroll
   for (int i = 0; i < NR; ++i)
 #pragma unroll
-    for (int bb = 0; bb < BCH; ++bb) acc[i][bb] = warp_sum(acc[i][bb]);
+    for (int bb = 0; bb < BCH; ++bb)
+      if (bb < nb) acc[i][bb] = warp_sum(acc[i][bb]);
 }
 
-template <typename W>
-__device__ __forceinline__ void warp_dot(const W* w, const float* xs, int xw,
-                                         int off, int n, int nb, int lane,
-                                         float acc[BCH],
-                                         const float* sc = nullptr,
-                                         unsigned long long* st = nullptr) {
-  const W* rows[1] = {w};
-  float a[1][BCH];
-  warp_dots<W, 1>(rows, xs, xw, off, n, nb, lane, a, sc, st);
+template <typename WV, int NR>
+__device__ __forceinline__ void prefetch(const WV* const (&rows)[NR], int k0,
+                                         int n, int lane,
+                                         uint4 (&wr)[2][MAXV]) {
+  constexpr int V = Vec16<WV>::N;
+  const int nv = n / V;
 #pragma unroll
-  for (int bb = 0; bb < BCH; ++bb) acc[bb] = a[0][bb];
+  for (int m = 0; m < MAXV; ++m) {
+    const int v = lane + 32 * m;
+    if (v < nv)
+#pragma unroll
+      for (int i = 0; i < NR; ++i) wr[i][m] = ld_weights(rows[i] + k0 + v * V);
+  }
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
@@ -307,303 +373,557 @@ __device__ __forceinline__ float gumbel(unsigned long long seed, int t, int b, i
   return -logf(-logf(u));
 }
 
+// ----------------------------------------------------------------- plan
+
+enum Kind { KA, KB, KH1, KH2 };
+
+// Slices per column (P) and slice length (ns, a multiple of 16) of a phase
+// with J columns of n inputs over G blocks of NW warps: as many slices as
+// the busiest block has warps per column, none shorter than 32 inputs.
+__host__ __device__ inline void plan(int J, int n, int G, int& P, int& ns) {
+  const int nj = (J + G - 1) / G;
+  P = NW / nj;
+  if (P < 1) P = 1;
+  const int pmax = n / 32 > 0 ? n / 32 : 1;
+  if (P > pmax) P = pmax;
+  ns = ((n + P - 1) / P + 15) / 16 * 16;
+  P = (n + ns - 1) / ns;
+}
+
+// The shared-memory row pitch of a warp's staging region: the longest
+// slice of any phase, B's with room for layer 0's skip-start input (R).
+__host__ __device__ inline int region_pitch(int K, int R, int D, int S, int Q,
+                                            int C, int G) {
+  int P, a, b, h1, h2;
+  plan(D, K * R + C, G, P, a);
+  plan(S + R, D, G, P, b);
+  plan(S, S + C, G, P, h1);
+  plan(Q, S, G, P, h2);
+  int m = a;
+  if (b + R > m) m = b + R;
+  if (h1 > m) m = h1;
+  if (h2 > m) m = h2;
+  return m;
+}
+
+struct Phase {
+  int kind, l, J, n, P, ns;
+  const int* tab;        // the kind's plan in shared memory (KT ints)
+};
+
+// Per kind, computed once per launch: P, ns, columns per round (jr), this
+// block's columns (nj), rounds; then per warp its round-0 item: valid,
+// column, k0, k1.
+constexpr int KT = 5 + 4 * NW;
+
+__host__ __device__ inline void kind_dims(int kind, int K, int R, int D, int S,
+                                          int Q, int C, int& J, int& n) {
+  if (kind == KA) { J = D; n = K * R + C; }
+  else if (kind == KB) { J = S + R; n = D; }
+  else if (kind == KH1) { J = S; n = S + C; }
+  else { J = Q; n = S; }
+}
+
+// ----------------------------------------------------------------- kernel
+
 // ST: the stamped build (per-phase globaltimer stamps, see Args::stamps)
 template <typename T, typename W, bool ST>
-__global__ void __launch_bounds__(NT) gen_kernel(Args<T, W> a) {
+__global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
   constexpr bool Q8 = sizeof(W) == 1;            // int8 weights
-  extern __shared__ float xs[];                  // [BCH][xw] (+ int8: scales [xw])
-  float* sc = Q8 ? xs + BCH * a.xw : nullptr;
+  extern __shared__ float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, blk = blockIdx.x;
-  const int TW = G * NW;
-  const int job0 = blk + warp * G;               // blocks first
   const int L = a.L, K = a.K, R = a.R, D = a.D, S = a.S, Q = a.Q, C = a.C,
             PK = a.PK, B = a.B, xw = a.xw;
   const int KR = K * R, KRC = K * R + C, SR = S + R;
+  // shared memory: per warp [BCH rows][xw] staged inputs and [xw] int8
+  // scales; the slices' partial sums [NW][2][BCH]; the preprocess window
+  // [BCH][PK]; the decoded inputs of the step [B]; the kinds' plans
+  // [4][KT]; the dilations, ring offsets and this step's ring slots
+  // t % ((K-1) d_l) [L] each
+  float* xr = smem + warp * (BCH + 1) * xw;      // this warp's region
+  float* sc = xr + BCH * xw;
+  float* part = smem + NW * (BCH + 1) * xw;
+  float* win = part + NW * 2 * BCH;
+  float* xin = win + BCH * PK;
+  int* ktab = reinterpret_cast<int*>(xin + B);
+  int* sdil = ktab + 4 * KT;
+  int* soff = sdil + L;
+  int* sslot = soff + L;
+  if (tid < 4) {
+    int J, n, P, ns;
+    kind_dims(tid, K, R, D, S, Q, C, J, n);
+    plan(J, n, G, P, ns);
+    int* e = ktab + tid * KT;
+    const int jr = NW / P, nj = blk < J ? (J - 1 - blk) / G + 1 : 0;
+    e[0] = P; e[1] = ns; e[2] = jr; e[3] = nj; e[4] = (nj + jr - 1) / jr;
+    for (int w = 0; w < NW; ++w) {
+      const int u = w / P, k0 = (w % P) * ns, k1 = min(n, k0 + ns);
+      e[5 + 4 * w] = w < jr * P && u < nj && k0 < k1;
+      e[6 + 4 * w] = blk + u * G;
+      e[7 + 4 * w] = k0;
+      e[8 + 4 * w] = k1;
+    }
+  }
+  for (int i = tid; i < L; i += NT) {
+    sdil[i] = a.dil[i];
+    soff[i] = a.ring_off[i];
+  }
+  __syncthreads();
   const float mu = (float)(Q - 1);
   const float log1p_mu = (float)log1p((double)mu);
   unsigned long long target = 0;
-  float acc[BCH], acc2[BCH];
-  // stamped build: this block's events of phase ph of sample t (thread 0)
+  uint4 wr[2][MAXV];     // the next phase's weights, loaded before its barrier
+  float ep[4];           // this thread's epilogue operands of the next phase
+  float winx = 0.f;      // this thread's preprocess input of the next step
+  const T* lct = a.lc;   // lc of the current step
+
   auto stamp_at = [&](int t, int ph) -> unsigned long long* {
     const int ts = t - a.st_lo;
     if (!ST || tid != 0 || ts < 0 || ts >= a.st_n) return nullptr;
     unsigned long long* p =
-        a.stamps + (((size_t)ts * (2 * L + 4) + ph) * G + blk) * NEV;
+        a.stamps + (((size_t)ts * (2 * L + 3) + ph) * G + blk) * NEV;
     p[EV_START] = gtime();
     return p;
   };
+  // the grid barrier in two halves: arrive when the phase's writes are
+  // done, wait when the next phase needs them; between the two a block
+  // loads what the next phase needs that does not depend on them
+  auto arrive = [&](unsigned long long* st) {
+    target += G;
+    __syncthreads();
+    if (tid == 0) {
+      if (st) st[EV_DONE] = gtime();
+      asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(a.barrier)
+                   : "memory");
+    }
+  };
+  auto wait = [&](unsigned long long* st) {
+    if (tid == 0) {
+      unsigned long long v;
+      const long long t0 = clock64();
+      do {
+        asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                     : "=l"(v) : "l"(a.barrier) : "memory");
+        if (clock64() - t0 > (1LL << 34)) __trap();
+      } while (v < target);
+      if (st) st[EV_EXIT] = gtime();
+    }
+    __syncthreads();
+  };
 
-  for (int t = 0; t < a.length; ++t) {
-    const int tf = t / a.ratio;
-    const T* lc_t = a.lc + (size_t)tf * B * C;
+  // phase ph of a sample after SP: 2l = layer l's A, 2l+1 its B, 2L H1,
+  // 2L+1 H2
+  auto describe = [&](int ph) {
+    Phase p;
+    p.kind = ph < 2 * L ? (ph & 1 ? KB : KA) : (ph == 2 * L ? KH1 : KH2);
+    p.l = ph < 2 * L ? ph >> 1 : 0;
+    kind_dims(p.kind, K, R, D, S, Q, C, p.J, p.n);
+    p.tab = ktab + p.kind * KT;
+    p.P = p.tab[0];
+    p.ns = p.tab[1];
+    return p;
+  };
+  auto njobs = [&](const Phase& p) { return p.tab[3]; };
+  // this warp's item in round rd: column u of the block, slice s
+  auto item = [&](const Phase& p, int rd, int& job, int& k0, int& k1) {
+    if (rd == 0) {
+      const int* e = p.tab + 5 + 4 * warp;
+      job = e[1];
+      k0 = e[2];
+      k1 = e[3];
+      return e[0] != 0;
+    }
+    const int jr = p.tab[2];                     // columns per round
+    if (warp >= jr * p.P) return false;
+    const int u = rd * jr + warp / p.P, s = warp % p.P;
+    if (u >= njobs(p)) return false;
+    job = blk + u * G;
+    k0 = s * p.ns;
+    k1 = min(p.n, k0 + p.ns);
+    return k0 < k1;
+  };
+  // int8 rows: the gate's, and a skip column's
+  auto is_q8 = [&](const Phase& p, int job) {
+    return Q8 && (p.kind == KA || (p.kind == KB && job < S));
+  };
+  // weight row i of type W: the gate pair j, D + j (A), a skip column
+  // (int8 B)
+  auto row_w = [&](const Phase& p, int job, int i) -> const W* {
+    if (p.kind == KA)
+      return a.w_a + ((size_t)p.l * 2 * D + job + (size_t)i * D) * KRC;
+    return a.w_sr + ((size_t)p.l * S + job) * D;
+  };
+  // weight row of type T: B's columns (int8: its res half), H1, H2
+  auto row_t = [&](const Phase& p, int job) -> const T* {
+    if (p.kind == KB)
+      return Q8 ? a.w_r + ((size_t)p.l * R + job - S) * D
+                : reinterpret_cast<const T*>(a.w_sr) + ((size_t)p.l * SR + job) * D;
+    if (p.kind == KH1) return a.w_h1 + (size_t)job * (S + C);
+    return a.w_pp2 + (size_t)job * S;
+  };
+  auto do_prefetch = [&](const Phase& p, int rd) {
+    int job, k0, k1;
+    if (!item(p, rd, job, k0, k1)) return;
+    if (p.kind == KA)
+      prefetch<W, 2>({row_w(p, job, 0), row_w(p, job, 1)}, k0, k1 - k0, lane, wr);
+    else if (is_q8(p, job))
+      prefetch<W, 1>({row_w(p, job, 0)}, k0, k1 - k0, lane, wr);
+    else
+      prefetch<T, 1>({row_t(p, job)}, k0, k1 - k0, lane, wr);
+  };
 
-    // ---- P0: preprocess conv -> cur[0]
-    unsigned long long* st = stamp_at(t, 0);
-    if (blk < R) {
+  // Stage x[bb][k - k0] for k in [k0, k1) and the batch rows b0 + bb < B:
+  // pre = the inputs that do not depend on the previous phase (ring taps,
+  // lc, int8 scales), post = the rest.
+  auto stage = [&](const Phase& p, int t, int job, int k0, int k1,
+                   int b0, int nb, bool pre, bool post) {
+    const int l = p.l;
+    const T* lc_t = lct + (size_t)b0 * C;
+    const int nc = (k1 - k0) / 8;
+    if (p.kind == KA) {
+      const int d = sdil[l], size = (K - 1) * d, off = soff[l], now = sslot[l];
+      const T* cur_in = a.cur + ((size_t)(l & 1) * B + b0) * R;
+      for (int c = lane; c < nc; c += 32) {
+        const int k = k0 + 8 * c;
+        float* dst = xr + k - k0;
+        if (k < KR - R) {                        // tap block jb: x[t - (K-1-jb) d]
+          if (!pre) continue;
+          const int jb = k / R, r = k - jb * R, j = K - 1 - jb;
+          const int slot = now - j * d < 0 ? now - j * d + size : now - j * d;
+          rows8<true, false, T>(a.ring + ((size_t)(off + slot) * B + b0) * R + r,
+                                R, nb, dst, xw);
+        } else if (k < KR) {
+          if (post) rows8<true, false, T>(cur_in + k - (KR - R), R, nb, dst, xw);
+        } else if (pre) {
+          rows8<false, false, T>(lc_t + k - KR, C, nb, dst, xw);
+        }
+      }
+      if (Q8 && pre)
+        for (int k = k0 + lane; k < k1; k += 32) sc[k - k0] = __ldg(&a.s_a[(size_t)l * KRC + k]);
+    } else if (p.kind == KB) {
+      if (post) {
+        for (int c = lane; c < nc; c += 32)
+          rows8<true, false, T>(a.gated + (size_t)b0 * D + k0 + 8 * c, D, nb,
+                                xr + 8 * c, xw);
+        // layer 0's skip columns also read cur (the skip-start conv),
+        // staged after the slice, at column ns
+        if (l == 0 && job < S && k0 == 0)
+          for (int c = lane; c < R / 8; c += 32)
+            rows8<true, false, T>(a.cur + (size_t)b0 * R + 8 * c, R, nb,
+                                  xr + p.ns + 8 * c, xw);
+      }
+      if (Q8 && pre && job < S)
+        for (int k = k0 + lane; k < k1; k += 32) sc[k - k0] = __ldg(&a.s_s[(size_t)l * D + k]);
+    } else if (p.kind == KH1) {
+      for (int c = lane; c < nc; c += 32) {
+        const int k = k0 + 8 * c;
+        if (k < S) {
+          if (post)
+            rows8<true, true, T>(a.skip + (size_t)b0 * S + k, S, nb, xr + 8 * c, xw);
+        } else if (pre) {
+          rows8<false, false, T>(lc_t + k - S, C, nb, xr + 8 * c, xw);
+        }
+      }
+    } else {
+      if (post)
+        for (int c = lane; c < nc; c += 32)
+          rows8<true, false, T>(a.h1 + (size_t)b0 * S + k0 + 8 * c, S, nb,
+                                xr + 8 * c, xw);
+    }
+  };
+
+  // the epilogue's operands of column job, batch row b: biases, condition
+  // terms, and (B) the skip sum or the layer input it adds to
+  auto ep_load = [&](const Phase& p, int job, int b, float (&e)[4]) {
+    const int l = p.l;
+    if (p.kind == KA) {
+      const T* gc = a.gcon + ((size_t)l * B + b) * 2 * D;
+      e[0] = to_f(a.b_a[(size_t)l * 2 * D + job]);
+      e[1] = to_f(gc[job]);
+      e[2] = to_f(a.b_a[(size_t)l * 2 * D + D + job]);
+      e[3] = to_f(gc[D + job]);
+    } else if (p.kind == KB) {
+      e[0] = to_f(a.b_sr[(size_t)l * SR + job]);
+      if (job < S)
+        e[1] = l == 0 ? to_f(a.b_ss[job]) : ld_cg(&a.skip[(size_t)b * S + job]);
+      else
+        e[1] = ld_cg(&a.cur[((size_t)(l & 1) * B + b) * R + job - S]);
+    } else if (p.kind == KH1) {
+      e[0] = to_f(a.b_h1[job]);
+      e[1] = to_f(a.g_pp1[(size_t)b * S + job]);
+    } else {
+      e[0] = to_f(a.b_pp2[job]);
+    }
+  };
+  // the column's epilogue for batch row b on its sums v0 (and v1, the
+  // gate pair's second row) and its operands e
+  auto epilogue = [&](const Phase& p, int t, int job, int b,
+                      float v0, float v1, const float (&e)[4]) {
+    const int l = p.l;
+    if (p.kind == KA) {
+      const float p0 = v0 + e[0] + e[1];
+      const float p1 = v1 + e[2] + e[3];
+      const float g = a.sigmoid_first ? sigmoidf_(p0) * tanhf(p1)
+                                      : tanhf(p0) * sigmoidf_(p1);
+      a.gated[(size_t)b * D + job] = from_f<T>(g);
+    } else if (p.kind == KB) {
+      const float out = v0 + e[0];
+      if (job < S) {
+        a.skip[(size_t)b * S + job] = e[1] + out;
+      } else {
+        const int r = job - S;
+        T* cur_out = a.cur + (size_t)((l + 1) & 1) * B * R;
+        a.ring[((size_t)(soff[l] + sslot[l]) * B + b) * R + r] = from_f<T>(e[1]);
+        cur_out[(size_t)b * R + r] = from_f<T>(e[1] + out);
+      }
+    } else if (p.kind == KH1) {
+      a.h1[(size_t)b * S + job] = from_f<T>(fmaxf(v0 + e[0] + e[1], 0.f));
+    } else {
+      const float v = v0 + e[0];
+      a.logits[(size_t)b * Q + job] = v;
+      if (a.logits_out) a.logits_out[((size_t)t * B + b) * Q + job] = v;
+    }
+  };
+
+  // One dot phase: every round of items, every pass of BCH batch rows.
+  // Round 0's weights are in wr, its pass 0's pre inputs staged and its
+  // epilogue operands in ep.
+  auto run = [&](const Phase& p, int t, unsigned long long* st) {
+    const int jr = p.tab[2];
+    const int rounds = p.tab[4];
+    for (int rd = 0; rd < rounds; ++rd) {
+      int job = 0, k0 = 0, k1 = 0;
+      const bool mine = item(p, rd, job, k0, k1);
+      if (rd > 0) do_prefetch(p, rd);
       for (int b0 = 0; b0 < B; b0 += BCH) {
         const int nb = min(BCH, B - b0);
-        for (int i = tid; i < nb * PK; i += NT) {
-          const int bb = i / PK, p = i - bb * PK;
-          const int s = t - (PK - 1) + p;
-          float u = 0.f;
-          if (s >= 0) u = mu_encode(ld_cg(&a.inputs[(size_t)s * B + b0 + bb]), mu, log1p_mu);
-          xs[bb * xw + p] = to_f(from_f<T>(u));
+        const bool first = rd == 0 && b0 == 0;
+        if (mine) {
+          stage(p, t, job, k0, k1, b0, nb, !first, true);
+          __syncwarp();
         }
-        __syncthreads();
-        if (st && b0 == 0) st[EV_STAGED] = gtime();
-        for (int r = job0; r < R; r += TW) {
-          warp_dot(a.w_pre + (size_t)r * PK, xs, xw, 0, PK, nb, lane, acc,
-                   nullptr, b0 == 0 && r == job0 ? st : nullptr);
-          if (lane == 0) {
-            const float bias = to_f(a.b_pre[r]);
+        if (st && first) st[EV_STAGED] = gtime();
+        unsigned long long* sw = st && first ? st : nullptr;
+        if (mine) {
+          float acc[2][BCH];
+          if (p.kind == KA) {
+            slice_dot<W, 2>({row_w(p, job, 0), row_w(p, job, 1)}, k0,
+                            k1 - k0, wr, xr, xw, nb, Q8 ? sc : nullptr, lane,
+                            acc, sw);
+          } else {
+            float a1[1][BCH];
+            if (is_q8(p, job))
+              slice_dot<W, 1>({row_w(p, job, 0)}, k0, k1 - k0, wr, xr, xw,
+                              nb, sc, lane, a1, sw);
+            else
+              slice_dot<T, 1>({row_t(p, job)}, k0, k1 - k0, wr, xr, xw,
+                              nb, nullptr, lane, a1, sw);
 #pragma unroll
-            for (int bb = 0; bb < BCH; ++bb)
-              if (bb < nb) a.cur[(size_t)(b0 + bb) * R + r] = from_f<T>(acc[bb] + bias);
-          }
-        }
-        __syncthreads();
-      }
-    }
-    grid_sync(a.barrier, target, st);
-
-    for (int l = 0; l < L; ++l) {
-      const int d = a.dil[l], size = (K - 1) * d, off = a.ring_off[l];
-      const T* cur_in = a.cur + (size_t)(l & 1) * B * R;
-      T* cur_out = a.cur + (size_t)((l + 1) & 1) * B * R;
-
-      // ---- A: gate columns
-      st = stamp_at(t, 1 + 2 * l);
-      if (blk < D) {
-        for (int b0 = 0; b0 < B; b0 += BCH) {
-          const int nb = min(BCH, B - b0);
-          for (int i = tid; i < nb * KRC; i += NT) {
-            const int bb = i / KRC, k = i - bb * KRC, b = b0 + bb;
-            float v;
-            if (k < KR - R) {                    // tap block jb sees x[t - (K-1-jb) d]
-              const int jb = k / R, r = k - jb * R, j = K - 1 - jb;
-              const int slot = (t - j * d + j * size) % size;
-              v = ld_cg(&a.ring[((size_t)(off + slot) * B + b) * R + r]);
-            } else if (k < KR) {
-              v = ld_cg(&cur_in[(size_t)b * R + k - (KR - R)]);
-            } else {
-              v = to_f(lc_t[(size_t)b * C + k - KR]);
-            }
-            xs[bb * xw + k] = v;
-          }
-          if constexpr (Q8)
-            for (int k = tid; k < KRC; k += NT) sc[k] = __ldg(&a.s_a[(size_t)l * KRC + k]);
-          __syncthreads();
-          if (st && b0 == 0) st[EV_STAGED] = gtime();
-          for (int j = job0; j < D; j += TW) {
-            const W* w0 = a.w_a + ((size_t)l * 2 * D + j) * KRC;
-            const W* rows[2] = {w0, w0 + (size_t)D * KRC};
-            float pair[2][BCH];
-            warp_dots<W, 2>(rows, xs, xw, 0, KRC, nb, lane, pair, sc,
-                            b0 == 0 && j == job0 ? st : nullptr);
+            for (int bb = 0; bb < BCH; ++bb) acc[0][bb] = a1[0][bb];
+            if (p.kind == KB) {
+              if (p.l == 0 && job < S && k0 == 0) {
+                // the skip-start conv, on cur staged at column ns
+                constexpr int VT = Vec16<T>::N;
+                const T* wss = a.w_ss + (size_t)job * R;
 #pragma unroll
-            for (int bb = 0; bb < BCH; ++bb) { acc[bb] = pair[0][bb]; acc2[bb] = pair[1][bb]; }
-            if (lane == 0) {
-              const float bias0 = to_f(a.b_a[(size_t)l * 2 * D + j]);
-              const float bias1 = to_f(a.b_a[(size_t)l * 2 * D + D + j]);
-#pragma unroll
-              for (int bb = 0; bb < BCH; ++bb)
-                if (bb < nb) {
-                  const T* gc = a.gcon + ((size_t)l * B + b0 + bb) * 2 * D;
-                  const float p0 = acc[bb] + bias0 + to_f(gc[j]);
-                  const float p1 = acc2[bb] + bias1 + to_f(gc[D + j]);
-                  const float g = a.sigmoid_first ? sigmoidf_(p0) * tanhf(p1)
-                                                  : tanhf(p0) * sigmoidf_(p1);
-                  a.gated[(size_t)(b0 + bb) * D + j] = from_f<T>(g);
+                for (int bb = 0; bb < BCH; ++bb) a1[0][bb] = 0.f;
+                for (int v = lane; v < R / VT; v += 32) {
+                  const uint4 wv[1] = {ld_weights(wss + v * VT)};
+                  fma_vec<T, 1>(wv, xr + p.ns + v * VT, xw, nb, nullptr, a1);
                 }
-            }
-          }
-          __syncthreads();
-        }
-      }
-      grid_sync(a.barrier, target, st);
-
-      // ---- B: [skip | res] columns, ring push, residual update
-      st = stamp_at(t, 2 + 2 * l);
-      if (blk < SR) {
-        const int nbw = (l == 0) ? D + R : D;    // layer 0 also stages cur for skip start
-        for (int b0 = 0; b0 < B; b0 += BCH) {
-          const int nb = min(BCH, B - b0);
-          for (int i = tid; i < nb * nbw; i += NT) {
-            const int bb = i / nbw, k = i - bb * nbw, b = b0 + bb;
-            xs[bb * xw + k] = k < D ? ld_cg(&a.gated[(size_t)b * D + k])
-                                    : ld_cg(&cur_in[(size_t)b * R + k - D]);
-          }
-          if constexpr (Q8)
-            for (int k = tid; k < D; k += NT) sc[k] = __ldg(&a.s_s[(size_t)l * D + k]);
-          __syncthreads();
-          if (st && b0 == 0) st[EV_STAGED] = gtime();
-          for (int c = job0; c < SR; c += TW) {
-            unsigned long long* sw = b0 == 0 && c == job0 ? st : nullptr;
-            if constexpr (Q8) {                  // int8 skip half, bf16 res half
-              if (c < S)
-                warp_dot(a.w_sr + ((size_t)l * S + c) * D, xs, xw, 0, D, nb, lane, acc, sc, sw);
-              else
-                warp_dot(a.w_r + ((size_t)l * R + c - S) * D, xs, xw, 0, D, nb, lane, acc,
-                         nullptr, sw);
-            } else {
-              warp_dot(a.w_sr + ((size_t)l * SR + c) * D, xs, xw, 0, D, nb, lane, acc,
-                       nullptr, sw);
-            }
-            const bool start = (l == 0) && (c < S);
-            if (start) warp_dot(a.w_ss + (size_t)c * R, xs, xw, D, R, nb, lane, acc2);
-            if (lane == 0) {
-              const float bias = to_f(a.b_sr[(size_t)l * SR + c]);
 #pragma unroll
-              for (int bb = 0; bb < BCH; ++bb)
-                if (bb < nb) {
-                  const int b = b0 + bb;
-                  const float out = acc[bb] + bias;
-                  if (c < S) {
-                    float* sp = &a.skip[(size_t)b * S + c];
-                    const float base = start ? acc2[bb] + to_f(a.b_ss[c]) : ld_cg(sp);
-                    *sp = base + out;
-                  } else {
-                    const int r = c - S;
-                    const float xin = ld_cg(&cur_in[(size_t)b * R + r]);
-                    a.ring[((size_t)(off + t % size) * B + b) * R + r] = from_f<T>(xin);
-                    cur_out[(size_t)b * R + r] = from_f<T>(xin + out);
-                  }
-                }
-            }
-          }
-          __syncthreads();
-        }
-      }
-      grid_sync(a.barrier, target, st);
-    }
-
-    // ---- H1: postprocess1 on [relu(skip) | lc_t]
-    st = stamp_at(t, 2 * L + 1);
-    if (blk < S) {
-      const int n = S + C;
-      for (int b0 = 0; b0 < B; b0 += BCH) {
-        const int nb = min(BCH, B - b0);
-        for (int i = tid; i < nb * n; i += NT) {
-          const int bb = i / n, k = i - bb * n, b = b0 + bb;
-          xs[bb * xw + k] = k < S
-              ? to_f(from_f<T>(fmaxf(ld_cg(&a.skip[(size_t)b * S + k]), 0.f)))
-              : to_f(lc_t[(size_t)b * C + k - S]);
-        }
-        __syncthreads();
-        if (st && b0 == 0) st[EV_STAGED] = gtime();
-        for (int c = job0; c < S; c += TW) {
-          warp_dot(a.w_h1 + (size_t)c * n, xs, xw, 0, n, nb, lane, acc,
-                   nullptr, b0 == 0 && c == job0 ? st : nullptr);
-          if (lane == 0) {
-            const float bias = to_f(a.b_h1[c]);
-#pragma unroll
-            for (int bb = 0; bb < BCH; ++bb)
-              if (bb < nb) {
-                const int b = b0 + bb;
-                const float v = acc[bb] + bias + to_f(a.g_pp1[(size_t)b * S + c]);
-                a.h1[(size_t)b * S + c] = from_f<T>(fmaxf(v, 0.f));
+                for (int bb = 0; bb < BCH; ++bb)
+                  if (bb < nb) acc[0][bb] += warp_sum(a1[0][bb]);
               }
+            }
           }
-        }
-        __syncthreads();
-      }
-    }
-    grid_sync(a.barrier, target, st);
-
-    // ---- H2: postprocess2 -> logits
-    st = stamp_at(t, 2 * L + 2);
-    if (blk < Q) {
-      for (int b0 = 0; b0 < B; b0 += BCH) {
-        const int nb = min(BCH, B - b0);
-        for (int i = tid; i < nb * S; i += NT) {
-          const int bb = i / S, k = i - bb * S;
-          xs[bb * xw + k] = ld_cg(&a.h1[(size_t)(b0 + bb) * S + k]);
-        }
-        __syncthreads();
-        if (st && b0 == 0) st[EV_STAGED] = gtime();
-        for (int q = job0; q < Q; q += TW) {
-          warp_dot(a.w_pp2 + (size_t)q * S, xs, xw, 0, S, nb, lane, acc,
-                   nullptr, b0 == 0 && q == job0 ? st : nullptr);
           if (lane == 0) {
-            const float bias = to_f(a.b_pp2[q]);
 #pragma unroll
-            for (int bb = 0; bb < BCH; ++bb)
-              if (bb < nb) {
-                const int b = b0 + bb;
-                const float v = acc[bb] + bias;
-                a.logits[(size_t)b * Q + q] = v;
-                if (a.logits_out) a.logits_out[((size_t)t * B + b) * Q + q] = v;
-              }
+            for (int bb = 0; bb < BCH; ++bb) {
+              part[(warp * 2) * BCH + bb] = acc[0][bb];
+              if (p.kind == KA) part[(warp * 2 + 1) * BCH + bb] = acc[1][bb];
+            }
+          }
+        }
+        __syncthreads();
+        // the slices of a column meet in slice order
+        if (tid < jr * BCH) {
+          const int ul = tid / BCH, bb = tid % BCH, u = rd * jr + ul;
+          if (u < njobs(p) && bb < nb) {
+            float v0 = 0.f, v1 = 0.f;
+            for (int s = 0; s < p.P; ++s) {
+              v0 += part[((ul * p.P + s) * 2) * BCH + bb];
+              if (p.kind == KA) v1 += part[((ul * p.P + s) * 2 + 1) * BCH + bb];
+            }
+            const int job_u = blk + u * G;
+            if (!first) ep_load(p, job_u, b0 + bb, ep);
+            epilogue(p, t, job_u, b0 + bb, v0, v1, ep);
           }
         }
         __syncthreads();
       }
     }
-    grid_sync(a.barrier, target, st);
+  };
 
-    // ---- S: sampling (block 0); lowest index wins ties
-    st = stamp_at(t, 2 * L + 3);
-    if (blk == 0) {
-      float* rv = xs;
-      int* ri = reinterpret_cast<int*>(xs + NW);
-      for (int b = 0; b < B; ++b) {
-        float best = -INFINITY;
-        int bi = Q;
-        for (int q = tid; q < Q; q += NT) {
-          float v = ld_cg(&a.logits[(size_t)b * Q + q]);
-          if (a.sample) v += gumbel(a.seed, t, b, q);
-          if (v > best || (v == best && q < bi)) { best = v; bi = q; }
+  // between arrive and wait: the next phase's weights, pre inputs and
+  // epilogue operands
+  auto ahead = [&](const Phase& p, int t) {
+    do_prefetch(p, 0);
+    int job, k0, k1;
+    const int nb = min(BCH, B);
+    if (item(p, 0, job, k0, k1))
+      stage(p, t, job, k0, k1, 0, nb, true, false);
+    const int jr = p.tab[2];
+    if (tid < jr * BCH) {
+      const int u = tid / BCH, bb = tid % BCH;
+      if (u < njobs(p) && bb < nb) ep_load(p, blk + u * G, bb, ep);
+    }
+  };
+
+  // step t's bins from its logits, in every block (the same values
+  // everywhere; block 0 writes them): xin[b] = the decoded sample
+  auto select = [&](int t) {
+    for (int b = warp; b < B; b += NW) {
+      float best = -INFINITY;
+      int bi = Q;
+      for (int q0 = 0; q0 < Q; q0 += 32 * 8) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int q = q0 + lane + 32 * i;
+          v[i] = q < Q ? ld_cg(&a.logits[(size_t)b * Q + q]) : -INFINITY;
         }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, best, o);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-          if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+        for (int i = 0; i < 8; ++i) {
+          const int q = q0 + lane + 32 * i;
+          if (q < Q) {
+            const float x = a.sample ? v[i] + gumbel(a.seed, t, b, q) : v[i];
+            if (x > best || (x == best && q < bi)) { best = x; bi = q; }
+          }
         }
-        if (lane == 0) { rv[warp] = best; ri[warp] = bi; }
-        __syncthreads();
-        if (tid == 0) {
-          for (int w = 1; w < NW; ++w)
-            if (rv[w] > best || (rv[w] == best && ri[w] < bi)) { best = rv[w]; bi = ri[w]; }
-          if (bi >= Q) bi = 0;                   // all logits NaN
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+      }
+      if (lane == 0) {
+        if (bi >= Q) bi = 0;                     // all logits NaN
+        xin[b] = mu_decode(bi, mu);
+        if (blk == 0) {
           a.bins[(size_t)t * B + b] = bi;
-          if (!a.forced) a.inputs[(size_t)(t + 1) * B + b] = mu_decode(bi, mu);
+          if (!a.forced) a.inputs[(size_t)(t + 1) * B + b] = xin[b];
         }
-        __syncthreads();
       }
     }
-    if (t + 1 < a.length) grid_sync(a.barrier, target, st);
+  };
+  // the preprocess window value of thread i (pass 0) at step t, but the
+  // newest sample of a free-running step (xin, from select)
+  auto window_x = [&](int t, int i) {
+    const int bb = i / PK, s = t - (PK - 1) + (i - bb * PK);
+    if (s < 0 || bb >= min(BCH, B)) return 0.f;
+    if (s == t && t > 0 && !a.forced) return 0.f;
+    return ld_cg(&a.inputs[(size_t)s * B + bb]);
+  };
+  // between arrive and wait before step t: the preprocess conv's weights
+  // (warp's column blk + warp * G) and bias, and the window's known inputs
+  auto ahead_sp = [&](int t) {
+    const int r = blk + warp * G;
+    constexpr int VT = Vec16<T>::N;
+    if (r < R) {
+      if (lane < PK / VT) wr[0][0] = ld_weights(a.w_pre + (size_t)r * PK + lane * VT);
+      ep[0] = to_f(a.b_pre[r]);
+    }
+    if (tid < BCH * PK) winx = window_x(t, tid);
+  };
+
+  ahead_sp(0);
+  for (int t = 0; t < a.length; ++t) {
+    lct = a.lc + (size_t)(t / a.ratio) * B * C;
+    for (int l = tid; l < L; l += NT) sslot[l] = t % ((K - 1) * sdil[l]);
+    // ---- SP: the bins of step t-1, then the preprocess conv -> cur[0]
+    unsigned long long* st = stamp_at(t, 0);
+    if (t > 0) select(t - 1);
+    __syncthreads();
+    constexpr int VT = Vec16<T>::N;
+    for (int b0 = 0; b0 < B; b0 += BCH) {
+      const int nb = min(BCH, B - b0);
+      for (int i = tid; i < nb * PK; i += NT) {
+        const int bb = i / PK, pp = i - bb * PK;
+        const int s = t - (PK - 1) + pp, b = b0 + bb;
+        float u = 0.f;
+        if (s >= 0) {
+          float x;
+          if (s == t && t > 0 && !a.forced) x = xin[b];
+          else if (b0 == 0 && i == tid) x = winx;
+          else x = ld_cg(&a.inputs[(size_t)s * B + b]);
+          u = mu_encode(x, mu, log1p_mu);
+        }
+        win[bb * PK + pp] = to_f(from_f<T>(u));
+      }
+      __syncthreads();
+      if (st && b0 == 0) st[EV_STAGED] = gtime();
+      for (int r = blk + warp * G; r < R; r += G * NW) {
+        const bool first = b0 == 0 && r == blk + warp * G;
+        float acc[1][BCH];
+#pragma unroll
+        for (int bb = 0; bb < BCH; ++bb) acc[0][bb] = 0.f;
+        for (int v = lane; v < PK / VT; v += 32) {
+          const uint4 wv[1] = {first && v == lane
+                                   ? wr[0][0]
+                                   : ld_weights(a.w_pre + (size_t)r * PK + v * VT)};
+          fma_vec<T, 1>(wv, win + v * VT, PK, nb, nullptr, acc);
+        }
+        const float bias = first ? ep[0] : to_f(a.b_pre[r]);
+#pragma unroll
+        for (int bb = 0; bb < BCH; ++bb)
+          if (bb < nb) {
+            const float v = warp_sum(acc[0][bb]);
+            if (lane == 0) a.cur[(size_t)(b0 + bb) * R + r] = from_f<T>(v + bias);
+          }
+      }
+      __syncthreads();
+    }
+    arrive(st);
+    ahead(describe(0), t);
+    wait(st);
+
+    // ---- layer l's A and B, then H1 and H2: phase ph + 1 of the sample
+    for (int ph = 0; ph < 2 * L + 2; ++ph) {
+      st = stamp_at(t, ph + 1);
+      run(describe(ph), t, st);
+      arrive(st);
+      if (ph + 1 < 2 * L + 2) ahead(describe(ph + 1), t);
+      else if (t + 1 < a.length) ahead_sp(t + 1);
+      wait(st);
+    }
   }
+  select(a.length - 1);                          // the last step's bins
 }
 
 template <typename T, typename W, bool ST>
 int launch(Args<T, W> a, cudaStream_t stream) {
-  const int KRC = a.K * a.R + a.C;
-  int xw = KRC;
-  xw = xw > a.D + a.R ? xw : a.D + a.R;
-  xw = xw > a.S + a.C ? xw : a.S + a.C;
-  xw = xw > a.PK ? xw : a.PK;
-  xw = xw > 2 * NW ? xw : 2 * NW;
-  xw = (xw + 7) / 8 * 8;                 // 16-byte aligned staging rows
-  a.xw = xw;
-  const size_t smem = sizeof(float) * (size_t)(BCH + (sizeof(W) == 1)) * xw;
-  cudaError_t e = cudaFuncSetAttribute(
-      gen_kernel<T, W, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
+  a.xw = region_pitch(a.K, a.R, a.D, a.S, a.Q, a.C, sms);
+  const size_t smem = sizeof(float) * ((size_t)NW * (BCH + 1) * a.xw +
+                                       NW * 2 * BCH + BCH * a.PK + a.B +
+                                       4 * KT + 3 * a.L);
+  e = cudaFuncSetAttribute(gen_kernel<T, W, ST>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gen_kernel<T, W, ST>, NT, smem);
   if (e != cudaSuccess) return (int)e;
-  // one block per SM: more co-resident blocks measured faster than fewer
-  // (16..132 blocks, PERF.md), and the launch needs every block resident
+  // one block per SM: the launch needs every block resident
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = sms;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)gen_kernel<T, W, ST>, dim3(grid), dim3(NT),
+  e = cudaLaunchCooperativeKernel((const void*)gen_kernel<T, W, ST>, dim3(sms), dim3(NT),
                                   args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -665,7 +985,7 @@ extern "C" const char* vqw_error_string(int err) {
 // activations.  The weight pointers are in the order w_a b_a w_sr b_sr
 // w_pre b_pre w_ss b_ss w_h1 b_h1 w_pp2 b_pp2, then (int8 only, else null)
 // s_a s_s w_r.  stamps: null, or the stamped build's buffer of
-// st_n * (2L+4) * gridDim.x * 5 u64, zeroed (gen_wavenet_grid gives
+// st_n * (2L+3) * gridDim.x * 5 u64, zeroed (gen_wavenet_grid gives
 // gridDim.x), for samples st_lo .. st_lo + st_n - 1.
 extern "C" int gen_wavenet(
     int dtype, int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
@@ -686,13 +1006,13 @@ extern "C" int gen_wavenet(
                       skip, h1, logits, logits_out, bins, barrier, sample,
                       sigmoid_first, seed, stamps, st_lo, st_n, stream);
   if (dtype == 1)
-    return run<__nv_bfloat16, __nv_bfloat16>(
+    return run<bf16, bf16>(
         L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
         g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
         bins, barrier, sample, sigmoid_first, seed, stamps, st_lo, st_n,
         stream);
   if (dtype == 2)
-    return run<__nv_bfloat16, int8_t>(
+    return run<bf16, int8_t>(
         L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
         g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
         bins, barrier, sample, sigmoid_first, seed, stamps, st_lo, st_n,

@@ -427,10 +427,11 @@ def generate_clip_stamped(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
     """The kernel's stamped build (a measurement, not a path of the port):
     as ``generate_clip_cuda``, and also the globaltimer stamps (ns) of
     samples stamp_from .. stamp_from + stamp_samples - 1 as int64
-    [samples, 2L+4 phases, blocks, STAMP_EVENTS], 0 where an event did
-    not happen (thread 0 idle in that phase).  Phases: 0 the preprocess
-    conv, 1 + 2l / 2 + 2l layer l's gate and [skip | res] phases, 2L+1 and
-    2L+2 the two postprocess convs, 2L+3 the sampling."""
+    [samples, 2L+3 phases, blocks, STAMP_EVENTS], 0 where an event did
+    not happen (thread 0 idle in that phase).  Phases: 0 the sampling of
+    the previous step and the preprocess conv, 1 + 2l / 2 + 2l layer l's
+    gate and [skip | res] phases, 2L+1 and 2L+2 the two postprocess
+    convs."""
     return _launch(w, lc, gcon, g_pp1, length=length,
                    stamp=(stamp_from, stamp_samples), **kw)
 
@@ -524,7 +525,7 @@ def _launch(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *, length: int,
             raise ValueError(f"stamped samples {stamp} outside the clip")
         with torch.cuda.device(dev):
             grid = lib.gen_wavenet_grid()
-        stamps = torch.zeros((st_n, 2 * L + 4, grid, len(STAMP_EVENTS)),
+        stamps = torch.zeros((st_n, 2 * L + 3, grid, len(STAMP_EVENTS)),
                              dtype=torch.int64, device=dev)
     else:
         st_lo, st_n = 0, 0
