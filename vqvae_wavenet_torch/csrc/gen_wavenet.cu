@@ -134,7 +134,7 @@ __device__ __forceinline__ void st8(float* d, const float* o) {
   reinterpret_cast<float4*>(d)[1] = make_float4(o[4], o[5], o[6], o[7]);
 }
 
-constexpr int BCH = 2;           // batch rows staged per pass
+constexpr int BCH = 4;           // batch rows staged per pass
 
 // Stage 8 values of nb batch rows (src + bb * stride) as float at dst +
 // bb * xw: every row's load issued before the first store, so the rows
@@ -156,113 +156,6 @@ __device__ __forceinline__ void rows8(const S* src, size_t stride, int nb,
     }
 }
 
-// stamped build: events of one phase in one block.  Thread 0 writes START
-// (the phase begins), DONE (its epilogue's outputs are written) and EXIT
-// (the next phase's loads are issued); lane 0 of the warp holding the last
-// slice of the block's first column writes FIRST (its first poll of the
-// phase's inputs has returned), STAGED (every input it reads has arrived)
-// and WEIGHTS (its first prefetched weight vector is in a register).  The
-// first staging pass of a phase only.
-enum Ev { EV_START, EV_FIRST, EV_STAGED, EV_WEIGHTS, EV_DONE, EV_EXIT, NEV };
-
-__device__ __forceinline__ unsigned long long gtime() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");
-  return t;
-}
-
-// Values that cross blocks travel with the number of the phase that wrote
-// them: one 64-bit word, tag << 32 | float bits, written and read whole, so
-// a reader that sees the tag it expects sees the value too.
-__device__ __forceinline__ void st_tag(unsigned long long* p, float v,
-                                       unsigned tag) {
-  const unsigned long long w =
-      (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(v);
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w)
-               : "memory");
-}
-__device__ __forceinline__ unsigned long long ld_word(const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(p)
-               : "memory");
-  return w;
-}
-__device__ __forceinline__ float word_value(unsigned long long w) {
-  return __uint_as_float(static_cast<unsigned>(w));
-}
-__device__ __forceinline__ unsigned word_tag(unsigned long long w) {
-  return static_cast<unsigned>(w >> 32);
-}
-// A spin of ~2^34 cycles (seconds, where a real wait is microseconds) on a
-// value that never comes is a bug: trap, so the launch fails instead of
-// hanging the card.
-__device__ __forceinline__ void spin_check(long long t0) {
-  if (clock64() - t0 > (1LL << 34)) __trap();
-}
-// one tagged value, polled until it carries tag
-__device__ __forceinline__ float ld_tagged(const unsigned long long* p,
-                                           unsigned tag) {
-  const long long t0 = clock64();
-  unsigned long long w = ld_word(p);
-  while (word_tag(w) != tag) {
-    spin_check(t0);
-    __nanosleep(128);
-    w = ld_word(p);
-  }
-  return word_value(w);
-}
-
-// Stage 8 tagged values of nb batch rows (src + bb * stride) as float at
-// dst + bb * xw, polling until every one carries tag: all rows' loads are
-// issued before the first check, so the rows share each round trip.
-// RELU: relu, then round to T (the skip sum).  first: when non-null, gets
-// the time the first round returned (stamped build).
-template <bool RELU, typename T>
-__device__ __forceinline__ void rows8_tagged(const unsigned long long* src,
-                                             size_t stride, int nb,
-                                             unsigned tag, float* dst, int xw,
-                                             unsigned long long* first) {
-  unsigned long long w[BCH][8];
-  const long long t0 = clock64();
-  for (bool go = true; go;) {
-#pragma unroll
-    for (int bb = 0; bb < BCH; ++bb)
-      if (bb < nb)
-#pragma unroll
-        for (int i = 0; i < 8; i += 2)
-          asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
-                       : "=l"(w[bb][i]), "=l"(w[bb][i + 1])
-                       : "l"(src + bb * stride + i)
-                       : "memory");
-    bool ok = true;
-#pragma unroll
-    for (int bb = 0; bb < BCH; ++bb)
-      if (bb < nb)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) ok &= word_tag(w[bb][i]) == tag;
-    if (first) {
-      *first = gtime();
-      first = nullptr;
-    }
-    go = !ok;
-    if (go) {
-      spin_check(t0);
-      __nanosleep(128);
-    }
-  }
-#pragma unroll
-  for (int bb = 0; bb < BCH; ++bb)
-    if (bb < nb) {
-      float v[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        v[i] = word_value(w[bb][i]);
-        if (RELU) v[i] = to_f(from_f<T>(fmaxf(v[i], 0.f)));
-      }
-      st8(dst + bb * xw, v);
-    }
-}
-
 // T: the activation type; W: the type of w_a and w_sr (T, or int8_t)
 template <typename T, typename W>
 struct Args {
@@ -279,22 +172,32 @@ struct Args {
   const T* g_pp1;          // [B, S]
   float* inputs;           // [length + 1, B] input sample per step
   int forced;              // inputs given (teacher forcing): never written
-  // tagged words (value rounded to T where T rounds, see st_tag), zeroed
-  unsigned long long* ring;    // [sum (K-1) d_l, B, R], tag: step + 1
-  unsigned long long* cur;     // [2, B, R]
-  unsigned long long* gated;   // [B, D]
-  unsigned long long* skip;    // [B, S] (f32 sums)
-  unsigned long long* h1;      // [B, S]
-  unsigned long long* logits;  // [B, Q]
+  T* ring;                 // [sum (K-1) d_l, B, R], zeroed
+  T* cur;                  // [2, B, R]
+  T* gated;                // [B, D]
+  float* skip;             // [B, S]
+  T* h1;                   // [B, S]
+  float* logits;           // [B, Q]
   float* logits_out;       // [length, B, Q] or null
   int* bins;               // [length, B]
+  unsigned long long* barrier;  // zeroed arrival counter
   int sample, sigmoid_first;
   unsigned long long seed;
   // stamped build only: globaltimer stamps [st_n samples from st_lo][2L+3
-  // phases][gridDim.x blocks][NEV events]
+  // phases][gridDim.x blocks][NEV events], written by thread 0 of a block
   unsigned long long* stamps;
   int st_lo, st_n;
 };
+
+// stamped build: events of one phase in one block (thread 0's view, the
+// first staging pass of a phase)
+enum Ev { EV_START, EV_STAGED, EV_WEIGHTS, EV_DONE, EV_EXIT, NEV };
+
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");
+  return t;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -533,18 +436,17 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
   const int L = a.L, K = a.K, R = a.R, D = a.D, S = a.S, Q = a.Q, C = a.C,
             PK = a.PK, B = a.B, xw = a.xw;
   const int KR = K * R, KRC = K * R + C, SR = S + R;
-  const int NPH = 2 * L + 3;                     // phases per sample
   // shared memory: per warp [BCH rows][xw] staged inputs and [xw] int8
-  // scales; the slices' partial sums [2 (phase parity)][NW][2][BCH]; the
-  // preprocess window [BCH][PK]; the decoded inputs of the last PK steps
-  // [B][PK]; the kinds' plans [4][KT]; the dilations, ring offsets and
-  // this step's ring slots t % ((K-1) d_l) [L] each
+  // scales; the slices' partial sums [NW][2][BCH]; the preprocess window
+  // [BCH][PK]; the decoded inputs of the step [B]; the kinds' plans
+  // [4][KT]; the dilations, ring offsets and this step's ring slots
+  // t % ((K-1) d_l) [L] each
   float* xr = smem + warp * (BCH + 1) * xw;      // this warp's region
   float* sc = xr + BCH * xw;
-  float* parts = smem + NW * (BCH + 1) * xw;
-  float* win = parts + 2 * NW * 2 * BCH;
-  float* hist = win + BCH * PK;
-  int* ktab = reinterpret_cast<int*>(hist + B * PK);
+  float* part = smem + NW * (BCH + 1) * xw;
+  float* win = part + NW * 2 * BCH;
+  float* xin = win + BCH * PK;
+  int* ktab = reinterpret_cast<int*>(xin + B);
   int* sdil = ktab + 4 * KT;
   int* soff = sdil + L;
   int* sslot = soff + L;
@@ -567,21 +469,47 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     sdil[i] = a.dil[i];
     soff[i] = a.ring_off[i];
   }
-  for (int i = tid; i < B * PK; i += NT) hist[i] = 0.f;
   __syncthreads();
   const float mu = (float)(Q - 1);
   const float log1p_mu = (float)log1p((double)mu);
-  uint4 wr[2][MAXV];     // the next phase's weights, loaded ahead
+  unsigned long long target = 0;
+  uint4 wr[2][MAXV];     // the next phase's weights, loaded before its barrier
   float ep[4];           // this thread's epilogue operands of the next phase
+  float winx = 0.f;      // this thread's preprocess input of the next step
   const T* lct = a.lc;   // lc of the current step
-  // the tag of phase ph of step t (0: SP, 1 + 2l / 2 + 2l: layer l's A / B,
-  // 2L+1: H1, 2L+2: H2); 0 is never a tag
-  auto tag_of = [&](int t, int ph) { return (unsigned)(t * NPH + ph + 1); };
 
-  auto stamp_row = [&](int t, int ph) -> unsigned long long* {
+  auto stamp_at = [&](int t, int ph) -> unsigned long long* {
     const int ts = t - a.st_lo;
-    if (!ST || ts < 0 || ts >= a.st_n) return nullptr;
-    return a.stamps + (((size_t)ts * NPH + ph) * G + blk) * NEV;
+    if (!ST || tid != 0 || ts < 0 || ts >= a.st_n) return nullptr;
+    unsigned long long* p =
+        a.stamps + (((size_t)ts * (2 * L + 3) + ph) * G + blk) * NEV;
+    p[EV_START] = gtime();
+    return p;
+  };
+  // the grid barrier in two halves: arrive when the phase's writes are
+  // done, wait when the next phase needs them; between the two a block
+  // loads what the next phase needs that does not depend on them
+  auto arrive = [&](unsigned long long* st) {
+    target += G;
+    __syncthreads();
+    if (tid == 0) {
+      if (st) st[EV_DONE] = gtime();
+      asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(a.barrier)
+                   : "memory");
+    }
+  };
+  auto wait = [&](unsigned long long* st) {
+    if (tid == 0) {
+      unsigned long long v;
+      const long long t0 = clock64();
+      do {
+        asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                     : "=l"(v) : "l"(a.barrier) : "memory");
+        if (clock64() - t0 > (1LL << 34)) __trap();
+      } while (v < target);
+      if (st) st[EV_EXIT] = gtime();
+    }
+    __syncthreads();
   };
 
   // phase ph of a sample after SP: 2l = layer l's A, 2l+1 its B, 2L H1,
@@ -645,21 +573,17 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
       prefetch<T, 1>({row_t(p, job)}, k0, k1 - k0, lane, wr);
   };
 
-  // Stage x[bb][k - k0] for k in [k0, k1) and the batch rows b0 + bb < B
-  // of phase p of step t: pre = the inputs that do not depend on the
-  // previous phase (ring taps, lc, int8 scales), post = the rest, polled
-  // until they carry the previous phase's tag.
-  auto stage = [&](const Phase& p, int t, int job, int k0, int k1, int b0,
-                   int nb, bool pre, bool post, unsigned long long* first) {
+  // Stage x[bb][k - k0] for k in [k0, k1) and the batch rows b0 + bb < B:
+  // pre = the inputs that do not depend on the previous phase (ring taps,
+  // lc, int8 scales), post = the rest.
+  auto stage = [&](const Phase& p, int t, int job, int k0, int k1,
+                   int b0, int nb, bool pre, bool post) {
     const int l = p.l;
     const T* lc_t = lct + (size_t)b0 * C;
     const int nc = (k1 - k0) / 8;
-    const int ph = p.kind == KA || p.kind == KB ? 1 + 2 * l + (p.kind == KB)
-                                                : 2 * L + 1 + (p.kind == KH2);
-    const unsigned prev = tag_of(t, ph - 1);     // the inputs' producer
     if (p.kind == KA) {
       const int d = sdil[l], size = (K - 1) * d, off = soff[l], now = sslot[l];
-      const unsigned long long* cur_in = a.cur + ((size_t)(l & 1) * B + b0) * R;
+      const T* cur_in = a.cur + ((size_t)(l & 1) * B + b0) * R;
       for (int c = lane; c < nc; c += 32) {
         const int k = k0 + 8 * c;
         float* dst = xr + k - k0;
@@ -667,13 +591,10 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
           if (!pre) continue;
           const int jb = k / R, r = k - jb * R, j = K - 1 - jb;
           const int slot = now - j * d < 0 ? now - j * d + size : now - j * d;
-          const int s = t - j * d;               // the step that wrote it
-          rows8_tagged<false, T>(a.ring + ((size_t)(off + slot) * B + b0) * R + r,
-                                 R, nb, s >= 0 ? s + 1 : 0, dst, xw, nullptr);
+          rows8<true, false, T>(a.ring + ((size_t)(off + slot) * B + b0) * R + r,
+                                R, nb, dst, xw);
         } else if (k < KR) {
-          if (post)
-            rows8_tagged<false, T>(cur_in + k - (KR - R), R, nb, prev, dst, xw,
-                                   c == lane ? first : nullptr);
+          if (post) rows8<true, false, T>(cur_in + k - (KR - R), R, nb, dst, xw);
         } else if (pre) {
           rows8<false, false, T>(lc_t + k - KR, C, nb, dst, xw);
         }
@@ -683,14 +604,14 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     } else if (p.kind == KB) {
       if (post) {
         for (int c = lane; c < nc; c += 32)
-          rows8_tagged<false, T>(a.gated + (size_t)b0 * D + k0 + 8 * c, D, nb,
-                                 prev, xr + 8 * c, xw, c == lane ? first : nullptr);
+          rows8<true, false, T>(a.gated + (size_t)b0 * D + k0 + 8 * c, D, nb,
+                                xr + 8 * c, xw);
         // layer 0's skip columns also read cur (the skip-start conv),
         // staged after the slice, at column ns
         if (l == 0 && job < S && k0 == 0)
           for (int c = lane; c < R / 8; c += 32)
-            rows8_tagged<false, T>(a.cur + (size_t)b0 * R + 8 * c, R, nb,
-                                   tag_of(t, 0), xr + p.ns + 8 * c, xw, nullptr);
+            rows8<true, false, T>(a.cur + (size_t)b0 * R + 8 * c, R, nb,
+                                  xr + p.ns + 8 * c, xw);
       }
       if (Q8 && pre && job < S)
         for (int k = k0 + lane; k < k1; k += 32) sc[k - k0] = __ldg(&a.s_s[(size_t)l * D + k]);
@@ -699,8 +620,7 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
         const int k = k0 + 8 * c;
         if (k < S) {
           if (post)
-            rows8_tagged<true, T>(a.skip + (size_t)b0 * S + k, S, nb, prev,
-                                  xr + 8 * c, xw, c == lane ? first : nullptr);
+            rows8<true, true, T>(a.skip + (size_t)b0 * S + k, S, nb, xr + 8 * c, xw);
         } else if (pre) {
           rows8<false, false, T>(lc_t + k - S, C, nb, xr + 8 * c, xw);
         }
@@ -708,14 +628,14 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     } else {
       if (post)
         for (int c = lane; c < nc; c += 32)
-          rows8_tagged<false, T>(a.h1 + (size_t)b0 * S + k0 + 8 * c, S, nb,
-                                 prev, xr + 8 * c, xw, c == lane ? first : nullptr);
+          rows8<true, false, T>(a.h1 + (size_t)b0 * S + k0 + 8 * c, S, nb,
+                                xr + 8 * c, xw);
     }
   };
 
   // the epilogue's operands of column job, batch row b: biases, condition
   // terms, and (B) the skip sum or the layer input it adds to
-  auto ep_load = [&](const Phase& p, int t, int job, int b, float (&e)[4]) {
+  auto ep_load = [&](const Phase& p, int job, int b, float (&e)[4]) {
     const int l = p.l;
     if (p.kind == KA) {
       const T* gc = a.gcon + ((size_t)l * B + b) * 2 * D;
@@ -725,14 +645,10 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
       e[3] = to_f(gc[D + job]);
     } else if (p.kind == KB) {
       e[0] = to_f(a.b_sr[(size_t)l * SR + job]);
-      if (job < S)          // this thread's own sum of the previous layer
-        e[1] = l == 0 ? to_f(a.b_ss[job]) : word_value(ld_word(&a.skip[(size_t)b * S + job]));
-      else {                // the layer input: SP's (l = 0) or B(l-1)'s,
-                            // checked in the epilogue
-        const unsigned long long w = ld_word(&a.cur[((size_t)(l & 1) * B + b) * R + job - S]);
-        e[1] = word_value(w);
-        e[2] = __uint_as_float(word_tag(w));
-      }
+      if (job < S)
+        e[1] = l == 0 ? to_f(a.b_ss[job]) : ld_cg(&a.skip[(size_t)b * S + job]);
+      else
+        e[1] = ld_cg(&a.cur[((size_t)(l & 1) * B + b) * R + job - S]);
     } else if (p.kind == KH1) {
       e[0] = to_f(a.b_h1[job]);
       e[1] = to_f(a.g_pp1[(size_t)b * S + job]);
@@ -741,49 +657,41 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     }
   };
   // the column's epilogue for batch row b on its sums v0 (and v1, the
-  // gate pair's second row) and its operands e; outputs carry tag g
-  auto epilogue = [&](const Phase& p, int t, unsigned g, int job, int b,
+  // gate pair's second row) and its operands e
+  auto epilogue = [&](const Phase& p, int t, int job, int b,
                       float v0, float v1, const float (&e)[4]) {
     const int l = p.l;
     if (p.kind == KA) {
       const float p0 = v0 + e[0] + e[1];
       const float p1 = v1 + e[2] + e[3];
-      const float gt = a.sigmoid_first ? sigmoidf_(p0) * tanhf(p1)
-                                       : tanhf(p0) * sigmoidf_(p1);
-      st_tag(&a.gated[(size_t)b * D + job], to_f(from_f<T>(gt)), g);
+      const float g = a.sigmoid_first ? sigmoidf_(p0) * tanhf(p1)
+                                      : tanhf(p0) * sigmoidf_(p1);
+      a.gated[(size_t)b * D + job] = from_f<T>(g);
     } else if (p.kind == KB) {
       const float out = v0 + e[0];
       if (job < S) {
-        st_tag(&a.skip[(size_t)b * S + job], e[1] + out, g);
+        a.skip[(size_t)b * S + job] = e[1] + out;
       } else {
         const int r = job - S;
-        const unsigned want = tag_of(t, 2 * l);
-        const float x = __float_as_uint(e[2]) == want
-            ? e[1] : ld_tagged(&a.cur[((size_t)(l & 1) * B + b) * R + r], want);
-        st_tag(&a.ring[((size_t)(soff[l] + sslot[l]) * B + b) * R + r],
-               to_f(from_f<T>(x)), (unsigned)t + 1);
-        st_tag(&a.cur[((size_t)((l + 1) & 1) * B + b) * R + r],
-               to_f(from_f<T>(x + out)), g);
+        T* cur_out = a.cur + (size_t)((l + 1) & 1) * B * R;
+        a.ring[((size_t)(soff[l] + sslot[l]) * B + b) * R + r] = from_f<T>(e[1]);
+        cur_out[(size_t)b * R + r] = from_f<T>(e[1] + out);
       }
     } else if (p.kind == KH1) {
-      st_tag(&a.h1[(size_t)b * S + job], to_f(from_f<T>(fmaxf(v0 + e[0] + e[1], 0.f))), g);
+      a.h1[(size_t)b * S + job] = from_f<T>(fmaxf(v0 + e[0] + e[1], 0.f));
     } else {
       const float v = v0 + e[0];
-      st_tag(&a.logits[(size_t)b * Q + job], v, g);
+      a.logits[(size_t)b * Q + job] = v;
       if (a.logits_out) a.logits_out[((size_t)t * B + b) * Q + job] = v;
     }
   };
 
-  // One dot phase (sample phase ph): every round of items, every pass of
-  // BCH batch rows.  Round 0's weights are in wr, its pass 0's pre inputs
-  // staged and its epilogue operands in ep.
-  auto run = [&](const Phase& p, int t, int ph, unsigned long long* st) {
+  // One dot phase: every round of items, every pass of BCH batch rows.
+  // Round 0's weights are in wr, its pass 0's pre inputs staged and its
+  // epilogue operands in ep.
+  auto run = [&](const Phase& p, int t, unsigned long long* st) {
     const int jr = p.tab[2];
     const int rounds = p.tab[4];
-    const unsigned g = tag_of(t, ph);
-    float* part = parts + (ph & 1) * NW * 2 * BCH;
-    // the stamped build's staging warp: the last slice of the first column
-    unsigned long long* sw0 = st && warp == p.P - 1 && lane == 0 ? st : nullptr;
     for (int rd = 0; rd < rounds; ++rd) {
       int job = 0, k0 = 0, k1 = 0;
       const bool mine = item(p, rd, job, k0, k1);
@@ -791,15 +699,13 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
       for (int b0 = 0; b0 < B; b0 += BCH) {
         const int nb = min(BCH, B - b0);
         const bool first = rd == 0 && b0 == 0;
-        unsigned long long* sw = first ? sw0 : nullptr;
         if (mine) {
-          stage(p, t, job, k0, k1, b0, nb, !first, true,
-                sw ? sw + EV_FIRST : nullptr);
+          stage(p, t, job, k0, k1, b0, nb, !first, true);
           __syncwarp();
-          if (sw) {
-            if (sw[EV_FIRST] == 0) sw[EV_FIRST] = gtime();
-            sw[EV_STAGED] = gtime();
-          }
+        }
+        if (st && first) st[EV_STAGED] = gtime();
+        unsigned long long* sw = st && first ? st : nullptr;
+        if (mine) {
           float acc[2][BCH];
           if (p.kind == KA) {
             slice_dot<W, 2>({row_w(p, job, 0), row_w(p, job, 1)}, k0,
@@ -815,19 +721,21 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
                               nb, nullptr, lane, a1, sw);
 #pragma unroll
             for (int bb = 0; bb < BCH; ++bb) acc[0][bb] = a1[0][bb];
-            if (p.kind == KB && p.l == 0 && job < S && k0 == 0) {
-              // the skip-start conv, on cur staged at column ns
-              constexpr int VT = Vec16<T>::N;
-              const T* wss = a.w_ss + (size_t)job * R;
+            if (p.kind == KB) {
+              if (p.l == 0 && job < S && k0 == 0) {
+                // the skip-start conv, on cur staged at column ns
+                constexpr int VT = Vec16<T>::N;
+                const T* wss = a.w_ss + (size_t)job * R;
 #pragma unroll
-              for (int bb = 0; bb < BCH; ++bb) a1[0][bb] = 0.f;
-              for (int v = lane; v < R / VT; v += 32) {
-                const uint4 wv[1] = {ld_weights(wss + v * VT)};
-                fma_vec<T, 1>(wv, xr + p.ns + v * VT, xw, nb, nullptr, a1);
+                for (int bb = 0; bb < BCH; ++bb) a1[0][bb] = 0.f;
+                for (int v = lane; v < R / VT; v += 32) {
+                  const uint4 wv[1] = {ld_weights(wss + v * VT)};
+                  fma_vec<T, 1>(wv, xr + p.ns + v * VT, xw, nb, nullptr, a1);
+                }
+#pragma unroll
+                for (int bb = 0; bb < BCH; ++bb)
+                  if (bb < nb) acc[0][bb] += warp_sum(a1[0][bb]);
               }
-#pragma unroll
-              for (int bb = 0; bb < BCH; ++bb)
-                if (bb < nb) acc[0][bb] += warp_sum(a1[0][bb]);
             }
           }
           if (lane == 0) {
@@ -849,66 +757,48 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
               if (p.kind == KA) v1 += part[((ul * p.P + s) * 2 + 1) * BCH + bb];
             }
             const int job_u = blk + u * G;
-            if (!first) ep_load(p, t, job_u, b0 + bb, ep);
-            epilogue(p, t, g, job_u, b0 + bb, v0, v1, ep);
+            if (!first) ep_load(p, job_u, b0 + bb, ep);
+            epilogue(p, t, job_u, b0 + bb, v0, v1, ep);
           }
         }
-        // a later pass or round writes part again: wait for its readers
-        if (rd + 1 < rounds || b0 + BCH < B) __syncthreads();
+        __syncthreads();
       }
     }
   };
 
-  // the next phase's weights, pre inputs and epilogue operands
+  // between arrive and wait: the next phase's weights, pre inputs and
+  // epilogue operands
   auto ahead = [&](const Phase& p, int t) {
+    do_prefetch(p, 0);
+    int job, k0, k1;
     const int nb = min(BCH, B);
+    if (item(p, 0, job, k0, k1))
+      stage(p, t, job, k0, k1, 0, nb, true, false);
     const int jr = p.tab[2];
     if (tid < jr * BCH) {
       const int u = tid / BCH, bb = tid % BCH;
-      if (u < njobs(p) && bb < nb) ep_load(p, t, blk + u * G, bb, ep);
+      if (u < njobs(p) && bb < nb) ep_load(p, blk + u * G, bb, ep);
     }
-    do_prefetch(p, 0);
-    int job, k0, k1;
-    if (item(p, 0, job, k0, k1))
-      stage(p, t, job, k0, k1, 0, nb, true, false, nullptr);
   };
 
   // step t's bins from its logits, in every block (the same values
-  // everywhere; block 0 writes them): hist[b][(t+1) % PK] = the decoded
-  // sample, the input of step t+1
-  auto select = [&](int t, unsigned long long* first) {
-    const unsigned tag = tag_of(t, NPH - 1);
+  // everywhere; block 0 writes them): xin[b] = the decoded sample
+  auto select = [&](int t) {
     for (int b = warp; b < B; b += NW) {
       float best = -INFINITY;
       int bi = Q;
       for (int q0 = 0; q0 < Q; q0 += 32 * 8) {
-        unsigned long long w[8];
-        const long long t0 = clock64();
-        for (bool go = true; go;) {
-          bool ok = true;
+        float v[8];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int q = q0 + lane + 32 * i;
-            w[i] = q < Q ? ld_word(&a.logits[(size_t)b * Q + q]) : 0ull;
-          }
-#pragma unroll
-          for (int i = 0; i < 8; ++i) ok &= q0 + lane + 32 * i >= Q || word_tag(w[i]) == tag;
-          if (first && lane == 0) {
-            *first = gtime();
-            first = nullptr;
-          }
-          go = !__all_sync(0xffffffffu, ok);
-          if (go) {
-            spin_check(t0);
-            __nanosleep(128);
-          }
+        for (int i = 0; i < 8; ++i) {
+          const int q = q0 + lane + 32 * i;
+          v[i] = q < Q ? ld_cg(&a.logits[(size_t)b * Q + q]) : -INFINITY;
         }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int q = q0 + lane + 32 * i;
           if (q < Q) {
-            const float v = word_value(w[i]);
-            const float x = a.sample ? v + gumbel(a.seed, t, b, q) : v;
+            const float x = a.sample ? v[i] + gumbel(a.seed, t, b, q) : v[i];
             if (x > best || (x == best && q < bi)) { best = x; bi = q; }
           }
         }
@@ -921,26 +811,42 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
       }
       if (lane == 0) {
         if (bi >= Q) bi = 0;                     // all logits NaN
-        const float x = mu_decode(bi, mu);
-        hist[b * PK + (t + 1) % PK] = x;
+        xin[b] = mu_decode(bi, mu);
         if (blk == 0) {
           a.bins[(size_t)t * B + b] = bi;
-          if (!a.forced) a.inputs[(size_t)(t + 1) * B + b] = x;
+          if (!a.forced) a.inputs[(size_t)(t + 1) * B + b] = xin[b];
         }
       }
     }
   };
+  // the preprocess window value of thread i (pass 0) at step t, but the
+  // newest sample of a free-running step (xin, from select)
+  auto window_x = [&](int t, int i) {
+    const int bb = i / PK, s = t - (PK - 1) + (i - bb * PK);
+    if (s < 0 || bb >= min(BCH, B)) return 0.f;
+    if (s == t && t > 0 && !a.forced) return 0.f;
+    return ld_cg(&a.inputs[(size_t)s * B + bb]);
+  };
+  // between arrive and wait before step t: the preprocess conv's weights
+  // (warp's column blk + warp * G) and bias, and the window's known inputs
+  auto ahead_sp = [&](int t) {
+    const int r = blk + warp * G;
+    constexpr int VT = Vec16<T>::N;
+    if (r < R) {
+      if (lane < PK / VT) wr[0][0] = ld_weights(a.w_pre + (size_t)r * PK + lane * VT);
+      ep[0] = to_f(a.b_pre[r]);
+    }
+    if (tid < BCH * PK) winx = window_x(t, tid);
+  };
 
+  ahead_sp(0);
   for (int t = 0; t < a.length; ++t) {
     lct = a.lc + (size_t)(t / a.ratio) * B * C;
     for (int l = tid; l < L; l += NT) sslot[l] = t % ((K - 1) * sdil[l]);
     // ---- SP: the bins of step t-1, then the preprocess conv -> cur[0]
-    unsigned long long* st = stamp_row(t, 0);
-    if (st && tid == 0) st[EV_START] = gtime();
-    if (t > 0) select(t - 1, st && tid == 0 ? st + EV_FIRST : nullptr);
+    unsigned long long* st = stamp_at(t, 0);
+    if (t > 0) select(t - 1);
     __syncthreads();
-    if (st && tid == 0) st[EV_STAGED] = gtime();
-    const unsigned g0 = tag_of(t, 0);
     constexpr int VT = Vec16<T>::N;
     for (int b0 = 0; b0 < B; b0 += BCH) {
       const int nb = min(BCH, B - b0);
@@ -949,47 +855,52 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
         const int s = t - (PK - 1) + pp, b = b0 + bb;
         float u = 0.f;
         if (s >= 0) {
-          const float x = a.forced ? a.inputs[(size_t)s * B + b] : hist[b * PK + s % PK];
+          float x;
+          if (s == t && t > 0 && !a.forced) x = xin[b];
+          else if (b0 == 0 && i == tid) x = winx;
+          else x = ld_cg(&a.inputs[(size_t)s * B + b]);
           u = mu_encode(x, mu, log1p_mu);
         }
         win[bb * PK + pp] = to_f(from_f<T>(u));
       }
       __syncthreads();
+      if (st && b0 == 0) st[EV_STAGED] = gtime();
       for (int r = blk + warp * G; r < R; r += G * NW) {
+        const bool first = b0 == 0 && r == blk + warp * G;
         float acc[1][BCH];
 #pragma unroll
         for (int bb = 0; bb < BCH; ++bb) acc[0][bb] = 0.f;
         for (int v = lane; v < PK / VT; v += 32) {
-          const uint4 wv[1] = {ld_weights(a.w_pre + (size_t)r * PK + v * VT)};
+          const uint4 wv[1] = {first && v == lane
+                                   ? wr[0][0]
+                                   : ld_weights(a.w_pre + (size_t)r * PK + v * VT)};
           fma_vec<T, 1>(wv, win + v * VT, PK, nb, nullptr, acc);
         }
-        const float bias = to_f(a.b_pre[r]);
+        const float bias = first ? ep[0] : to_f(a.b_pre[r]);
 #pragma unroll
         for (int bb = 0; bb < BCH; ++bb)
           if (bb < nb) {
             const float v = warp_sum(acc[0][bb]);
-            if (lane == 0)
-              st_tag(&a.cur[(size_t)(b0 + bb) * R + r], to_f(from_f<T>(v + bias)), g0);
+            if (lane == 0) a.cur[(size_t)(b0 + bb) * R + r] = from_f<T>(v + bias);
           }
       }
       __syncthreads();
     }
-    if (st && tid == 0) st[EV_DONE] = gtime();
+    arrive(st);
     ahead(describe(0), t);
-    if (st && tid == 0) st[EV_EXIT] = gtime();
+    wait(st);
 
     // ---- layer l's A and B, then H1 and H2: phase ph + 1 of the sample
     for (int ph = 0; ph < 2 * L + 2; ++ph) {
-      st = stamp_row(t, ph + 1);
-      if (st && tid == 0) st[EV_START] = gtime();
-      run(describe(ph), t, ph + 1, st);
-      if (st && tid == 0) st[EV_DONE] = gtime();
+      st = stamp_at(t, ph + 1);
+      run(describe(ph), t, st);
+      arrive(st);
       if (ph + 1 < 2 * L + 2) ahead(describe(ph + 1), t);
-      if (st && tid == 0) st[EV_EXIT] = gtime();
+      else if (t + 1 < a.length) ahead_sp(t + 1);
+      wait(st);
     }
-    __syncthreads();              // hist, sslot and lct of the next step
   }
-  select(a.length - 1, nullptr);                 // the last step's bins
+  select(a.length - 1);                          // the last step's bins
 }
 
 template <typename T, typename W, bool ST>
@@ -1002,8 +913,8 @@ int launch(Args<T, W> a, cudaStream_t stream) {
   if (!coop) return (int)cudaErrorNotSupported;
   a.xw = region_pitch(a.K, a.R, a.D, a.S, a.Q, a.C, sms);
   const size_t smem = sizeof(float) * ((size_t)NW * (BCH + 1) * a.xw +
-                                       2 * NW * 2 * BCH + BCH * a.PK +
-                                       (size_t)a.B * a.PK + 4 * KT + 3 * a.L);
+                                       NW * 2 * BCH + BCH * a.PK + a.B +
+                                       4 * KT + 3 * a.L);
   e = cudaFuncSetAttribute(gen_kernel<T, W, ST>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1024,7 +935,7 @@ int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
         const void* const* w, const void* lc, const void* gcon,
         const void* g_pp1, void* inputs, int forced, void* ring, void* cur,
         void* gated, void* skip, void* h1, void* logits, void* logits_out,
-        void* bins, int sample, int sigmoid_first,
+        void* bins, void* barrier, int sample, int sigmoid_first,
         unsigned long long seed, void* stamps, int st_lo, int st_n,
         void* stream) {
   Args<T, W> a;
@@ -1045,14 +956,15 @@ int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
   a.g_pp1 = static_cast<const T*>(g_pp1);
   a.inputs = static_cast<float*>(inputs);
   a.forced = forced;
-  a.ring = static_cast<unsigned long long*>(ring);
-  a.cur = static_cast<unsigned long long*>(cur);
-  a.gated = static_cast<unsigned long long*>(gated);
-  a.skip = static_cast<unsigned long long*>(skip);
-  a.h1 = static_cast<unsigned long long*>(h1);
-  a.logits = static_cast<unsigned long long*>(logits);
+  a.ring = static_cast<T*>(ring);
+  a.cur = static_cast<T*>(cur);
+  a.gated = static_cast<T*>(gated);
+  a.skip = static_cast<float*>(skip);
+  a.h1 = static_cast<T*>(h1);
+  a.logits = static_cast<float*>(logits);
   a.logits_out = static_cast<float*>(logits_out);
   a.bins = static_cast<int*>(bins);
+  a.barrier = static_cast<unsigned long long*>(barrier);
   a.sample = sample;
   a.sigmoid_first = sigmoid_first;
   a.seed = seed;
@@ -1083,7 +995,7 @@ extern "C" int gen_wavenet(
     const void* w_h1, const void* b_h1, const void* w_pp2, const void* b_pp2,
     const void* s_a, const void* s_s, const void* w_r, const void* lc, const void* gcon, const void* g_pp1, void* inputs,
     int forced, void* ring, void* cur, void* gated, void* skip, void* h1,
-    void* logits, void* logits_out, void* bins, int sample,
+    void* logits, void* logits_out, void* bins, void* barrier, int sample,
     int sigmoid_first, unsigned long long seed, void* stamps, int st_lo,
     int st_n, void* stream) {
   const void* w[15] = {w_a, b_a, w_sr, b_sr, w_pre, b_pre, w_ss, b_ss,
@@ -1091,19 +1003,19 @@ extern "C" int gen_wavenet(
   if (dtype == 0)
     return run<float, float>(L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off,
                       w, lc, gcon, g_pp1, inputs, forced, ring, cur, gated,
-                      skip, h1, logits, logits_out, bins, sample,
+                      skip, h1, logits, logits_out, bins, barrier, sample,
                       sigmoid_first, seed, stamps, st_lo, st_n, stream);
   if (dtype == 1)
     return run<bf16, bf16>(
         L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
         g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
-        bins, sample, sigmoid_first, seed, stamps, st_lo, st_n,
+        bins, barrier, sample, sigmoid_first, seed, stamps, st_lo, st_n,
         stream);
   if (dtype == 2)
     return run<bf16, int8_t>(
         L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
         g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
-        bins, sample, sigmoid_first, seed, stamps, st_lo, st_n,
+        bins, barrier, sample, sigmoid_first, seed, stamps, st_lo, st_n,
         stream);
   return (int)cudaErrorInvalidValue;
 }
