@@ -156,6 +156,53 @@ __device__ __forceinline__ void rows8(const S* src, size_t stride, int nb,
     }
 }
 
+// 16 bytes global -> shared without a register (cp.async, through L2);
+// cp_wait() waits for this thread's copies
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Start copying 8 values of nb batch rows (src + bb * stride): float rows
+// straight to their staging place dst + bb * xw, bfloat16 rows to raw +
+// bb * xw, converted by unraw8 once the copies have landed.
+__device__ __forceinline__ void rows8_async(const float* src, size_t stride,
+                                            int nb, float* dst, float*, int xw) {
+#pragma unroll
+  for (int bb = 0; bb < BCH; ++bb)
+    if (bb < nb) {
+      cp16(dst + bb * xw, src + bb * stride);
+      cp16(dst + bb * xw + 4, src + bb * stride + 4);
+    }
+}
+__device__ __forceinline__ void rows8_async(const bf16* src, size_t stride,
+                                            int nb, float*, bf16* raw, int xw) {
+#pragma unroll
+  for (int bb = 0; bb < BCH; ++bb)
+    if (bb < nb) cp16(raw + bb * xw, src + bb * stride);
+}
+__device__ __forceinline__ void unraw8(const float*, float*, int, int) {}
+__device__ __forceinline__ void unraw8(const bf16* raw, float* dst, int nb, int xw) {
+#pragma unroll
+  for (int bb = 0; bb < BCH; ++bb)
+    if (bb < nb) {
+      const uint4 v = *reinterpret_cast<const uint4*>(raw + bb * xw);
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
+      float o[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o[2 * i] = __uint_as_float(w[i] << 16);
+        o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+      st8(dst + bb * xw, o);
+    }
+}
+
 // T: the activation type; W: the type of w_a and w_sr (T, or int8_t)
 template <typename T, typename W>
 struct Args {
@@ -443,7 +490,10 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
   // t % ((K-1) d_l) [L] each
   float* xr = smem + warp * (BCH + 1) * xw;      // this warp's region
   float* sc = xr + BCH * xw;
-  float* part = smem + NW * (BCH + 1) * xw;
+  // bfloat16 inputs copied ahead of the barrier, raw [BCH][xw] per warp
+  constexpr int RAW = sizeof(T) == 2 ? NW * BCH / 2 : 0;   // x xw floats
+  T* xq = reinterpret_cast<T*>(smem + NW * (BCH + 1) * xw) + warp * BCH * xw;
+  float* part = smem + (NW * (BCH + 1) + RAW) * xw;
   float* win = part + NW * 2 * BCH;
   float* xin = win + BCH * PK;
   int* ktab = reinterpret_cast<int*>(xin + B);
@@ -591,16 +641,17 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
           if (!pre) continue;
           const int jb = k / R, r = k - jb * R, j = K - 1 - jb;
           const int slot = now - j * d < 0 ? now - j * d + size : now - j * d;
-          rows8<true, false, T>(a.ring + ((size_t)(off + slot) * B + b0) * R + r,
-                                R, nb, dst, xw);
+          rows8_async(a.ring + ((size_t)(off + slot) * B + b0) * R + r, R, nb,
+                      dst, xq + k - k0, xw);
         } else if (k < KR) {
           if (post) rows8<true, false, T>(cur_in + k - (KR - R), R, nb, dst, xw);
         } else if (pre) {
-          rows8<false, false, T>(lc_t + k - KR, C, nb, dst, xw);
+          rows8_async(lc_t + k - KR, C, nb, dst, xq + k - k0, xw);
         }
       }
       if (Q8 && pre)
-        for (int k = k0 + lane; k < k1; k += 32) sc[k - k0] = __ldg(&a.s_a[(size_t)l * KRC + k]);
+        for (int q = lane; q < (k1 - k0) / 4; q += 32)
+          cp16(sc + 4 * q, a.s_a + (size_t)l * KRC + k0 + 4 * q);
     } else if (p.kind == KB) {
       if (post) {
         for (int c = lane; c < nc; c += 32)
@@ -614,7 +665,8 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
                                   xr + p.ns + 8 * c, xw);
       }
       if (Q8 && pre && job < S)
-        for (int k = k0 + lane; k < k1; k += 32) sc[k - k0] = __ldg(&a.s_s[(size_t)l * D + k]);
+        for (int q = lane; q < (k1 - k0) / 4; q += 32)
+          cp16(sc + 4 * q, a.s_s + (size_t)l * D + k0 + 4 * q);
     } else if (p.kind == KH1) {
       for (int c = lane; c < nc; c += 32) {
         const int k = k0 + 8 * c;
@@ -622,7 +674,7 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
           if (post)
             rows8<true, true, T>(a.skip + (size_t)b0 * S + k, S, nb, xr + 8 * c, xw);
         } else if (pre) {
-          rows8<false, false, T>(lc_t + k - S, C, nb, xr + 8 * c, xw);
+          rows8_async(lc_t + k - S, C, nb, xr + 8 * c, xq + 8 * c, xw);
         }
       }
     } else {
@@ -630,6 +682,20 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
         for (int c = lane; c < nc; c += 32)
           rows8<true, false, T>(a.h1 + (size_t)b0 * S + k0 + 8 * c, S, nb,
                                 xr + 8 * c, xw);
+    }
+  };
+
+  // after the barrier: wait for this lane's copies of the pre inputs and
+  // convert the bfloat16 ones
+  auto finish_pre = [&](const Phase& p, int k0, int k1, int nb) {
+    cp_wait();
+    if (sizeof(T) != 2) return;
+    const int nc = (k1 - k0) / 8;
+    for (int c = lane; c < nc; c += 32) {
+      const int k = k0 + 8 * c;
+      const bool pre = p.kind == KA ? (k < KR - R || k >= KR)
+                                    : p.kind == KH1 && k >= S;
+      if (pre) unraw8(xq + k - k0, xr + k - k0, nb, xw);
     }
   };
 
@@ -701,6 +767,7 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
         const bool first = rd == 0 && b0 == 0;
         if (mine) {
           stage(p, t, job, k0, k1, b0, nb, !first, true);
+          finish_pre(p, k0, k1, nb);
           __syncwarp();
         }
         if (st && first) st[EV_STAGED] = gtime();
@@ -912,7 +979,8 @@ int launch(Args<T, W> a, cudaStream_t stream) {
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
   a.xw = region_pitch(a.K, a.R, a.D, a.S, a.Q, a.C, sms);
-  const size_t smem = sizeof(float) * ((size_t)NW * (BCH + 1) * a.xw +
+  const int raw = sizeof(T) == 2 ? NW * BCH / 2 : 0;
+  const size_t smem = sizeof(float) * ((size_t)(NW * (BCH + 1) + raw) * a.xw +
                                        NW * 2 * BCH + BCH * a.PK + a.B +
                                        4 * KT + 3 * a.L);
   e = cudaFuncSetAttribute(gen_kernel<T, W, ST>,
