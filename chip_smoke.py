@@ -7,13 +7,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   1. device  torch/CUDA versions and the card's name and power limit;
   2. build   compile the six sources under vqvae_wavenet_torch/csrc with
              nvcc, one process each, all at once (ptxas registers/spills
-             of the training kernels are printed);
+             of the generation and training kernels are printed);
   3. vq      the VQ kernel against its plain twin at N = 384 (generation),
              832 (training: B=8 x 104 frames) and 65,536 (k = 512, d = 64);
   4. gen     the generation kernel against its plain twin at the shipped
              wavenet_parameters.json widths with C = 128: teacher-forced
              logits (f32 and bf16), a greedy f32 clip, and sample-mode
-             statistics at t = 0;
+             statistics at t = 0; times per sample at B=1 and B=3, and the
+             stamped build's per-phase breakdown at B=1 and B=3 (bf16);
   5. gen-int8  the generation kernel's int8-weight variant against its
              plain twin at the same widths: teacher-forced logits at B=3,
              sample-mode bins at t = 0 against the plain twin's Philox
@@ -58,8 +59,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              the one-launch dk kernel) against its plain twins and against
              the layer sweep on the same inputs, at B=8 x 6656, the
              shipped widths and the Magenta widths (50 layers, K=2), f32
-             and bf16; times beside the sweep's, the bounds, and a
-             torch.bmm yardstick for dk;
+             and bf16, dk twice on the same inputs bitwise equal, and dk
+             at a small ragged shape with a tap offset >= T; times beside
+             the sweep's, the bounds, and a torch.bmm yardstick for dk;
   14. magenta-train  vqvae_wavenet_torch.train -params
              magenta_parameters.json at -length 6656 -batch 8, six steps
              each in f32 and bf16 (the layer sweep) and in bf16 with

@@ -162,3 +162,8 @@ def test_kernel_wrapper_rejects_cpu_weights():
     with pytest.raises(ValueError, match="CUDA"):
         gen_kernels.generate_clip_cuda(w, torch.zeros((1, 4, 5)), gcon,
                                        g_pp1, length=8)
+    # the stamped build (a measurement of chip_smoke.py) refuses them too
+    with pytest.raises(ValueError, match="CUDA"):
+        gen_kernels.generate_clip_stamped(w, torch.zeros((1, 4, 5)), gcon,
+                                          g_pp1, length=8, stamp_from=0,
+                                          stamp_samples=4)

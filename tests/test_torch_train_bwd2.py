@@ -195,6 +195,49 @@ def test_dk_reads_zero_before_each_batch_row():
     assert float(dk[0, 1].abs().max()) == 1.0       # o = 0: the row itself
 
 
+def test_dk_twin_matches_jax_kernel_with_a_tap_past_t():
+    """The dk twin against the JAX package's dW kernel
+    (train_pallas._make_dk_kernel, interpret mode) at the edge the CUDA
+    kernel is held to on the card: dilation 40 at K=3 shifts tap 0 by 80
+    rows, more than T = 64, so that tap reads only zeros; three batch
+    rows.  f32 on both sides: within 1e-5 of the largest |dk|."""
+    from vqvae_wavenet_tpu.ops import train_pallas
+    L, K, R, D, B_, T = 2, 3, 8, 8, 3, 64
+    dils = (1, 40)
+    rng = np.random.default_rng(17)
+    dpre = rng.standard_normal((L, B_, T, 2 * D)).astype(np.float32)
+    xs = rng.standard_normal((L, B_, T, R)).astype(np.float32)
+    ref = np.asarray(train_pallas._make_dk_kernel(
+        L, K, R, D, 16, dils, B_, T, "f32", True)(jnp.asarray(dpre),
+                                                   jnp.asarray(xs)))
+    got = tk.stack_dk_plain(torch.from_numpy(dpre), torch.from_numpy(xs),
+                            dils, K).numpy()
+    assert got.shape == ref.shape == (L, K, R, 2 * D)
+    assert float(np.abs(got[1, 0]).max()) == 0.0
+    assert rel(got, ref) <= 1e-5
+
+
+def test_dk_twin_on_ragged_rows():
+    """T = 100 (not a multiple of a 64-row tile), three batch rows, tap
+    offsets 0, 37, 74 and 120 (> T): the twin against a float64 sum over
+    rows t >= o of each batch row."""
+    L, K, R, D2, B_, T = 2, 3, 8, 16, 3, 100
+    dils = (37, 60)
+    rng = np.random.default_rng(18)
+    dpre = rng.standard_normal((L, B_, T, D2))
+    xs = rng.standard_normal((L, B_, T, R))
+    ref = np.zeros((L, K, R, D2))
+    for l, d in enumerate(dils):
+        for j in range(K):
+            o = (K - 1 - j) * d
+            for t in range(o, T):
+                ref[l, j] += xs[l, :, t - o].T @ dpre[l, :, t]
+    got = tk.stack_dk_plain(torch.from_numpy(dpre).float(),
+                            torch.from_numpy(xs).float(), dils, K).numpy()
+    assert float(np.abs(got[1, 0]).max()) == 0.0
+    assert rel(got, ref) <= 1e-5
+
+
 @pytest.mark.parametrize("variant", ["start", "xout"])
 def test_sp_calls_take_the_sweep_under_off(off, variant):
     """As in JAX (train_pallas.py:1561-1566), a call with start > 0 or a

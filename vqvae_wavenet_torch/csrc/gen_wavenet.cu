@@ -26,34 +26,44 @@
 //   H2   postprocess2 -> f32 logits                                      barrier
 //
 // What bounds it on the H100: latency, not bytes or operations.  At B=1 a
-// sample is ~12 us of weight traffic at 3.35 TB/s if it came from HBM
-// (39 MB of bf16 weights mostly stay in the 50 MB L2) and ~0.1 us of
-// arithmetic, spread over 2L+3 dependent phases; each phase costs a grid
-// barrier (~1 us: one arrival counter in L2) plus the L2 round trips its
-// data needs.  The first version of this kernel spent 7 us in each gate
-// phase at B=1 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py [gen] stamps):
-// 1.9 staging activations element by element, 3.7 in dependent rounds of
-// weight loads on the ~2 warps per block that had a column, 1.4 in the
-// barrier.  This design takes each of those off the critical path:
+// sample is ~0.1 us of arithmetic and 40.6 MB of bf16 weights (12 us at
+// 3.35 TB/s if they came from HBM; they mostly stay in the 50 MB L2),
+// spread over 2L+3 dependent phases; each phase costs a grid barrier (one
+// arrival counter in L2: ~0.7-0.9 us from the last arrival to the first
+// exit) plus the L2 round trips its data needs.  The first version of this
+// kernel spent 7.0 us in each gate phase at B=1 (NVIDIA H100 80GB HBM3,
+// 700 W; chip_smoke.py [gen] stamps): 1.9 staging activations element by
+// element with a division each, 3.7 in dependent rounds of weight loads on
+// the ~2 warps per block that had a column, 1.4 in the barrier.  This
+// design takes each of those off the critical path:
 //
 // * Every warp works.  A phase's J output columns (A: column pairs) go to
 //   blocks first (column j -> block j % G), and each column's dot is cut
 //   into P slices of the input, P = 8 / (columns per block), one per warp;
 //   the slices' partial sums meet in shared memory and are added in slice
-//   order, so a run repeats bit for bit.  The assignment is static.
+//   order, so a run repeats bit for bit.  The assignment is static: each
+//   kind's plan and each warp's column and slice are computed once per
+//   launch into shared memory, as are the dilations, the ring offsets and
+//   each step's ring slots, so the phase loop does no integer division.
 // * Weights before the barrier.  Weights do not depend on the phase's
 //   data, so each warp loads its next slice's weights (<= MAXV 16-byte
-//   vectors per lane and row) into registers before it waits at the
-//   barrier; the loads land while it waits.
+//   vectors per lane and row) into registers between its arrival at the
+//   barrier and its wait; the loads land while it waits.
 // * Inputs that do not depend on the previous phase (the ring taps, which
-//   were written samples ago, lc_t, the int8 scales) are staged before the
-//   barrier too; after it a warp stages only the rest of its own slice,
-//   8 values per load, one round for all staged batch rows, with no
-//   division per element, and needs no block-wide sync before its products.
+//   were written samples ago, lc_t, the int8 scales) are copied in the
+//   same window with cp.async, which holds no register; after the barrier
+//   a warp stages only the rest of its own slice, 8 values per load, one
+//   round trip for all staged batch rows, and needs no block-wide sync
+//   before its products.
 // * The barrier is a release-add and an acquire-load poll of one counter
-//   (no __threadfence), and the sampling lives in the preprocess phase of
-//   every block: one barrier fewer per sample than a sampling phase of its
-//   own.
+//   (no __threadfence), split into arrive and wait around that window, and
+//   the sampling lives in the preprocess phase of every block: one barrier
+//   fewer per sample than a sampling phase of its own.
+// What remains per phase at B=1 is ~3.9 us: the barrier's propagation,
+// the L2 round trip of the phase's inputs after it, the slices' join and
+// the epilogue.  Polling the inputs themselves instead of a counter (each
+// value tagged with its phase) was measured slower: every output needs
+// every input, so each warp polls ~all producers, and the polls crowd L2.
 //
 // Data written by other blocks during the launch is read with ld.global.cg
 // (L2, not L1).  Every packed width (K*R+C, D, R, S, S+C, PK) is a multiple
@@ -61,7 +71,7 @@
 //
 // int8 variant (gen_pallas.py:104-159, 584-588): the gate weights w_a and
 // the skip half of [skip | res] are int8 with one scale per *input* index
-// (the JAX row scales of the transposed layout), staged beside the slice's
+// (the JAX row scales of the transposed layout), copied beside the slice's
 // activations; a 16-byte load carries 16 weights, each used as
 // bf16(float(q) * scale) -- the scale is a bf16 value, so the product is
 // exact in f32 and rounds once, as the plain twin and the TPU kernel's bf16

@@ -227,12 +227,11 @@ template <> struct Core<float> {
 
 // ---------------------------------------------------------------- kernel
 
-// One block's 128 x 128 tile at (m0, n0) over split ``split`` of the
-// reduction; gemm_kernel below maps the grid onto it, and a kernel with
-// its own grid (train_stack_bwd2.cu's all-layer dk) can call it directly.
+// One block's 128 x 128 tile: rows blockIdx.y * BM, columns blockIdx.x *
+// BN, split blockIdx.z of the reduction.
 template <typename T, bool A_K, bool B_K, class P>
-__device__ __forceinline__ void gemm_tile(const P p, int m0, int n0,
-                                          int split) {
+__global__ void __launch_bounds__(NT) gemm_kernel(const P p) {
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, split = blockIdx.z;
   __shared__ __align__(16) Tile<T> As[BM];
   __shared__ __align__(16) Tile<T> Bs[BN];
   const int kb = split * p.kchunk;
@@ -256,11 +255,6 @@ __device__ __forceinline__ void gemm_tile(const P p, int m0, int n0,
     const int m = m0 + r, n = n0 + c;
     if (m < p.M && n < p.N) p.epi(m, n, acc[2 * q], acc[2 * q + 1], split);
   }
-}
-
-template <typename T, bool A_K, bool B_K, class P>
-__global__ void __launch_bounds__(NT) gemm_kernel(const P p) {
-  gemm_tile<T, A_K, B_K>(p, blockIdx.y * BM, blockIdx.x * BN, blockIdx.z);
 }
 
 template <typename T, bool A_K, bool B_K, class P>

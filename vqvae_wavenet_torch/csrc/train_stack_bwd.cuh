@@ -8,7 +8,9 @@
 //            epilogue applies the gate derivative from the saved (f, g)
 //            and writes dpre = [da | db] [N, 2D]
 //   DskrsP   dsk|drs [D, S+R] = gated^T . [dskip | dX16] (split-K partials)
-//   DkP      dk [K*R, 2D] = sum_t xs[l][t - o_j]^T . dpre[t]  (split-K)
+//   DkP      dk [K*R, 2D] = sum_t xs[l][t - o_j]^T . dpre[t]  (split-K;
+//            the sweep's, per layer: train_stack_bwd2.cu's one-launch dk
+//            for every layer runs on hopper_gemm.cuh)
 //   DxP      dX += sum_j dpre[t + o_j] . W_j^T, and dX16 = T(dX)
 //   seed_dx  dX, dX16 at the start of the walk
 //

@@ -20,23 +20,42 @@
 //       :638): ONE launch for every layer and tap,
 //         dk[l, j] = sum_t xs[l][t - o_j]^T . dpre_all[l][t],
 //         o_j = (K-1-j) * d_l,
-//       a grid over (2D tile, K*R tile, layer x row split); the per-layer
-//       dilations come from a device array.  A row t - o_j < 0 of a batch
-//       row reads zero (the TPU kernel's zero-started history arena; here
-//       an index test, so no sum crosses into the previous batch row).
-//       The split partials are summed in a fixed order by a second pass
-//       (no float atomics), so runs repeat bit for bit.
+//       a grid over (2D tile, tap x channel tile, layer x row split) on
+//       hopper_gemm.cuh's mainloop; the per-layer dilations come from a
+//       device array.
 //
 // Rounding points are those of train_stack_bwd.cu (dX in f32, dX16 =
 // T(dX) feeds the products, dpre rounded to T, every gradient summed in
 // f32), so the two backwards compute one function; dx0 on exit is dX16.
 //
-// What bounds it on the H100: the products.  At B=8 x 6,656 the chain is
+// What bounds them on the H100: the products.  At B=8 x 6,656 the chain is
 // 2.51 TFLOP (shipped) / 3.49 (Magenta) and dk 1.26 / 1.40: ~2.5 + 1.3 ms
 // at the bf16 tensor-core peak, ~37 + 19 ms at the f32 FFMA peak.  dpre_all
 // is written once and read back once by dk (1.64 GB shipped in bf16, ~0.5
-// ms each way at 3.35 TB/s).  Like the sweep, this first version is a
-// plain tile loop (mma.sync, single-buffered) well below the bound.
+// ms each way at 3.35 TB/s).  The chain is a plain tile loop on
+// train_gemm.cuh (mma.sync, single-buffered), well below the bound.
+//
+// dk is a Hopper GEMM (hopper_gemm.cuh): a 4-stage ring of TMA loads
+// feeding two wgmma warpgroups (bf16, 128 x 256 x 64 tiles) or a 5-stage
+// ring feeding an FFMA core (f32, 128 x 128 x 32; wgmma has no f32
+// product and the TPU ran f32 at HIGHEST).  Both operands are MN-major as
+// they lie in memory (channels of xs, outputs of dpre contiguous), so no
+// thread transposes anything.  The tap shift is a TMA coordinate: the
+// tensor maps view xs and dpre_all as [L][B][T][width], a k-tile is 64
+// (f32: 32) rows of one batch row, and tap j's A box starts at row t0 -
+// o_j, so rows before 0 of that batch row (the causal head; a whole tap
+// when o_j >= T) and rows past T arrive as zeros from TMA, and nothing
+// crosses into the previous batch row: no index test in the mainloop.
+// Channel and output tiles past the width load zeros too and are masked
+// in the epilogue.  The rows of a layer are split in ceil(B*T / 12,288)
+// parts (5 at B=8 x 6,656): with 12 (shipped) or 8 (Magenta) output tiles
+// per layer that is 1,800 / 2,000 blocks of ~200 k-tiles, ~14 waves of one
+// block per SM, so the grid is not persistent; each split writes its f32
+// partial and a second pass sums the partials in a fixed order (no float
+// atomics), so runs repeat bit for bit.  NVIDIA H100 80GB HBM3, 700 W
+// (chip_smoke.py [train-bwd2]): bf16 ~590 TFLOP/s, 2.0 ms shipped against
+// 14.6 for the mma.sync tile loop it replaces; the 128 x 256 tile stages
+// 85 FLOP per byte from L2, which bounds it below the peak.
 //
 // C interface (ctypes): pointers and the stream as void*, returns
 // cudaGetLastError() of the first failing launch (0 on success).
