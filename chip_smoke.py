@@ -452,16 +452,13 @@ def _gen_breakdown(tag, gk, params, w, lcb, card, length: int = 2048,
                    lo: int = 512, n: int = 256):
     """Per-phase breakdown of the generation kernel from its stamped build
     (globaltimer stamps of samples lo .. lo+n-1 of a ``length``-sample
-    clip, means in us per phase of block 0): waiting for the phase's
-    inputs (the phase's start -> every input polled, i.e. the previous
-    phase's slowest producer plus one L2 round trip, and block 0's warp 0
-    staged), weight load (-> the first weight vector in a register; 0
-    when it landed before), arithmetic (-> the epilogue's outputs
-    written, with the slices' sums), and the next phase's loads issued
-    ahead (weights, inputs that do not depend on this phase, epilogue
-    operands); then how far the last block's outputs trail block 0's.
-    There is no grid barrier: a block polls the values it reads.  Returns
-    {phase group: {segment: us}} of block 0."""
+    clip, means in us per phase): for block 0 and for the last block to
+    reach the barrier, activation staging (phase start -> staged), weight
+    load (staged -> first weight vector in registers; 0 where it landed
+    before), arithmetic (-> every warp done, with later load rounds and
+    the writes) and barrier wait (done -> exit); and the barrier's
+    propagation, the last block's arrival to the first block's exit.
+    Returns {phase group: {segment: us}} of block 0."""
     L = w.dims[0]
     gcon, g_pp1 = gk.condition_terms(params, w, lcb.shape[0])
     _, _, st = gk.generate_clip_stamped(w, lcb, gcon, g_pp1, length=length,
@@ -473,24 +470,36 @@ def _gen_breakdown(tag, gk, params, w, lcb, card, length: int = 2048,
 
     def segments(e):                                    # e [..., 5]
         start, staged, wts, done, ex = e.unbind(-1)
-        wl = torch.where(wts > 0, wts - staged, torch.zeros_like(start))
-        return {"inputs": staged - start, "weights": wl,
-                "arithmetic": done - torch.maximum(staged, wts),
-                "ahead": ex - done, "phase": ex - start}
+        stg = torch.where(staged > 0, staged - start, torch.zeros_like(start))
+        after = torch.maximum(start, staged)
+        wl = torch.where(wts > 0, wts - after, torch.zeros_like(start))
+        ar = done - torch.maximum(after, wts)
+        return {"staging": stg, "weights": wl, "arithmetic": ar,
+                "barrier": ex - done, "phase": ex - start}
 
     wt = str(w.w_a.dtype).split(".")[-1]
     res = {}
     for name, phs in groups.items():
         sel = st[:, phs]                                # [n, p, G, 5]
         b0 = {k: float(v.mean()) for k, v in segments(sel[:, :, 0]).items()}
-        lag = float((sel[..., 3].amax(-1) - sel[:, :, 0, 3]).mean())
+        last_i = sel[..., 3].argmax(-1)                 # [n, p]
+        last = torch.gather(sel, 2, last_i[..., None, None].expand(
+            -1, -1, 1, 5))[:, :, 0]
+        lseg = {k: float(v.mean()) for k, v in segments(last).items()}
+        ex = sel[..., 4]
+        prop = float((torch.where(ex > 0, ex, torch.full_like(ex, 1e30))
+                      .amin(-1) - sel[..., 3].amax(-1)).mean())
+        late = float((last[..., 0] - sel[:, :, 0, 0]).mean())
         res[name] = b0
         log(f"[{tag}] stamps {wt} B={lcb.shape[0]} phase {name} (x{len(phs)} "
-            f"per sample), block 0: waiting for inputs {b0['inputs']:.2f} "
-            f"us, weights {b0['weights']:.2f}, arithmetic "
-            f"{b0['arithmetic']:.2f}, next phase's loads {b0['ahead']:.2f} "
-            f"(phase {b0['phase']:.2f}); the last block's outputs {lag:.2f} "
-            f"us after block 0's  ({card})")
+            f"per sample): block 0 staging {b0['staging']:.2f} us, weights "
+            f"{b0['weights']:.2f}, arithmetic {b0['arithmetic']:.2f}, barrier "
+            f"wait {b0['barrier']:.2f} (phase {b0['phase']:.2f}); last block "
+            f"to arrive (block {int(last_i.mode().values.mode().values)} most "
+            f"often; starts {late:.2f} us after block 0) staging "
+            f"{lseg['staging']:.2f}, weights {lseg['weights']:.2f}, "
+            f"arithmetic {lseg['arithmetic']:.2f}; barrier propagation "
+            f"{prop:.2f} us  ({card})")
     per_sample = sum(res[k]["phase"] * len(v) for k, v in groups.items())
     log(f"[{tag}] stamps {wt} B={lcb.shape[0]}: {per_sample:.1f} us per "
         f"sample in the stamped build (phases of block 0 summed)")

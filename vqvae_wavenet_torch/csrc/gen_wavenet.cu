@@ -230,14 +230,14 @@ struct Args {
   float* inputs;           // [length + 1, B] input sample per step
   int forced;              // inputs given (teacher forcing): never written
   T* ring;                 // [sum (K-1) d_l, B, R], zeroed
-  // tagged words (st_tag), zeroed: what one phase hands the next
-  unsigned long long* cur;     // [2, B, R]
-  unsigned long long* gated;   // [B, D]
-  unsigned long long* skip;    // [B, S] (f32 sums)
-  unsigned long long* h1;      // [B, S]
-  unsigned long long* logits;  // [B, Q]
+  T* cur;                  // [2, B, R]
+  T* gated;                // [B, D]
+  float* skip;             // [B, S]
+  T* h1;                   // [B, S]
+  float* logits;           // [B, Q]
   float* logits_out;       // [length, B, Q] or null
   int* bins;               // [length, B]
+  unsigned long long* barrier;  // zeroed arrival counter
   int sample, sigmoid_first;
   unsigned long long seed;
   // stamped build only: globaltimer stamps [st_n samples from st_lo][2L+3
@@ -254,64 +254,6 @@ __device__ __forceinline__ unsigned long long gtime() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");
   return t;
-}
-
-// A value one phase hands the next travels with the number of the phase
-// that wrote it: one 64-bit word, tag << 32 | float bits, written and read
-// whole, so a reader that sees the tag it expects sees the value too.
-// REL: a release store (orders the thread's earlier writes before it).
-template <bool REL = false>
-__device__ __forceinline__ void st_tag(unsigned long long* p, float v,
-                                       unsigned tag) {
-  const unsigned long long w =
-      (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(v);
-  if (REL)
-    asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w)
-                 : "memory");
-  else
-    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w)
-                 : "memory");
-}
-__device__ __forceinline__ unsigned word_tag(unsigned long long w) {
-  return static_cast<unsigned>(w >> 32);
-}
-__device__ __forceinline__ float word_value(unsigned long long w) {
-  return __uint_as_float(static_cast<unsigned>(w));
-}
-// A spin of ~2^34 cycles (seconds, where a real wait is microseconds) on a
-// value that never comes is a bug: trap, so the launch fails instead of
-// hanging the card.
-__device__ __forceinline__ void spin_check(long long t0) {
-  if (clock64() - t0 > (1LL << 34)) __trap();
-}
-// two adjacent tagged values (16-byte aligned), polled until both carry
-// tag; relaxed loads (the caller fences once for all its polls)
-__device__ __forceinline__ void poll2(const unsigned long long* p,
-                                      unsigned tag, float& v0, float& v1) {
-  unsigned long long w0, w1;
-  const long long t0 = clock64();
-  for (;;) {
-    asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
-                 : "=l"(w0), "=l"(w1) : "l"(p) : "memory");
-    if (word_tag(w0) == tag && word_tag(w1) == tag) break;
-    spin_check(t0);
-  }
-  v0 = word_value(w0);
-  v1 = word_value(w1);
-}
-
-// Copy 8 staged floats of nb batch rows (src + bb * spitch -> dst + bb *
-// xw), shared memory to shared memory.
-__device__ __forceinline__ void copy8(const float* src, int spitch, int nb,
-                                      float* dst, int xw) {
-#pragma unroll
-  for (int bb = 0; bb < BCH; ++bb)
-    if (bb < nb) {
-      const float4* q = reinterpret_cast<const float4*>(src + bb * spitch);
-      float4* d = reinterpret_cast<float4*>(dst + bb * xw);
-      d[0] = q[0];
-      d[1] = q[1];
-    }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -521,15 +463,6 @@ __host__ __device__ inline int region_pitch(int K, int R, int D, int S, int Q,
   return m;
 }
 
-// The row pitch of the block's input buffer: the widest vector a phase
-// hands the next (R, D, S or Q values a batch row).
-__host__ __device__ inline int in_pitch(int R, int D, int S, int Q) {
-  int m = R > D ? R : D;
-  if (S > m) m = S;
-  if (Q > m) m = Q;
-  return (m + 7) / 8 * 8;
-}
-
 struct Phase {
   int kind, l, J, n, P, ns;
   const int* tab;        // the kind's plan in shared memory (KT ints)
@@ -571,11 +504,9 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
   constexpr int RAW = sizeof(T) == 2 ? NW * BCH / 2 : 0;   // x xw floats
   T* xq = reinterpret_cast<T*>(smem + NW * (BCH + 1) * xw) + warp * BCH * xw;
   float* part = smem + (NW * (BCH + 1) + RAW) * xw;
-  const int NI = in_pitch(R, D, S, Q);
-  float* inb = part + NW * 2 * BCH;              // [BCH][NI]
-  float* win = inb + BCH * NI;
-  float* hist = win + BCH * PK;
-  int* ktab = reinterpret_cast<int*>(hist + B * PK);
+  float* win = part + NW * 2 * BCH;
+  float* xin = win + BCH * PK;
+  int* ktab = reinterpret_cast<int*>(xin + B);
   int* sdil = ktab + 4 * KT;
   int* soff = sdil + L;
   int* sslot = soff + L;
@@ -598,17 +529,14 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     sdil[i] = a.dil[i];
     soff[i] = a.ring_off[i];
   }
-  for (int i = tid; i < B * PK; i += NT) hist[i] = 0.f;
   __syncthreads();
   const float mu = (float)(Q - 1);
   const float log1p_mu = (float)log1p((double)mu);
-  const int NPH = 2 * L + 3;                     // phases per sample
-  uint4 wr[2][MAXV];     // the next phase's weights, loaded ahead
+  unsigned long long target = 0;
+  uint4 wr[2][MAXV];     // the next phase's weights, loaded before its barrier
   float ep[4];           // this thread's epilogue operands of the next phase
+  float winx = 0.f;      // this thread's preprocess input of the next step
   const T* lct = a.lc;   // lc of the current step
-  // the tag of phase ph of step t (0: SP, 1 + 2l / 2 + 2l: layer l's A / B,
-  // 2L+1: H1, 2L+2: H2); no tag is 0
-  auto tag_of = [&](int t, int ph) { return (unsigned)(t * NPH + ph + 1); };
 
   auto stamp_at = [&](int t, int ph) -> unsigned long long* {
     const int ts = t - a.st_lo;
@@ -618,43 +546,29 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     p[EV_START] = gtime();
     return p;
   };
-  // The inputs of batch rows b0 .. b0+nb-1 that the previous phase wrote
-  // (n tagged values a row, rows n apart), polled by the whole block, each
-  // value once, into inb; RELU: relu, then round to T (the skip sum).
-  // The fence makes the polls acquire: what a producer wrote before its
-  // release store is visible to the whole block after the bar.sync.
-  auto poll = [&](const unsigned long long* src, int n, int nb, unsigned tag,
-                  bool relu) {
-    for (int i = tid; i < n / 2; i += NT) {
-      unsigned long long w[BCH][2];
-      const long long t0 = clock64();
-      for (;;) {
-#pragma unroll
-        for (int bb = 0; bb < BCH; ++bb)
-          if (bb < nb)
-            asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
-                         : "=l"(w[bb][0]), "=l"(w[bb][1])
-                         : "l"(src + (size_t)bb * n + 2 * i) : "memory");
-        bool ok = true;
-#pragma unroll
-        for (int bb = 0; bb < BCH; ++bb)
-          if (bb < nb) ok &= word_tag(w[bb][0]) == tag && word_tag(w[bb][1]) == tag;
-        if (ok) break;
-        spin_check(t0);
-      }
-#pragma unroll
-      for (int bb = 0; bb < BCH; ++bb)
-        if (bb < nb) {
-          float v0 = word_value(w[bb][0]), v1 = word_value(w[bb][1]);
-          if (relu) {
-            v0 = to_f(from_f<T>(fmaxf(v0, 0.f)));
-            v1 = to_f(from_f<T>(fmaxf(v1, 0.f)));
-          }
-          inb[bb * NI + 2 * i] = v0;
-          inb[bb * NI + 2 * i + 1] = v1;
-        }
+  // the grid barrier in two halves: arrive when the phase's writes are
+  // done, wait when the next phase needs them; between the two a block
+  // loads what the next phase needs that does not depend on them
+  auto arrive = [&](unsigned long long* st) {
+    target += G;
+    __syncthreads();
+    if (tid == 0) {
+      if (st) st[EV_DONE] = gtime();
+      asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(a.barrier)
+                   : "memory");
     }
-    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  };
+  auto wait = [&](unsigned long long* st) {
+    if (tid == 0) {
+      unsigned long long v;
+      const long long t0 = clock64();
+      do {
+        asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                     : "=l"(v) : "l"(a.barrier) : "memory");
+        if (clock64() - t0 > (1LL << 34)) __trap();
+      } while (v < target);
+      if (st) st[EV_EXIT] = gtime();
+    }
     __syncthreads();
   };
 
@@ -729,6 +643,7 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     const int nc = (k1 - k0) / 8;
     if (p.kind == KA) {
       const int d = sdil[l], size = (K - 1) * d, off = soff[l], now = sslot[l];
+      const T* cur_in = a.cur + ((size_t)(l & 1) * B + b0) * R;
       for (int c = lane; c < nc; c += 32) {
         const int k = k0 + 8 * c;
         float* dst = xr + k - k0;
@@ -739,7 +654,7 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
           rows8_async(a.ring + ((size_t)(off + slot) * B + b0) * R + r, R, nb,
                       dst, xq + k - k0, xw);
         } else if (k < KR) {
-          if (post) copy8(inb + k - (KR - R), NI, nb, dst, xw);
+          if (post) rows8<true, false, T>(cur_in + k - (KR - R), R, nb, dst, xw);
         } else if (pre) {
           rows8_async(lc_t + k - KR, C, nb, dst, xq + k - k0, xw);
         }
@@ -750,20 +665,14 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     } else if (p.kind == KB) {
       if (post) {
         for (int c = lane; c < nc; c += 32)
-          copy8(inb + k0 + 8 * c, NI, nb, xr + 8 * c, xw);
+          rows8<true, false, T>(a.gated + (size_t)b0 * D + k0 + 8 * c, D, nb,
+                                xr + 8 * c, xw);
         // layer 0's skip columns also read cur (the skip-start conv),
-        // staged after the slice, at column ns: SP's output, which the
-        // block's A(0) has seen whole
+        // staged after the slice, at column ns
         if (l == 0 && job < S && k0 == 0)
           for (int c = lane; c < R / 8; c += 32)
-            for (int bb = 0; bb < nb; ++bb)
-#pragma unroll
-              for (int i = 0; i < 8; i += 2) {
-                float v0, v1;
-                poll2(a.cur + (size_t)(b0 + bb) * R + 8 * c + i, tag_of(t, 0), v0, v1);
-                xr[bb * xw + p.ns + 8 * c + i] = v0;
-                xr[bb * xw + p.ns + 8 * c + i + 1] = v1;
-              }
+            rows8<true, false, T>(a.cur + (size_t)b0 * R + 8 * c, R, nb,
+                                  xr + p.ns + 8 * c, xw);
       }
       if (Q8 && pre && job < S)
         for (int q = lane; q < (k1 - k0) / 4; q += 32)
@@ -772,7 +681,8 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
       for (int c = lane; c < nc; c += 32) {
         const int k = k0 + 8 * c;
         if (k < S) {
-          if (post) copy8(inb + k, NI, nb, xr + 8 * c, xw);
+          if (post)
+            rows8<true, true, T>(a.skip + (size_t)b0 * S + k, S, nb, xr + 8 * c, xw);
         } else if (pre) {
           rows8_async(lc_t + k - S, C, nb, xr + 8 * c, xq + 8 * c, xw);
         }
@@ -780,7 +690,8 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     } else {
       if (post)
         for (int c = lane; c < nc; c += 32)
-          copy8(inb + k0 + 8 * c, NI, nb, xr + 8 * c, xw);
+          rows8<true, false, T>(a.h1 + (size_t)b0 * S + k0 + 8 * c, S, nb,
+                                xr + 8 * c, xw);
     }
   };
 
@@ -810,16 +721,10 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
       e[3] = to_f(gc[D + job]);
     } else if (p.kind == KB) {
       e[0] = to_f(a.b_sr[(size_t)l * SR + job]);
-      if (job < S) {        // this thread's own sum of the previous layer
-        e[1] = l == 0 ? to_f(a.b_ss[job])
-                      : word_value(__ldcg(&a.skip[(size_t)b * S + job]));
-      } else {              // the layer input: this thread's own (l > 0) or
-                            // SP's, whose tag the epilogue checks
-        const unsigned long long w =
-            __ldcg(&a.cur[((size_t)(l & 1) * B + b) * R + job - S]);
-        e[1] = word_value(w);
-        e[2] = __uint_as_float(word_tag(w));
-      }
+      if (job < S)
+        e[1] = l == 0 ? to_f(a.b_ss[job]) : ld_cg(&a.skip[(size_t)b * S + job]);
+      else
+        e[1] = ld_cg(&a.cur[((size_t)(l & 1) * B + b) * R + job - S]);
     } else if (p.kind == KH1) {
       e[0] = to_f(a.b_h1[job]);
       e[1] = to_f(a.g_pp1[(size_t)b * S + job]);
@@ -829,41 +734,30 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
   };
   // the column's epilogue for batch row b on its sums v0 (and v1, the
   // gate pair's second row) and its operands e
-  // outputs carry the tag g of phase ph of step t
-  auto epilogue = [&](const Phase& p, int t, unsigned g, int job, int b,
+  auto epilogue = [&](const Phase& p, int t, int job, int b,
                       float v0, float v1, const float (&e)[4]) {
     const int l = p.l;
     if (p.kind == KA) {
       const float p0 = v0 + e[0] + e[1];
       const float p1 = v1 + e[2] + e[3];
-      const float gt = a.sigmoid_first ? sigmoidf_(p0) * tanhf(p1)
-                                       : tanhf(p0) * sigmoidf_(p1);
-      st_tag(&a.gated[(size_t)b * D + job], to_f(from_f<T>(gt)), g);
+      const float g = a.sigmoid_first ? sigmoidf_(p0) * tanhf(p1)
+                                      : tanhf(p0) * sigmoidf_(p1);
+      a.gated[(size_t)b * D + job] = from_f<T>(g);
     } else if (p.kind == KB) {
       const float out = v0 + e[0];
       if (job < S) {
-        st_tag(&a.skip[(size_t)b * S + job], e[1] + out, g);
+        a.skip[(size_t)b * S + job] = e[1] + out;
       } else {
         const int r = job - S;
-        unsigned long long* cin = &a.cur[((size_t)(l & 1) * B + b) * R + r];
-        const unsigned want = tag_of(t, 2 * l);  // SP's (l = 0), B(l-1)'s
-        const float x = __float_as_uint(e[2]) == want ? e[1] : [&] {
-          float v0_, v1_;
-          poll2(cin - (r & 1), want, v0_, v1_);
-          return r & 1 ? v1_ : v0_;
-        }();
-        // the release orders this thread's ring write of the layer before
-        // (the line below, one layer ago) before the value: a block that
-        // sees it sees that ring row
-        st_tag<true>(&a.cur[((size_t)((l + 1) & 1) * B + b) * R + r],
-                     to_f(from_f<T>(x + out)), g);
-        a.ring[((size_t)(soff[l] + sslot[l]) * B + b) * R + r] = from_f<T>(x);
+        T* cur_out = a.cur + (size_t)((l + 1) & 1) * B * R;
+        a.ring[((size_t)(soff[l] + sslot[l]) * B + b) * R + r] = from_f<T>(e[1]);
+        cur_out[(size_t)b * R + r] = from_f<T>(e[1] + out);
       }
     } else if (p.kind == KH1) {
-      st_tag(&a.h1[(size_t)b * S + job], to_f(from_f<T>(fmaxf(v0 + e[0] + e[1], 0.f))), g);
+      a.h1[(size_t)b * S + job] = from_f<T>(fmaxf(v0 + e[0] + e[1], 0.f));
     } else {
       const float v = v0 + e[0];
-      st_tag(&a.logits[(size_t)b * Q + job], v, g);
+      a.logits[(size_t)b * Q + job] = v;
       if (a.logits_out) a.logits_out[((size_t)t * B + b) * Q + job] = v;
     }
   };
@@ -871,12 +765,9 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
   // One dot phase: every round of items, every pass of BCH batch rows.
   // Round 0's weights are in wr, its pass 0's pre inputs staged and its
   // epilogue operands in ep.
-  // phase ph of step t (its outputs' tag)
-  auto run = [&](const Phase& p, int t, int ph, unsigned long long* st) {
+  auto run = [&](const Phase& p, int t, unsigned long long* st) {
     const int jr = p.tab[2];
     const int rounds = p.tab[4];
-    const unsigned g = tag_of(t, ph), prev = tag_of(t, ph - 1);
-    const int l = p.l;
     for (int rd = 0; rd < rounds; ++rd) {
       int job = 0, k0 = 0, k1 = 0;
       const bool mine = item(p, rd, job, k0, k1);
@@ -884,13 +775,6 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
       for (int b0 = 0; b0 < B; b0 += BCH) {
         const int nb = min(BCH, B - b0);
         const bool first = rd == 0 && b0 == 0;
-        if (p.kind == KA)
-          poll(a.cur + ((size_t)(l & 1) * B + b0) * R, R, nb, prev, false);
-        else if (p.kind == KB)
-          poll(a.gated + (size_t)b0 * D, D, nb, prev, false);
-        else
-          poll((p.kind == KH1 ? a.skip : a.h1) + (size_t)b0 * S, S, nb, prev,
-               p.kind == KH1);
         if (mine) {
           stage(p, t, job, k0, k1, b0, nb, !first, true);
           finish_pre(p, k0, k1, nb);
@@ -951,7 +835,7 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
             }
             const int job_u = blk + u * G;
             if (!first) ep_load(p, job_u, b0 + bb, ep);
-            epilogue(p, t, g, job_u, b0 + bb, v0, v1, ep);
+            epilogue(p, t, job_u, b0 + bb, v0, v1, ep);
           }
         }
         __syncthreads();
@@ -975,52 +859,64 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
   };
 
   // step t's bins from its logits, in every block (the same values
-  // everywhere; block 0 writes them): hist[b][(t+1) % PK] = the decoded
-  // sample, the input of step t+1
+  // everywhere; block 0 writes them): xin[b] = the decoded sample
   auto select = [&](int t) {
-    for (int b0 = 0; b0 < B; b0 += BCH) {
-      const int nb = min(BCH, B - b0);
-      poll(a.logits + (size_t)b0 * Q, Q, nb, tag_of(t, NPH - 1), false);
-      for (int bb = warp; bb < nb; bb += NW) {
-        const int b = b0 + bb;
-        float best = -INFINITY;
-        int bi = Q;
-        for (int q = lane; q < Q; q += 32) {
-          const float v = inb[bb * NI + q];
-          const float x = a.sample ? v + gumbel(a.seed, t, b, q) : v;
-          if (x > best || (x == best && q < bi)) { best = x; bi = q; }
+    for (int b = warp; b < B; b += NW) {
+      float best = -INFINITY;
+      int bi = Q;
+      for (int q0 = 0; q0 < Q; q0 += 32 * 8) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int q = q0 + lane + 32 * i;
+          v[i] = q < Q ? ld_cg(&a.logits[(size_t)b * Q + q]) : -INFINITY;
         }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, best, o);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-          if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
-        }
-        if (lane == 0) {
-          if (bi >= Q) bi = 0;                   // all logits NaN
-          const float x = mu_decode(bi, mu);
-          hist[b * PK + (t + 1) % PK] = x;
-          if (blk == 0) {
-            a.bins[(size_t)t * B + b] = bi;
-            if (!a.forced) a.inputs[(size_t)(t + 1) * B + b] = x;
+        for (int i = 0; i < 8; ++i) {
+          const int q = q0 + lane + 32 * i;
+          if (q < Q) {
+            const float x = a.sample ? v[i] + gumbel(a.seed, t, b, q) : v[i];
+            if (x > best || (x == best && q < bi)) { best = x; bi = q; }
           }
         }
       }
-      __syncthreads();
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+      }
+      if (lane == 0) {
+        if (bi >= Q) bi = 0;                     // all logits NaN
+        xin[b] = mu_decode(bi, mu);
+        if (blk == 0) {
+          a.bins[(size_t)t * B + b] = bi;
+          if (!a.forced) a.inputs[(size_t)(t + 1) * B + b] = xin[b];
+        }
+      }
     }
   };
-  // before step t: the preprocess conv's weights (warp's column blk +
-  // warp * G) and bias
-  auto ahead_sp = [&]() {
+  // the preprocess window value of thread i (pass 0) at step t, but the
+  // newest sample of a free-running step (xin, from select)
+  auto window_x = [&](int t, int i) {
+    const int bb = i / PK, s = t - (PK - 1) + (i - bb * PK);
+    if (s < 0 || bb >= min(BCH, B)) return 0.f;
+    if (s == t && t > 0 && !a.forced) return 0.f;
+    return ld_cg(&a.inputs[(size_t)s * B + bb]);
+  };
+  // between arrive and wait before step t: the preprocess conv's weights
+  // (warp's column blk + warp * G) and bias, and the window's known inputs
+  auto ahead_sp = [&](int t) {
     const int r = blk + warp * G;
     constexpr int VT = Vec16<T>::N;
     if (r < R) {
       if (lane < PK / VT) wr[0][0] = ld_weights(a.w_pre + (size_t)r * PK + lane * VT);
       ep[0] = to_f(a.b_pre[r]);
     }
+    if (tid < BCH * PK) winx = window_x(t, tid);
   };
 
-  ahead_sp();
+  ahead_sp(0);
   for (int t = 0; t < a.length; ++t) {
     lct = a.lc + (size_t)(t / a.ratio) * B * C;
     for (int l = tid; l < L; l += NT) sslot[l] = t % ((K - 1) * sdil[l]);
@@ -1028,7 +924,6 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
     unsigned long long* st = stamp_at(t, 0);
     if (t > 0) select(t - 1);
     __syncthreads();
-    const unsigned g0 = tag_of(t, 0);
     constexpr int VT = Vec16<T>::N;
     for (int b0 = 0; b0 < B; b0 += BCH) {
       const int nb = min(BCH, B - b0);
@@ -1037,7 +932,10 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
         const int s = t - (PK - 1) + pp, b = b0 + bb;
         float u = 0.f;
         if (s >= 0) {
-          const float x = a.forced ? a.inputs[(size_t)s * B + b] : hist[b * PK + s % PK];
+          float x;
+          if (s == t && t > 0 && !a.forced) x = xin[b];
+          else if (b0 == 0 && i == tid) x = winx;
+          else x = ld_cg(&a.inputs[(size_t)s * B + b]);
           u = mu_encode(x, mu, log1p_mu);
         }
         win[bb * PK + pp] = to_f(from_f<T>(u));
@@ -1060,26 +958,24 @@ __global__ void __launch_bounds__(NT, 1) gen_kernel(Args<T, W> a) {
         for (int bb = 0; bb < BCH; ++bb)
           if (bb < nb) {
             const float v = warp_sum(acc[0][bb]);
-            if (lane == 0)
-              st_tag(&a.cur[(size_t)(b0 + bb) * R + r], to_f(from_f<T>(v + bias)), g0);
+            if (lane == 0) a.cur[(size_t)(b0 + bb) * R + r] = from_f<T>(v + bias);
           }
       }
       __syncthreads();
     }
-    if (st) st[EV_DONE] = gtime();
+    arrive(st);
     ahead(describe(0), t);
-    if (st) st[EV_EXIT] = gtime();
+    wait(st);
 
     // ---- layer l's A and B, then H1 and H2: phase ph + 1 of the sample
     for (int ph = 0; ph < 2 * L + 2; ++ph) {
       st = stamp_at(t, ph + 1);
-      run(describe(ph), t, ph + 1, st);
-      if (st) st[EV_DONE] = gtime();
+      run(describe(ph), t, st);
+      arrive(st);
       if (ph + 1 < 2 * L + 2) ahead(describe(ph + 1), t);
-      else ahead_sp();
-      if (st) st[EV_EXIT] = gtime();
+      else if (t + 1 < a.length) ahead_sp(t + 1);
+      wait(st);
     }
-    __syncthreads();              // hist, sslot of the next step
   }
   select(a.length - 1);                          // the last step's bins
 }
@@ -1095,9 +991,7 @@ int launch(Args<T, W> a, cudaStream_t stream) {
   a.xw = region_pitch(a.K, a.R, a.D, a.S, a.Q, a.C, sms);
   const int raw = sizeof(T) == 2 ? NW * BCH / 2 : 0;
   const size_t smem = sizeof(float) * ((size_t)(NW * (BCH + 1) + raw) * a.xw +
-                                       NW * 2 * BCH +
-                                       BCH * in_pitch(a.R, a.D, a.S, a.Q) +
-                                       BCH * a.PK + (size_t)a.B * a.PK +
+                                       NW * 2 * BCH + BCH * a.PK + a.B +
                                        4 * KT + 3 * a.L);
   e = cudaFuncSetAttribute(gen_kernel<T, W, ST>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1119,7 +1013,7 @@ int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
         const void* const* w, const void* lc, const void* gcon,
         const void* g_pp1, void* inputs, int forced, void* ring, void* cur,
         void* gated, void* skip, void* h1, void* logits, void* logits_out,
-        void* bins, int sample, int sigmoid_first,
+        void* bins, void* barrier, int sample, int sigmoid_first,
         unsigned long long seed, void* stamps, int st_lo, int st_n,
         void* stream) {
   Args<T, W> a;
@@ -1141,13 +1035,14 @@ int run(int L, int K, int R, int D, int S, int Q, int C, int PK, int B,
   a.inputs = static_cast<float*>(inputs);
   a.forced = forced;
   a.ring = static_cast<T*>(ring);
-  a.cur = static_cast<unsigned long long*>(cur);
-  a.gated = static_cast<unsigned long long*>(gated);
-  a.skip = static_cast<unsigned long long*>(skip);
-  a.h1 = static_cast<unsigned long long*>(h1);
-  a.logits = static_cast<unsigned long long*>(logits);
+  a.cur = static_cast<T*>(cur);
+  a.gated = static_cast<T*>(gated);
+  a.skip = static_cast<float*>(skip);
+  a.h1 = static_cast<T*>(h1);
+  a.logits = static_cast<float*>(logits);
   a.logits_out = static_cast<float*>(logits_out);
   a.bins = static_cast<int*>(bins);
+  a.barrier = static_cast<unsigned long long*>(barrier);
   a.sample = sample;
   a.sigmoid_first = sigmoid_first;
   a.seed = seed;
@@ -1178,7 +1073,7 @@ extern "C" int gen_wavenet(
     const void* w_h1, const void* b_h1, const void* w_pp2, const void* b_pp2,
     const void* s_a, const void* s_s, const void* w_r, const void* lc, const void* gcon, const void* g_pp1, void* inputs,
     int forced, void* ring, void* cur, void* gated, void* skip, void* h1,
-    void* logits, void* logits_out, void* bins, int sample,
+    void* logits, void* logits_out, void* bins, void* barrier, int sample,
     int sigmoid_first, unsigned long long seed, void* stamps, int st_lo,
     int st_n, void* stream) {
   const void* w[15] = {w_a, b_a, w_sr, b_sr, w_pre, b_pre, w_ss, b_ss,
@@ -1186,19 +1081,19 @@ extern "C" int gen_wavenet(
   if (dtype == 0)
     return run<float, float>(L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off,
                       w, lc, gcon, g_pp1, inputs, forced, ring, cur, gated,
-                      skip, h1, logits, logits_out, bins, sample,
+                      skip, h1, logits, logits_out, bins, barrier, sample,
                       sigmoid_first, seed, stamps, st_lo, st_n, stream);
   if (dtype == 1)
     return run<bf16, bf16>(
         L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
         g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
-        bins, sample, sigmoid_first, seed, stamps, st_lo, st_n,
+        bins, barrier, sample, sigmoid_first, seed, stamps, st_lo, st_n,
         stream);
   if (dtype == 2)
     return run<bf16, int8_t>(
         L, K, R, D, S, Q, C, PK, B, length, ratio, dil, ring_off, w, lc, gcon,
         g_pp1, inputs, forced, ring, cur, gated, skip, h1, logits, logits_out,
-        bins, sample, sigmoid_first, seed, stamps, st_lo, st_n,
+        bins, barrier, sample, sigmoid_first, seed, stamps, st_lo, st_n,
         stream);
   return (int)cudaErrorInvalidValue;
 }

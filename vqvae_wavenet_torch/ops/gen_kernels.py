@@ -395,6 +395,7 @@ def _lib():
         + [ctypes.c_void_p] * 3        # lc, gcon, g_pp1
         + [ctypes.c_void_p, ctypes.c_int]   # inputs, forced
         + [ctypes.c_void_p] * 8        # ring cur gated skip h1 logits logits_out bins
+        + [ctypes.c_void_p]            # barrier counter
         + [ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong]  # mode gate seed
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]    # stamps lo n
         + [ctypes.c_void_p])           # stream
@@ -505,17 +506,15 @@ def _launch(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *, length: int,
                              f"{(B, length)}")
         inputs[:length] = forced.to(device=dev, dtype=torch.float32).T
     ring = torch.zeros((sum(sizes), B, R), dtype=w.dtype, device=dev)
-    # what one phase hands the next: tagged 64-bit words (the value and the
-    # number of the phase that wrote it), zeroed, since no tag is 0
-    i64 = torch.int64
-    cur = torch.zeros((2, B, R), dtype=i64, device=dev)
-    gated = torch.zeros((B, D), dtype=i64, device=dev)
-    skip = torch.zeros((B, S), dtype=i64, device=dev)
-    h1 = torch.zeros((B, S), dtype=i64, device=dev)
-    logits = torch.zeros((B, Q), dtype=i64, device=dev)
+    cur = torch.empty((2, B, R), dtype=w.dtype, device=dev)
+    gated = torch.empty((B, D), dtype=w.dtype, device=dev)
+    skip = torch.empty((B, S), dtype=torch.float32, device=dev)
+    h1 = torch.empty((B, S), dtype=w.dtype, device=dev)
+    logits = torch.empty((B, Q), dtype=torch.float32, device=dev)
     logits_out = (torch.empty((length, B, Q), dtype=torch.float32, device=dev)
                   if want_logits else None)
     bins = torch.empty((length, B), dtype=torch.int32, device=dev)
+    barrier = torch.zeros((1,), dtype=torch.int64, device=dev)
     ptrs = [x.data_ptr() for x in tensors] + [None] * (15 - len(tensors))
 
     lib = _lib()
@@ -541,7 +540,7 @@ def _launch(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *, length: int,
             ring.data_ptr(), cur.data_ptr(), gated.data_ptr(),
             skip.data_ptr(), h1.data_ptr(), logits.data_ptr(),
             logits_out.data_ptr() if want_logits else None,
-            bins.data_ptr(),
+            bins.data_ptr(), barrier.data_ptr(),
             int(mode == "sample"), int(gate_order == "sigmoid_first"),
             seed & 0xFFFFFFFFFFFFFFFF,
             None if stamps is None else stamps.data_ptr(), st_lo, st_n,
