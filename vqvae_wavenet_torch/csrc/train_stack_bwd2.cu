@@ -53,7 +53,7 @@
 // block per SM, so the grid is not persistent; each split writes its f32
 // partial and a second pass sums the partials in a fixed order (no float
 // atomics), so runs repeat bit for bit.  NVIDIA H100 80GB HBM3, 700 W
-// (chip_smoke.py [train-bwd2]): bf16 ~590 TFLOP/s, 2.0 ms shipped against
+// (chip_smoke.py [train-bwd2]): bf16 ~600 TFLOP/s, 2.1 ms shipped against
 // 14.6 for the mma.sync tile loop it replaces; the 128 x 256 tile stages
 // 85 FLOP per byte from L2, which bounds it below the peak.
 //
