@@ -33,8 +33,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              int8, greedy and sample, counters reset before and read after;
   8. train-stack     the stack forward and backward kernels against their
              plain twins at the shipped widths and the full training
-             shape (B=8, T=6656, 104 frames), f32 and bf16, tanh_first,
-             and at B=2, T=1024 with sigmoid_first and a global condition;
+             shape (B=8, T=6656, 104 frames), f32 and bf16, tanh_first
+             (two runs of each bitwise equal; the products alone timed as
+             torch.matmul calls, products_matmul_ms), at B=2, T=1024 with
+             sigmoid_first and a global condition, and at a ragged shape
+             (R=D=136, S=200, B=3, T=5,000, a tap shifted past T) at start
+             0 and, through the SP variants, start 1,000;
   9. train-epilogue  the loss-head kernel (both entries) against its
              plain twin at the same shape, f32 and bf16;
   10. train-e2e      the training entry point (vqvae_wavenet_torch.train)
@@ -754,18 +758,151 @@ def _stack_inputs(B, T, F, dtype, gate_gc: bool, seed: int,
     return cfg, w, x0, dskip
 
 
+def _products_matmul_ms(w, x0, dskip, act, xs, dils) -> tuple:
+    """The stack's products alone, each as one torch.matmul on operands
+    gathered beforehand (the gathers and the epilogues not timed), summed
+    over the L layers: the forward's conv [rows, K*R] . [K*R, 2D] and
+    skip|res [rows, D] . [D, S+R]; the sweep's dgated [rows, R+S] .
+    [R+S, D], dsk|drs [D, rows] . [rows, S+R], dk [K*R, rows] . [rows, 2D]
+    and dX [rows, K*2D] . [K*2D, R].  Layer l's weights, and as the
+    activation side layer 0's gathered operands for every layer (the same
+    shapes).  A yardstick of the products' rate, not a library call for
+    either kernel's function.  Returns (forward ms, sweep ms)."""
+    kern, skipw, resw = w[0], w[1], w[2]
+    L, K, R, D2 = kern.shape
+    D, S = D2 // 2, skipw.shape[2]
+    B, T = x0.shape[:2]
+    N = B * T
+    d = dils[0]
+    xcol = torch.zeros((B, T, K, R), dtype=x0.dtype, device=x0.device)
+    for j in range(K):
+        o = (K - 1 - j) * d
+        if o < T:
+            xcol[:, o:, j] = x0[:, :T - o]
+    xcol = xcol.reshape(N, K * R)
+    wconv = kern.reshape(L, K * R, D2)
+    gated = (act[0, ..., :D] * act[0, ..., D:]).reshape(N, D)
+    srw = torch.cat([skipw, resw], dim=2)                     # [L, D, S+R]
+    cat = torch.cat([xs[0].reshape(N, R), dskip.reshape(N, S)], dim=1)
+    rsk_t = torch.cat([resw, skipw], dim=2).transpose(1, 2).contiguous()
+    gated_t = gated.t().contiguous()
+    xcol_t = xcol.t().contiguous()
+    dpre = act[0].reshape(N, D2)
+    dcol = torch.cat([dpre] * K, dim=1)                       # [rows, K*2D]
+    kt = kern.permute(0, 1, 3, 2).reshape(L, K * D2, R).contiguous()
+    fwd = cuda_ms(lambda: [(xcol @ wconv[l], gated @ srw[l])
+                           for l in range(L)], 3)
+    bwd = cuda_ms(lambda: [(cat @ rsk_t[l], gated_t @ cat, xcol_t @ dpre,
+                            dcol @ kt[l]) for l in range(L)], 3)
+    del xcol, gated, cat, gated_t, xcol_t, dcol
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def _stack_edge(card: str) -> None:
+    """The forward and the layer sweep against their plain twins at a
+    small ragged shape, f32 and bf16: L=3, K=3, R=D=136, S=200 (channel,
+    output and k tiles cut by the widths), B=3, T=5,000 (row tiles cut at
+    each batch row's end), 100 frames, dilations 1, 7 and 2,600 (layer 2's
+    tap 0 shifts by 5,200 >= T and reads only zeros); at start 0
+    (tanh_first) and through the sequence-parallel variants at start 1,000
+    with the stream output and a dX seed (sigmoid_first).  Every output
+    within TRAIN_TOL of its max; at start 0 the chain's outputs bitwise
+    equal to the sweep's and its dk pass within TRAIN_TOL of the sweep's
+    dk."""
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    L, K, R, D, S, B, T, F = 3, 3, 136, 136, 200, 3, 5000, 100
+    dils = (1, 7, 2600)
+    g = torch.Generator(device="cpu").manual_seed(31)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        w = [rnd(L, K, R, 2 * D, scale=(K * R) ** -0.5).to("cuda", dt),
+             rnd(L, D, S, scale=D ** -0.5).to("cuda", dt),
+             rnd(L, D, R, scale=D ** -0.5).to("cuda", dt),
+             rnd(L, R, scale=0.05).to("cuda", dt),
+             rnd(L, F, B, 2 * D, scale=0.3).cuda()]
+        x0 = rnd(B, T, R, scale=0.5).to("cuda", dt)
+        dskip = rnd(B, T, S, scale=1e-3).to("cuda", dt)
+        dxout = rnd(B, T, R, scale=1e-3).to("cuda", dt)
+        for start, gate in ((0, "tanh_first"), (1000, "sigmoid_first")):
+            sp = start > 0
+            kw = dict(dils=dils, gate_order=gate, start=start, with_xout=sp)
+            fk = tk.stack_forward_cuda(*w, x0, **kw)
+            fp = tk.stack_forward_plain(*w, x0, **kw)
+            names = ["skip_sum", "act[0]"] + (["xout"] if sp else [])
+            pairs = [(fk[0], fp[0]), (fk[1][0], fp[1][0])] + (
+                [(fk[3], fp[3])] if sp else [])
+            tag = f"train-stack edge start={start}"
+            _check_leaves(f"{tag} fwd", dtype, dict(zip(names, pairs)))
+            bargs = (dskip, fk[1], fk[2], w[0], w[1], w[2], dils, F, gate)
+            bkw = dict(start=start, dxout=dxout if sp else None)
+            gk = tk.stack_backward_cuda(*bargs, **bkw)
+            gp = tk.stack_backward_plain(*bargs, **bkw)
+            leaves = ("dk", "dsk", "drs", "drb", "dlc", "dx0")
+            _check_leaves(f"{tag} bwd", dtype, dict(zip(leaves, zip(gk, gp))))
+            if not sp:
+                ck = tk.stack_bwd_chain_cuda(*bargs)
+                same = all(torch.equal(a, b) for a, b in zip(ck[1:], gk[1:]))
+                dkk = tk.stack_dk_cuda(ck[0], fk[2], dils, K)
+                _check_leaves(f"{tag} chain dk vs sweep dk", dtype,
+                              {"dk": (dkk, gk[0])})
+                log(f"[{tag}] {dtype}: the chain's dsk, drs, drb, dlc, dx0 "
+                    f"bitwise equal to the sweep's: {same}")
+                if not same:
+                    raise AssertionError(f"{tag} {dtype}: chain and sweep "
+                                         f"differ")
+            del fk, fp, gk, gp
+        log(f"[train-stack edge] {dtype} L={L} K={K} R=D={R} S={S} B={B} "
+            f"T={T} dilations {dils}, start 0 and 1,000: passed  ({card})")
+        del w, x0, dskip, dxout
+        torch.cuda.empty_cache()
+
+
+def _kernel_breakdown(fn) -> dict:
+    """Device microseconds per kernel (total, calls) of one call of fn, by
+    torch.profiler, kernels named by their problem (the stack's GEMM
+    problems of csrc/hopper_gemm.cuh, the reductions)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"gemm<(?:\(anonymous namespace\)::|bwd::)?(\w+)<",
+                      e.key) or re.search(r"(?:tg|bwd)::(\w+)", e.key)
+        if m and e.device_time_total > 0:
+            us, n = out.get(m.group(1), (0.0, 0))
+            out[m.group(1)] = (us + e.device_time_total, n + e.count)
+    return out
+
+
+def _bitwise_repeat(tag, dtype, first, again) -> None:
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"[{tag}] {dtype}: two runs on the same inputs bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"{tag} {dtype}: does not repeat bit for bit")
+
+
 def phase_train_stack(card: str):
     """The stack kernels against their plain twins at the shipped widths
     (L=30, K=3, R=D=256, S=512), the full training shape B=8, T=6656 with
     104 frames, f32 and bf16, tanh_first; then B=2, T=1024 with
-    sigmoid_first and a folded global condition.  The backward twins get
-    the kernel forward's saved tensors, so each comparison sees one
-    kernel.  Tolerance per leaf, max |kernel - plain| / max |plain|: f32
-    1e-3 (products summed in another order over up to 53,248 rows), bf16
-    2e-2 (an f32 difference of one ulp can round a saved activation or
-    dpre to the neighbouring bf16 value, 0.4% apart, and that feeds the
-    following layers).  Returns the JSON fields of both kernels (bf16 at
-    the full shape)."""
+    sigmoid_first and a folded global condition; then the ragged edge
+    shapes of _stack_edge.  The backward twins get the kernel forward's
+    saved tensors, so each comparison sees one kernel.  Tolerance per
+    leaf, max |kernel - plain| / max |plain|: f32 1e-3 (products summed in
+    another order over up to 53,248 rows), bf16 2e-2 (an f32 difference of
+    one ulp can round a saved activation or dpre to the neighbouring bf16
+    value, 0.4% apart, and that feeds the following layers).  At the full
+    shape both kernels run twice on the same inputs and must repeat bit
+    for bit, and the products alone are timed as torch.matmul calls
+    (_products_matmul_ms).  Returns the JSON fields of both kernels (bf16
+    at the full shape)."""
     from vqvae_wavenet_torch.ops import train_kernels as tk
     out = {}
     cases = [(2, 1024, 16, "sigmoid_first", True),
@@ -787,9 +924,16 @@ def phase_train_stack(card: str):
             gp = tk.stack_backward_plain(*bargs, dils, F, gate)
             b_err = _check_leaves("train-stack bwd", dtype, dict(zip(
                 ("dk", "dsk", "drs", "drb", "dlc", "dx0"), zip(gk, gp))))
-            del gk, gp
+            del gp
             if (B, gate) != (8, "tanh_first"):
+                del gk
                 continue
+            _bitwise_repeat("train-stack fwd", dtype, (sk, act, xs),
+                            tk.stack_forward_cuda(*w, x0, **kw))
+            _bitwise_repeat("train-stack bwd", dtype, gk,
+                            tk.stack_backward_cuda(*bargs, dils, F, gate))
+            del gk
+            torch.cuda.empty_cache()
             L, K, R, D2 = w[0].shape
             D, S, N = D2 // 2, w[1].shape[2], B * T
             f_ms = cuda_ms(lambda: tk.stack_forward_cuda(*w, x0, **kw), 3)
@@ -798,6 +942,16 @@ def phase_train_stack(card: str):
                 *bargs, dils, F, gate), 3)
             bp_ms = cuda_ms(lambda: tk.stack_backward_plain(
                 *bargs, dils, F, gate), 2)
+            fm_ms, bm_ms = _products_matmul_ms(w, x0, dskip, act, xs, dils)
+            for name, fn in (
+                    ("fwd", lambda: tk.stack_forward_cuda(*w, x0, **kw)),
+                    ("bwd", lambda: tk.stack_backward_cuda(*bargs, dils, F,
+                                                           gate))):
+                parts = _kernel_breakdown(fn)
+                log(f"[train-stack] {dtype} {name} per kernel, device us "
+                    f"per call (calls), torch.profiler: " + ", ".join(
+                        f"{k} {us / n:.1f} ({n})" for k, (us, n) in sorted(
+                            parts.items(), key=lambda kv: -kv[1][0])))
             f_flops = 2.0 * N * L * (K * R * D2 + D * (S + R))
             b_flops = 2.0 * N * L * (2 * (R + S) * D + 2 * K * R * D2)
             f_bound = bound(f_flops, nbytes(*w, x0, sk, act, xs), dtype)
@@ -807,20 +961,23 @@ def phase_train_stack(card: str):
                                    + w[4].numel()) + nbytes(x0), dtype)
             log(f"[train-stack] {dtype} B={B} T={T}: fwd kernel {f_ms:.2f} "
                 f"ms (plain {fp_ms:.2f}, bound {f_bound[0]:.2f} by "
-                f"{f_bound[1]}), bwd kernel {b_ms:.2f} ms (plain "
-                f"{bp_ms:.2f}, bound {b_bound[0]:.2f} by {b_bound[1]})  "
-                f"({card})")
+                f"{f_bound[1]}, products_matmul_ms {fm_ms:.2f}), bwd kernel "
+                f"{b_ms:.2f} ms (plain {bp_ms:.2f}, bound {b_bound[0]:.2f} by "
+                f"{b_bound[1]}, products_matmul_ms {bm_ms:.2f}); "
+                f"products_matmul_ms: the products alone as torch.matmul "
+                f"calls on pre-gathered operands  ({card})")
             if dtype == "bf16":
                 out["train_stack_fwd"] = {
                     "max_abs_err": f_err, "ms": f_ms, "plain_ms": fp_ms,
                     "bound_ms": f_bound[0], "bound_by": f_bound[1],
-                    "library_ms": None}
+                    "library_ms": None, "products_matmul_ms": fm_ms}
                 out["train_stack_bwd"] = {
                     "max_abs_err": b_err, "ms": b_ms, "plain_ms": bp_ms,
                     "bound_ms": b_bound[0], "bound_by": b_bound[1],
-                    "library_ms": None}
+                    "library_ms": None, "products_matmul_ms": bm_ms}
             del sk, sp, act, xs
             torch.cuda.empty_cache()
+    _stack_edge(card)
     return out
 
 

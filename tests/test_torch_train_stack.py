@@ -2,8 +2,11 @@
 stack through ``fused_residual_stack``, the heads) against the JAX
 package's ``wavenet_logits(engine="xla")`` and ``jax.grad`` of it, on the
 tiny config of tests/test_train_pallas.py (B=2, T=128, 16 condition
-frames).  On the CPU the stack runs its plain version, which rounds where
-the CUDA kernels do.
+frames), and on one ragged shape (widths that are multiples of 8 and not
+of 64, T = 200 in 8 frames, a tap shifted past T): the shape class at
+which chip_smoke.py holds the CUDA kernels to this plain version.  On the
+CPU the stack runs its plain version, which rounds where the CUDA kernels
+do.
 
 Tolerances.  f32: the loss within 1e-5 and every gradient leaf within
 max|delta| / max|ref| < 1e-4 -- both sides are float32 at full precision
@@ -34,18 +37,24 @@ set_full_f32()
 B, T, T_COND, C_LC, C_GC = 2, 128, 16, 128, 16
 
 
-def tiny_cfg(dils=(1, 2, 4, 8)):
+# per-seed shapes other than the default: (D, S, R), T, condition frames
+SHAPES = {9: ((40, 56, 72), 200, 8)}
+
+
+def tiny_cfg(dils=(1, 2, 4, 8), widths=(64, 128, 128)):
+    D, S, R = widths
     return WavenetConfig(
         quantization_channels=256, num_cycles=1, num_cycle_layers=len(dils),
-        dilation_rates=list(dils), kernel_size=3, dilation_filters=64,
-        skip_filters=128, residual_filters=128, preprocess_kernel_size=8,
-        preprocess_filters=128)
+        dilation_rates=list(dils), kernel_size=3, dilation_filters=D,
+        skip_filters=S, residual_filters=R, preprocess_kernel_size=8,
+        preprocess_filters=R)
 
 
 @functools.lru_cache(maxsize=None)
 def case(dils, with_gc, seed):
     """numpy (params, x, lc, gc, w) from a seed (built once, not mutated)."""
-    cfg = tiny_cfg(dils)
+    widths, t_len, frames = SHAPES.get(seed, ((64, 128, 128), T, T_COND))
+    cfg = tiny_cfg(dils, widths)
     params = jax.device_get(init_wavenet_params(
         jax.random.PRNGKey(seed), cfg, lc_channels=C_LC,
         gc_channels=C_GC if with_gc else None))
@@ -54,8 +63,8 @@ def case(dils, with_gc, seed):
     for name in ("bias", "skip_bias", "res_bias"):
         params["layers"][name] = rng.normal(
             0, 0.05, params["layers"][name].shape).astype(np.float32)
-    x = rng.uniform(-0.9, 0.9, (B, T, 1)).astype(np.float32)
-    lc = (rng.standard_normal((B, T_COND, C_LC)) * 0.3).astype(np.float32)
+    x = rng.uniform(-0.9, 0.9, (B, t_len, 1)).astype(np.float32)
+    lc = (rng.standard_normal((B, frames, C_LC)) * 0.3).astype(np.float32)
     gc = rng.standard_normal((B, 1, C_GC)).astype(np.float32) \
         if with_gc else None
     w = (rng.standard_normal(256) * 0.1).astype(np.float32)
@@ -64,7 +73,8 @@ def case(dils, with_gc, seed):
 
 CASES = [((1, 2, 4, 8), False, "tanh_first", 5),
          ((1, 2, 4, 8), True, "sigmoid_first", 6),
-         ((1, 64, 200, 8), False, "tanh_first", 7)]   # 2*200 >= T: o_j >= T
+         ((1, 64, 200, 8), False, "tanh_first", 7),   # 2*200 >= T: o_j >= T
+         ((1, 3, 120), False, "tanh_first", 9)]       # SHAPES[9], 2*120 >= T
 
 
 def _jax_grads(cfg, params, x, lc, gc, w, gate_order):

@@ -1,6 +1,6 @@
-// Shared-memory tiled GEMM core for the training kernels (train_stack_fwd.cu,
-// train_stack_bwd.cu, train_stack_bwd2.cu, train_epilogue.cu), plus the
-// small deterministic reductions they share.
+// The shared-memory tile GEMM of the loss-head kernels (train_epilogue.cu).
+// The residual stack's products run on hopper_gemm.cuh; the conversions
+// and reductions both share live in train_common.cuh.
 //
 // One block computes a 128 x 128 tile of C[M, N] = A[M, Kred] . B[Kred, N]
 // with 256 threads, 32-deep K steps, both operands staged in shared memory
@@ -14,11 +14,10 @@
 //
 // With A_K (B_K) true, a8 (b8) returns 8 values along k at (m, k..k+7): the
 // operand is stored with k contiguous (activations in row-major [rows, K],
-// weights pre-transposed, implicit-GEMM gathers).  With it false, a8
-// returns 8 values along m at (m..m+7, k): the operand is stored with m
-// contiguous and the fill transposes it (the weight-gradient products,
-// which reduce over the rows of two activations).  Returning false means
-// zeros (the causal gather's head, a row past the batch's end).
+// weights pre-transposed).  With it false, a8 returns 8 values along m at
+// (m..m+7, k): the operand is stored with m contiguous and the fill
+// transposes it (the weight-gradient products, which reduce over the rows
+// of two activations).  Returning false means zeros.
 //
 // Split-K: blockIdx.z picks rows [z*kchunk, (z+1)*kchunk) of the reduction;
 // the epilogue gets z and writes a partial, and reduce_splits sums the
@@ -29,21 +28,15 @@
 // sub-tile of 4 x 4 mma tiles); f32 with FFMA only (no TF32: the TPU
 // kernels ran f32 at HIGHEST precision), each thread an 8 x 8 register
 // tile.  Every accumulator pair (v0, v1) holds two adjacent columns of one
-// row in both layouts, which is what lets the stack's gate epilogue see
-// both halves of a channel (its conv columns are interleaved a/b).
+// row in both layouts.
 //
 // Requirements the wrappers check: M and N even, every K and every row
 // pitch a multiple of 8 elements, base pointers 16-byte aligned.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "train_common.cuh"
 
 namespace tg {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -55,18 +48,6 @@ template <> struct Pad<bf16> { static constexpr int v = 8; };   // 80-byte rows
 template <> struct Pad<float> { static constexpr int v = 4; };  // 144-byte rows
 
 template <typename T> using Tile = T[BK + Pad<T>::v];
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-// round to T and back: the rounding points of the TPU kernels
-template <typename T> __device__ __forceinline__ float rnd(float x) {
-  return to_f(from_f<T>(x));
-}
 
 template <typename T>
 __device__ __forceinline__ void ld8(const T* src, T* dst) {
@@ -264,78 +245,4 @@ cudaError_t launch_gemm(const P& p, int splits, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- reductions
-
-// out[c] = sum_s part[s * C + c], s ascending
-__global__ void reduce_splits(const float* __restrict__ part, int splits,
-                              long long C, float* __restrict__ out) {
-  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float s = 0.f;
-  for (int i = 0; i < splits; ++i) s += part[i * C + c];
-  out[c] = s;
-}
-
-inline cudaError_t launch_reduce(const float* part, int splits, long long C,
-                                 float* out, cudaStream_t s) {
-  reduce_splits<<<(unsigned)((C + 255) / 256), 256, 0, s>>>(part, splits, C,
-                                                             out);
-  return cudaGetLastError();
-}
-
-// out[(f * B + b) * C + c] = sum over the FR rows of frame f of batch row b
-template <typename Tin>
-__global__ void frame_sum(const Tin* __restrict__ in, int B, int T, int FR,
-                          int C, float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int fb = blockIdx.y;
-  if (c >= C) return;
-  const int f = fb / B, b = fb % B;
-  const Tin* src = in + ((long long)b * T + (long long)f * FR) * C + c;
-  float s = 0.f;
-  for (int t = 0; t < FR; ++t) s += to_f(src[(long long)t * C]);
-  out[(long long)fb * C + c] = s;
-}
-
-template <typename Tin>
-cudaError_t launch_frame_sum(const Tin* in, int B, int T, int FR, int C,
-                             float* out, cudaStream_t s) {
-  dim3 grid((C + 255) / 256, (T / FR) * B);
-  frame_sum<Tin><<<grid, 256, 0, s>>>(in, B, T, FR, C, out);
-  return cudaGetLastError();
-}
-
-// part[s * C + c] = sum of in[r][c] over rows r of chunk s
-__global__ void col_partials(const float* __restrict__ in, int rows, int C,
-                             int chunk, float* __restrict__ part) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int sidx = blockIdx.y;
-  if (c >= C) return;
-  const int r1 = min(rows, (sidx + 1) * chunk);
-  float s = 0.f;
-  for (int r = sidx * chunk; r < r1; ++r) s += in[(long long)r * C + c];
-  part[(long long)sidx * C + c] = s;
-}
-
-// one block: out[0] = sum of x[0..n) in a fixed order
-__global__ void sum_all(const float* __restrict__ x, int n,
-                        float* __restrict__ out) {
-  __shared__ float red[256];
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += 256) s += x[i];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int h = 128; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = red[0];
-}
-
-inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-
 }  // namespace tg
-
-extern "C" const char* vqw_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -5,13 +5,14 @@
 // custom VJP's fused_bwd :1560-1610).  The TPU kernel sweeps reverse time
 // tiles per layer group with a VMEM spill arena for the dilated taps;
 // here the layers are walked in reverse by a host loop, and each layer is
-// six launches over all B*T rows, with dpre making one round trip through
-// device memory per layer:
+// a few launches over all B*T rows, with dpre making one round trip
+// through device memory per layer:
 //
 //   dgated  [N, D] = [dX16 | dskip] . [resw^T ; skipw^T]    (Kred = R+S)
 //           epilogue: dg = T(acc); the gate derivative from the saved
 //           (f, g) in the compute type, factored as the TPU kernel does
 //           (train_pallas.py:876-893); writes dpre = [da | db] [N, 2D]
+//           and gated = T(f*g) [N, D] for the next product
 //   dsk|drs [D, S+R] = gated^T . [dskip | dX16]  (split-K over rows)
 //   drb     [R] = sum over rows of dX (f32)       (per-chunk partials)
 //   dlc     [F, B, 2D] = per-frame sums of dpre (f32)
@@ -42,9 +43,23 @@
 //
 // What bounds it on the H100: the products, 3.77 TFLOP per step at the
 // shipped training shape (about twice the forward): ~3.8 ms at the bf16
-// tensor-core peak, ~56 ms at the f32 FFMA peak; plus ~1.6 GB of dpre
-// traffic (bf16) per step.  Like the forward, this first kernel is a plain
-// tile loop and runs well below the bound.
+// tensor-core peak, ~56 ms at the f32 FFMA peak; and beside them the
+// walk's traffic, ~0.71 GB a layer in bf16 (dpre written once and read
+// three times, dX's f32 read-modify-write, dskip read twice, gated
+// written and read), ~21 GB a step, ~6.3 ms at 3.35 TB/s -- more than
+// the products at the tensor-core rate.
+//
+// The design: every product runs on hopper_gemm.cuh's TMA ring (wgmma in
+// bf16, FFMA in f32); dgated and dX K-major, the tap shift of dX a TMA
+// row coordinate; dsk|drs and dk MN-major as the weight gradients lie in
+// memory, split over the rows so that one layer's launch fills the card
+// once, summed in a fixed order.  The problems and the walk are in
+// train_stack_bwd.cuh.  Fusing the traffic (drb and dlc into the products'
+// epilogues, dpre's round trips) is later work.
+//
+// Measured (chip_smoke.py [train-stack], NVIDIA H100 80GB HBM3, 700 W):
+// bf16 13.18 ms (the tile loop before: 63.78), f32 96.74 (181.99); the
+// products alone as torch.matmul calls take 7.2 / 83.5 ms.
 //
 // C interface (ctypes): pointers and the stream as void*, returns
 // cudaGetLastError() of the first failing launch (0 on success).

@@ -1,61 +1,100 @@
 // The per-layer pieces of the WaveNet training stack's backward, shared by
 // train_stack_bwd.cu (the layer sweep with dk per layer, TPU kernel
 // _make_bwd_sweep_kernel) and train_stack_bwd2.cu (the two-kernel form:
-// the chain, then dk for every layer in one launch).  Each struct is a
-// problem for train_gemm.cuh's tile GEMM:
+// the chain, then dk for every layer in one launch).  Every product is a
+// problem for hopper_gemm.cuh's TMA ring (wgmma in bf16, FFMA in f32):
 //
-//   DgatedP  dgated [N, D] = [dX16 | dskip] . [resw^T ; skipw^T]; the
-//            epilogue applies the gate derivative from the saved (f, g)
-//            and writes dpre = [da | db] [N, 2D]
-//   DskrsP   dsk|drs [D, S+R] = gated^T . [dskip | dX16] (split-K partials)
-//   DkP      dk [K*R, 2D] = sum_t xs[l][t - o_j]^T . dpre[t]  (split-K;
-//            the sweep's, per layer: train_stack_bwd2.cu's one-launch dk
-//            for every layer runs on hopper_gemm.cuh)
-//   DxP      dX += sum_j dpre[t + o_j] . W_j^T, and dX16 = T(dX)
-//   seed_dx  dX, dX16 at the start of the walk
+//   Dgated  K-major  dgated [rows, D] = [dX16 | dskip] . [resw^T ; skipw^T];
+//           k runs over (operand, 64-channel tile), each box zero past its
+//           operand's width.  The epilogue applies the gate derivative from
+//           the saved (f, g), writes dpre = [da | db] [rows, 2D] and
+//           gated = T(f*g) [rows, D], which dsk|drs then reads through TMA
+//   Dskrs   MN-major dsk|drs [D, S+R] = gated^T . [dskip | dX16] over the
+//           rows (split-K partials); an n-tile lies in one operand
+//   Dk      MN-major dk [K*R, 2D] = sum_t xs[l][t - o_j]^T . dpre[t]
+//           (split-K partials): the sweep's per layer, and
+//           train_stack_bwd2.cu's for every layer in one launch
+//   Dx      K-major  dX += sum_j dpre[t + o_j] . W_j^T, and dX16 = T(dX);
+//           k runs over (tap, 64-column tile of 2D), the tap shift a TMA
+//           row coordinate (rows past T arrive as zeros)
+//   seed_dx dX, dX16 at the start of the walk
 //
-// and ``walk``, the reverse walk over the layers that launches them.
-// Rounding points and the sequence-parallel ``start`` are described in
-// train_stack_bwd.cu.
+// and ``walk``, the reverse walk over the layers that launches them.  A
+// row-GEMM tile (Dgated, Dx) is BM rows of one batch row (b, t0), so a tap
+// shift never reaches into the next batch row.  Rounding points and the
+// sequence-parallel ``start`` are described in train_stack_bwd.cu.
+//
+// What bounds the walk on the H100 (B=8 x 6,656, the shipped widths): the
+// products, 3.77 TFLOP per step (~3.8 ms at the bf16 tensor-core peak),
+// and beside them ~0.71 GB of traffic per layer in bf16 (dpre written
+// once and read three times, dX's f32 read-modify-write, dskip read twice,
+// gated written and read), ~21 GB per step, ~6.3 ms at 3.35 TB/s: once
+// the products run near their rate, memory sets the pace.  Fusing those
+// round trips is later work.  Measured times: train_stack_bwd.cu (the
+// sweep) and train_stack_bwd2.cu (the chain).
 #pragma once
 
-#include "train_gemm.cuh"
+#include "hopper_gemm.cuh"
+#include "train_common.cuh"
 
 namespace bwd {
 
 using tg::bf16;
 
-template <typename T>
-struct DgatedP {
-  int M, N, K, kchunk;
-  const T* dx16;     // [rows, R]
-  const T* dskip;    // [rows, S]
-  const T* wt;       // [resw | skipw][l]  [D, R+S]
-  const T* act;      // act[l] [rows, 2D]
-  T* dpre;           // [rows, 2D]
-  int R, S, D, T_, start;
+// the two mainloop layouts of each compute type
+template <typename T> struct Cfgs;
+template <> struct Cfgs<bf16> {
+  using K = hg::Bf16KCfg;
+  using MN = hg::Bf16Cfg;
+};
+template <> struct Cfgs<float> {
+  using K = hg::F32KCfg;
+  using MN = hg::F32Cfg;
+};
+
+using tg::st2;
+using tg::Two;
+
+// the (batch row, first time step) of a row-GEMM tile: blockIdx.z = b,
+// blockIdx.y = tile of the batch row (no division in the epilogue)
+template <class Cfg>
+__device__ __forceinline__ void row_tile(int& b, int& t0) {
+  b = blockIdx.z;
+  t0 = blockIdx.y * Cfg::BM;
+}
+
+template <class C>
+struct Dgated {
+  using Cfg = C;
+  using T = typename C::T;
+  CUtensorMap dx16, dskip;   // [B][T][R], [B][T][S]
+  CUtensorMap wr, ws;        // resw^T, skipw^T of every layer: [L][D][R],
+                             // [L][D][S] (rows R+S apart)
+  const T* act;              // act[l] [rows, 2D]
+  T* dpre;                   // [rows, 2D]
+  T* gated;                  // [rows, D]
+  int l, T_, D, rt, kt, start;   // rt k-tiles of dX16, kt in all
   bool sigmoid_first;
 
-  __device__ bool a8(int m, int k, T* v) const {
-    if (k < R) tg::ld8(dx16 + (long long)m * R + k, v);
-    else tg::ld8(dskip + (long long)m * S + (k - R), v);
-    return true;
+  __device__ void k_range(int& it0, int& it1) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    it0 = 0;
+    it1 = t0 + Cfg::BM <= start ? 0 : kt;   // rows before start: dpre = 0
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(wt + (long long)n * K + k, v);
-    return true;
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    const int n0 = blockIdx.x * Cfg::BN;
+    const bool res = it < rt;
+    const int k0 = (res ? it : it - rt) * Cfg::BK;
+    hg::tma_load_4d(sA, res ? &dx16 : &dskip, bar, k0, t0, b, 0);
+    hg::tma_load_4d(sB, res ? &wr : &ws, bar, k0, n0, l, 0);
   }
-  __device__ void col(int m, int c, float acc) const {
-    T* o = dpre + (long long)m * (2 * D);
-    if (m % T_ < start) {
-      o[c] = tg::from_f<T>(0.f);
-      o[D + c] = tg::from_f<T>(0.f);
-      return;
-    }
+  // the factored gate derivative of one channel (train_pallas.py:876-893)
+  __device__ void gate(float acc, float f, float g, float& da,
+                       float& db) const {
     const float dg = tg::rnd<T>(acc);
-    const T* a = act + (long long)m * (2 * D);
-    const float f = tg::to_f(a[c]), g = tg::to_f(a[D + c]);
-    float da, db;
     if (sigmoid_first) {
       // da = dg*g*f*(1-f), db = dg*f*(1-g^2)
       const float v = tg::rnd<T>(tg::rnd<T>(dg * g) * f);
@@ -70,105 +109,186 @@ struct DgatedP {
       da = tg::rnd<T>(u - tg::rnd<T>(v * f));
       db = tg::rnd<T>(v - tg::rnd<T>(v * g));
     }
-    o[c] = tg::from_f<T>(da);
-    o[D + c] = tg::from_f<T>(db);
   }
-  __device__ void epi(int m, int n, float v0, float v1, int) const {
-    col(m, n, v0);
-    col(m, n + 1, v1);
+  // row m, column n of the output for the tile's (r, c); false outside
+  __device__ bool at(int r, int c, long long& m, int& n, int& t) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    t = t0 + r;
+    n = blockIdx.x * Cfg::BN + c;
+    m = (long long)b * T_ + t;
+    return t < T_ && n < D;                      // D even: n + 1 < D too
+  }
+  struct Pre {
+    Two<T> f, g;
+  };
+  __device__ Pre fetch(int r, int c) const {
+    Pre x{};
+    long long m;
+    int n, t;
+    if (at(r, c, m, n, t)) {
+      x.f.load(act + m * (2 * D) + n);
+      x.g.load(act + m * (2 * D) + D + n);
+    }
+    return x;
+  }
+  __device__ void put(int r, int c, float v0, float v1, const Pre& x) const {
+    long long m;
+    int n, t;
+    if (!at(r, c, m, n, t)) return;
+    const float f0 = x.f.lo(), f1 = x.f.hi(), g0 = x.g.lo(), g1 = x.g.hi();
+    st2(gated + m * D + n, f0 * g0, f1 * g1);
+    T* o = dpre + m * (2 * D);
+    if (t < start) {
+      st2(o + n, 0.f, 0.f);
+      st2(o + D + n, 0.f, 0.f);
+      return;
+    }
+    float da0, db0, da1, db1;
+    gate(v0, f0, g0, da0, db0);
+    gate(v1, f1, g1, da1, db1);
+    st2(o + n, da0, da1);
+    st2(o + D + n, db0, db1);
   }
 };
 
-// The two weight-gradient products below reduce over the rows: each split
-// writes its partial [M, N] product to part[split], reduced afterwards.
-template <typename T>
-struct DskrsP {
-  int M, N, K, kchunk;     // M = D, N = S + R, K = rows
-  const T* act;            // act[l] [rows, 2D]
-  const T* dskip;          // [rows, S]
-  const T* dx16;           // [rows, R]
-  float* part;
-  int D, S, R;
+// dsk|drs: blockIdx.x = output tile (the first nts over dskip's S
+// columns, the rest over dX16's R), blockIdx.y = tile of D, blockIdx.z =
+// split of the rows; k-tile it = Cfg::BK rows t0.. of batch row b.
+template <class C>
+struct Dskrs {
+  using Cfg = C;
+  CUtensorMap gated;         // [B][T][D]
+  CUtensorMap dskip, dx16;   // [B][T][S], [B][T][R]
+  float* part;               // [splits][D][S+R]
+  int D, S, R, tpb, row_tiles, chunk, nts;
 
-  __device__ bool a8(int m, int k, T* v) const {     // gated[k][m..m+7]
-    const T* a = act + (long long)k * (2 * D) + m;
-    alignas(16) T f[8], g[8];
-    tg::ld8(a, f);
-    tg::ld8(a + D, g);
+  __device__ void k_range(int& it0, int& it1) const {
+    it0 = blockIdx.z * chunk;
+    it1 = min(row_tiles, it0 + chunk);
+  }
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    const int b = it / tpb, t0 = (it - b * tpb) * Cfg::BK;
+    const bool skip = (int)blockIdx.x < nts;
+    const int n0 = (skip ? blockIdx.x : blockIdx.x - nts) * Cfg::BN;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] = tg::from_f<T>(tg::to_f(f[i]) * tg::to_f(g[i]));
-    return true;
+    for (int i = 0; i < Cfg::BM / Cfg::BOX; ++i)
+      hg::tma_load_4d(sA + i * Cfg::BOX_BYTES, &gated, bar,
+                      blockIdx.y * Cfg::BM + i * Cfg::BOX, t0, b, 0);
+#pragma unroll
+    for (int i = 0; i < Cfg::BN / Cfg::BOX; ++i)
+      hg::tma_load_4d(sB + i * Cfg::BOX_BYTES, skip ? &dskip : &dx16, bar,
+                      n0 + i * Cfg::BOX, t0, b, 0);
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    if (n < S) tg::ld8(dskip + (long long)k * S + n, v);
-    else tg::ld8(dx16 + (long long)k * R + (n - S), v);
-    return true;
-  }
-  __device__ void epi(int m, int n, float v0, float v1, int split) const {
-    float* o = part + ((long long)split * M + m) * N + n;
-    o[0] = v0;
-    o[1] = v1;
-  }
-};
-
-template <typename T>
-struct DkP {
-  int M, N, K, kchunk;     // M = K*R, N = 2D, K = rows
-  const T* x;              // xs[l] [rows, R]
-  const T* dpre;           // [rows, 2D]
-  float* part;             // split s's [M, N] partial at part + s * pstride
-  long long pstride;
-  int T_, R, D, KS, d, start;
-
-  __device__ bool a8(int m, int k, T* v) const {     // x[k - o_j][c..c+7]
-    const int j = m / R, c = m - j * R;
-    const int o = (KS - 1 - j) * d;
-    if (k % T_ - o < start) return false;
-    tg::ld8(x + (long long)(k - o) * R + c, v);
-    return true;
-  }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(dpre + (long long)k * (2 * D) + n, v);
-    return true;
-  }
-  __device__ void epi(int m, int n, float v0, float v1, int split) const {
-    float* o = part + split * pstride + (long long)m * N + n;
-    o[0] = v0;
-    o[1] = v1;
+  struct Pre {};
+  __device__ Pre fetch(int, int) const { return {}; }
+  __device__ void put(int r, int c, float v0, float v1, const Pre&) const {
+    const bool skip = (int)blockIdx.x < nts;
+    const int m = blockIdx.y * Cfg::BM + r;
+    const int n = (skip ? blockIdx.x : blockIdx.x - nts) * Cfg::BN + c;
+    if (m >= D || n >= (skip ? S : R)) return;     // widths even
+    st2(part + ((long long)blockIdx.z * D + m) * (S + R) + (skip ? n : S + n),
+        v0, v1);
   }
 };
 
-template <typename T>
-struct DxP {
-  int M, N, K, kchunk;     // M = rows, N = R, K = KS*2D
-  const T* dpre;           // [rows, 2D]
-  const T* kern;           // kernel[l] [KS, R, 2D]
-  float* dx;               // [rows, R] f32, updated in place
-  T* dx16;                 // [rows, R]
-  int T_, R, D, KS, d, start;
+// dk for L layers and every tap: blockIdx.x = tile of 2D, blockIdx.y =
+// tap j x channel tile, blockIdx.z = layer x row split.  k-tile it of a
+// split is Cfg::BK rows t0 .. t0+BK-1 of batch row b (a tile never
+// crosses a batch row); tap j's A box starts at row t0 - o_j - start of a
+// map whose row 0 is time step ``start``, so TMA fills rows before start
+// (the causal head, or a whole tap with o_j >= T) and past T with zeros.
+template <class C>
+struct Dk {
+  using Cfg = C;
+  CUtensorMap xs;       // xs [L][B][T - start][R], from row start
+  CUtensorMap dpre;     // dpre [L][B][T][2D]
+  const int* dils;      // [L] in device memory, or null: every layer dil
+  float* part;          // [splits][L][K*R][2D]
+  int L, K, R, N, tpb, row_tiles, chunk, ctiles, splits, dil, start;
 
-  __device__ bool a8(int m, int k, T* v) const {     // dpre[m + o_j][f..]
-    const int j = k / (2 * D), f = k - j * 2 * D;
+  __device__ void k_range(int& it0, int& it1) const {
+    it0 = (blockIdx.z % splits) * chunk;
+    it1 = min(row_tiles, it0 + chunk);
+  }
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    const int l = blockIdx.z / splits;
+    const int j = blockIdx.y / ctiles;
+    const int c0 = (blockIdx.y - j * ctiles) * Cfg::BM;
+    const int b = it / tpb, t0 = (it - b * tpb) * Cfg::BK;
+    const int o = (K - 1 - j) * (dils ? dils[l] : dil);
+#pragma unroll
+    for (int i = 0; i < Cfg::BM / Cfg::BOX; ++i)
+      hg::tma_load_4d(sA + i * Cfg::BOX_BYTES, &xs, bar, c0 + i * Cfg::BOX,
+                      t0 - o - start, b, l);
+#pragma unroll
+    for (int i = 0; i < Cfg::BN / Cfg::BOX; ++i)
+      hg::tma_load_4d(sB + i * Cfg::BOX_BYTES, &dpre, bar,
+                      blockIdx.x * Cfg::BN + i * Cfg::BOX, t0, b, l);
+  }
+  struct Pre {};
+  __device__ Pre fetch(int, int) const { return {}; }
+  __device__ void put(int r, int c, float v0, float v1, const Pre&) const {
+    const int l = blockIdx.z / splits, split = blockIdx.z % splits;
+    const int j = blockIdx.y / ctiles;
+    const int m = (blockIdx.y - j * ctiles) * Cfg::BM + r;
+    const int n = blockIdx.x * Cfg::BN + c;
+    if (m >= R || n >= N) return;                 // N even, so n + 1 < N too
+    st2(part + (((long long)split * L + l) * K * R + (long long)j * R + m) *
+                   N + n,
+        v0, v1);
+  }
+};
+
+template <class C>
+struct Dx {
+  using Cfg = C;
+  using T = typename C::T;
+  CUtensorMap dpre;     // [Ld][B][T][2D]: this layer's at coordinate dl
+  CUtensorMap kern;     // kernel [L][K][R][2D]
+  float* dx;            // [rows, R] f32, updated in place
+  T* dx16;              // [rows, R]
+  int l, dl, T_, R, KS, d, ft, start;   // ft k-tiles of 2D per tap
+
+  __device__ void k_range(int& it0, int& it1) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    it0 = 0;
+    it1 = t0 + Cfg::BM <= start ? 0 : KS * ft;    // rows before start: nothing
+  }
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    const int j = it / ft, f0 = (it - j * ft) * Cfg::BK;
     const int o = (KS - 1 - j) * d;
-    const int t = m % T_;
-    // rows before start get nothing (their dX stays zero)
-    if (t < start || t + o >= T_) return false;
-    tg::ld8(dpre + (long long)(m + o) * (2 * D) + f, v);
-    return true;
+    hg::tma_load_4d(sA, &dpre, bar, f0, t0 + o, b, dl);
+    hg::tma_load_4d(sB, &kern, bar, f0, blockIdx.x * Cfg::BN, j, l);
   }
-  __device__ bool b8(int n, int k, T* v) const {     // W_j[n][f..]
-    const int j = k / (2 * D), f = k - j * 2 * D;
-    tg::ld8(kern + ((long long)j * R + n) * (2 * D) + f, v);
-    return true;
+  // element i of dx for the tile's (r, c); false outside, and on rows
+  // before start (they get nothing: their dX stays zero)
+  __device__ bool at(int r, int c, long long& i) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    const int t = t0 + r;
+    const int n = blockIdx.x * Cfg::BN + c;
+    i = ((long long)b * T_ + t) * R + n;
+    return t < T_ && t >= start && n < R;
   }
-  __device__ void epi(int m, int n, float v0, float v1, int) const {
-    const long long i = (long long)m * R + n;
-    const float a = dx[i] + v0, b = dx[i + 1] + v1;
-    dx[i] = a;
-    dx[i + 1] = b;
-    dx16[i] = tg::from_f<T>(a);
-    dx16[i + 1] = tg::from_f<T>(b);
+  struct Pre {
+    float2 d;
+  };
+  __device__ Pre fetch(int r, int c) const {
+    Pre x{};
+    long long i;
+    if (at(r, c, i)) x.d = *reinterpret_cast<const float2*>(dx + i);
+    return x;
+  }
+  __device__ void put(int r, int c, float v0, float v1, const Pre& x) const {
+    long long i;
+    if (!at(r, c, i)) return;
+    const float a = x.d.x + v0, e = x.d.y + v1;
+    st2(dx + i, a, e);
+    st2(dx16 + i, a, e);
   }
 };
 
@@ -185,7 +305,58 @@ __global__ void seed_dx(const T* __restrict__ dxout, long long n, int T_,
   dx[i] = tg::to_f(v);
 }
 
-constexpr int ROW_CHUNK = 1024;   // rows per split of the row reductions
+constexpr int ROW_CHUNK = 256;    // rows per split of drb's column sums
+constexpr int FILL_BLOCKS = 132;  // blocks a per-layer row reduction aims at
+
+// Splits of a per-layer reduction over the rows with ``tiles`` output
+// tiles: as many whole sets of tiles as one block on each of an H100's
+// SMs holds (a fixed number, so the sums' order depends on the shapes
+// alone; rounding up would leave a second wave almost empty), at least
+// one, at most one per k-tile.
+inline int fill_splits(int tiles, int row_tiles) {
+  int s = FILL_BLOCKS / (tiles > 1 ? tiles : 1);
+  if (s > row_tiles) s = row_tiles;
+  return s < 1 ? 1 : s;
+}
+
+template <class MC> struct Splits {
+  int row_tiles, sk_tiles, sk, dk_tiles, dk;
+  Splits(int K, int R, int D, int S, int B, int T) {
+    row_tiles = B * tg::ceil_div(T, MC::BK);
+    sk_tiles = tg::ceil_div(D, MC::BM) *
+               (tg::ceil_div(S, MC::BN) + tg::ceil_div(R, MC::BN));
+    sk = fill_splits(sk_tiles, row_tiles);
+    dk_tiles = tg::ceil_div(2 * D, MC::BN) * K * tg::ceil_div(R, MC::BM);
+    dk = fill_splits(dk_tiles, row_tiles);
+  }
+};
+
+// The floats of scratch walk needs: gated [rows, D] (room for f32), then
+// the largest set of split partials (dk's only with dk), for either dtype.
+inline long long gated_floats(int B, int T, int D) {
+  return ((long long)B * T * D + 63) / 64 * 64;
+}
+
+inline long long walk_part_floats(int K, int R, int D, int S, int B, int T,
+                                  bool with_dk) {
+  const Splits<hg::Bf16Cfg> a(K, R, D, S, B, T);
+  const Splits<hg::F32Cfg> f(K, R, D, S, B, T);
+  const long long need[5] = {
+      (long long)tg::ceil_div((long long)B * T, ROW_CHUNK) * R,
+      (long long)a.sk * D * (S + R), (long long)f.sk * D * (S + R),
+      with_dk ? (long long)a.dk * K * R * 2 * D : 0ll,
+      with_dk ? (long long)f.dk * K * R * 2 * D : 0ll};
+  long long width = 0;
+  for (long long v : need)
+    if (v > width) width = v;
+  return gated_floats(B, T, D) + width;
+}
+
+#define BWD_TRY(x)                                  \
+  do {                                              \
+    const cudaError_t e_ = (x);                     \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
 
 // The reverse layer walk of both backwards.  With dk given (the sweep) each
 // layer's dk is summed right after its dpre, which reuses one [rows, 2D]
@@ -198,86 +369,112 @@ int walk(int L, int K, int R, int D, int S, int B, int T_, int FR, int start,
          const T* act, const T* xs, const T* dxout, float* dk, float* dskrs,
          float* drb, float* dlc, T* dx16, float* dx, T* dpre, float* part,
          bool sigmoid_first, cudaStream_t s) {
+  using KC = typename Cfgs<T>::K;
+  using MC = typename Cfgs<T>::MN;
   const int rows = B * T_;
   const int F = T_ / FR;
-  const int splits = tg::ceil_div(rows, ROW_CHUNK);
+  const int Ld = dk ? 1 : L;                // layers the dpre buffer holds
+  T* gated = reinterpret_cast<T*>(part);
+  float* psum = part + gated_floats(B, T_, D);
+  const Splits<MC> sp(K, R, D, S, B, T_);
+  const int tpb = tg::ceil_div(T_, KC::BM);
   const long long n = (long long)rows * R;
   seed_dx<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(dxout, n, T_, R,
                                                            start, dx, dx16);
-  cudaError_t e;
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  BWD_TRY(cudaGetLastError());
+
+  Dgated<KC> g;
+  BWD_TRY(hg::encode_k<KC>(&g.dx16, dx16, hg::dense(R, T_, B, 1), KC::BM));
+  BWD_TRY(hg::encode_k<KC>(&g.dskip, dskip, hg::dense(S, T_, B, 1), KC::BM));
+  const long long rs = R + S;
+  BWD_TRY(hg::encode_k<KC>(&g.wr, rsk, hg::View{{R, D, L, 1},
+                                                 {rs, D * rs, L * D * rs}},
+                           KC::BN));
+  BWD_TRY(hg::encode_k<KC>(&g.ws, rsk + R, hg::View{{S, D, L, 1},
+                                                     {rs, D * rs, L * D * rs}},
+                           KC::BN));
+  g.gated = gated;
+  g.T_ = T_; g.D = D; g.start = start;
+  g.rt = tg::ceil_div(R, KC::BK);
+  g.kt = g.rt + tg::ceil_div(S, KC::BK);
+  g.sigmoid_first = sigmoid_first;
+  const dim3 g_grid(tg::ceil_div(D, KC::BN), tpb, B);
+
+  Dskrs<MC> q;
+  BWD_TRY(hg::encode_mn<MC>(&q.gated, gated, hg::dense(D, T_, B, 1)));
+  BWD_TRY(hg::encode_mn<MC>(&q.dskip, dskip, hg::dense(S, T_, B, 1)));
+  BWD_TRY(hg::encode_mn<MC>(&q.dx16, dx16, hg::dense(R, T_, B, 1)));
+  q.part = psum;
+  q.D = D; q.S = S; q.R = R;
+  q.tpb = tg::ceil_div(T_, MC::BK);
+  q.row_tiles = sp.row_tiles;
+  q.chunk = tg::ceil_div(sp.row_tiles, sp.sk);
+  q.nts = tg::ceil_div(S, MC::BN);
+  const dim3 q_grid(q.nts + tg::ceil_div(R, MC::BN), tg::ceil_div(D, MC::BM),
+                    sp.sk);
+
+  Dk<MC> k;
+  k.dils = nullptr; k.part = psum;
+  k.L = 1; k.K = K; k.R = R; k.N = 2 * D; k.start = start;
+  k.tpb = q.tpb;
+  k.row_tiles = sp.row_tiles;
+  k.splits = sp.dk;
+  k.chunk = tg::ceil_div(sp.row_tiles, sp.dk);
+  k.ctiles = tg::ceil_div(R, MC::BM);
+  if (dk)
+    BWD_TRY(hg::encode_mn<MC>(&k.dpre, dpre, hg::dense(2 * D, T_, B, 1)));
+  const dim3 k_grid(tg::ceil_div(2 * D, MC::BN), K * k.ctiles, sp.dk);
+
+  Dx<KC> x;
+  BWD_TRY(hg::encode_k<KC>(&x.dpre, dpre, hg::dense(2 * D, T_, B, Ld),
+                           KC::BM));
+  BWD_TRY(hg::encode_k<KC>(&x.kern, kern, hg::dense(2 * D, R, K, L), KC::BN));
+  x.dx = dx; x.dx16 = dx16;
+  x.T_ = T_; x.R = R; x.KS = K; x.start = start;
+  x.ft = tg::ceil_div(2 * D, KC::BK);
+  const dim3 x_grid(tg::ceil_div(R, KC::BN), tpb, B);
+
   for (int l = L - 1; l >= 0; --l) {
-    const int d = dils[l];
-    const T* act_l = act + (long long)l * rows * 2 * D;
     T* dpre_l = dk ? dpre : dpre + (long long)l * rows * 2 * D;
 
-    DgatedP<T> g;
-    g.M = rows; g.N = D; g.K = R + S; g.kchunk = R + S;
-    g.dx16 = dx16; g.dskip = dskip;
-    g.wt = rsk + (long long)l * D * (R + S);
-    g.act = act_l; g.dpre = dpre_l;
-    g.R = R; g.S = S; g.D = D; g.T_ = T_; g.start = start;
-    g.sigmoid_first = sigmoid_first;
-    if ((e = tg::launch_gemm<T, true, true>(g, 1, s)) != cudaSuccess)
-      return static_cast<int>(e);
+    g.l = l;
+    g.act = act + (long long)l * rows * 2 * D;
+    g.dpre = dpre_l;
+    BWD_TRY(hg::launch(g, g_grid, s));
 
-    DskrsP<T> q;
-    q.M = D; q.N = S + R; q.K = rows; q.kchunk = ROW_CHUNK;
-    q.act = act_l; q.dskip = dskip; q.dx16 = dx16; q.part = part;
-    q.D = D; q.S = S; q.R = R;
-    if ((e = tg::launch_gemm<T, false, false>(q, splits, s)) != cudaSuccess)
-      return static_cast<int>(e);
-    if ((e = tg::launch_reduce(part, splits, (long long)D * (S + R),
-                               dskrs + (long long)l * D * (S + R), s))
-        != cudaSuccess)
-      return static_cast<int>(e);
+    BWD_TRY(hg::launch(q, q_grid, s));
+    BWD_TRY(tg::launch_reduce(psum, sp.sk, (long long)D * (S + R),
+                              dskrs + (long long)l * D * (S + R), s));
 
-    tg::col_partials<<<dim3(tg::ceil_div(R, 256), splits), 256, 0, s>>>(
-        dx, rows, R, ROW_CHUNK, part);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    if ((e = tg::launch_reduce(part, splits, R, drb + (long long)l * R, s))
-        != cudaSuccess)
-      return static_cast<int>(e);
+    tg::col_partials<<<dim3(tg::ceil_div(R, 256), tg::ceil_div(rows,
+                                                                ROW_CHUNK)),
+                       256, 0, s>>>(dx, rows, R, ROW_CHUNK, psum);
+    BWD_TRY(cudaGetLastError());
+    BWD_TRY(tg::launch_reduce(psum, tg::ceil_div(rows, ROW_CHUNK), R,
+                              drb + (long long)l * R, s));
 
-    if ((e = tg::launch_frame_sum<T>(dpre_l, B, T_, FR, 2 * D,
-                                     dlc + (long long)l * F * B * 2 * D, s))
-        != cudaSuccess)
-      return static_cast<int>(e);
+    BWD_TRY(tg::launch_frame_sum<T>(dpre_l, B, T_, FR, 2 * D,
+                                    dlc + (long long)l * F * B * 2 * D, s));
 
     if (dk) {
-      DkP<T> k;
-      k.M = K * R; k.N = 2 * D; k.K = rows; k.kchunk = ROW_CHUNK;
-      k.x = xs + (long long)l * rows * R; k.dpre = dpre_l; k.part = part;
-      k.pstride = (long long)K * R * 2 * D;
-      k.T_ = T_; k.R = R; k.D = D; k.KS = K; k.d = d; k.start = start;
-      if ((e = tg::launch_gemm<T, false, false>(k, splits, s)) !=
-          cudaSuccess)
-        return static_cast<int>(e);
-      if ((e = tg::launch_reduce(part, splits, (long long)K * R * 2 * D,
-                                 dk + (long long)l * K * R * 2 * D, s))
-          != cudaSuccess)
-        return static_cast<int>(e);
+      // this layer's xs seen from row start: rows t - o_j < start are
+      // negative coordinates and load zeros
+      BWD_TRY(hg::encode_mn<MC>(
+          &k.xs, xs + (long long)l * rows * R + (long long)start * R,
+          hg::View{{R, T_ - start > 0 ? T_ - start : 1, B, 1},
+                   {R, (long long)T_ * R, (long long)rows * R}}));
+      k.dil = dils[l];
+      BWD_TRY(hg::launch(k, k_grid, s));
+      BWD_TRY(tg::launch_reduce(psum, sp.dk, (long long)K * R * 2 * D,
+                                dk + (long long)l * K * R * 2 * D, s));
     }
 
-    DxP<T> x;
-    x.M = rows; x.N = R; x.K = K * 2 * D; x.kchunk = K * 2 * D;
-    x.dpre = dpre_l; x.kern = kern + (long long)l * K * R * 2 * D;
-    x.dx = dx; x.dx16 = dx16;
-    x.T_ = T_; x.R = R; x.D = D; x.KS = K; x.d = d; x.start = start;
-    if ((e = tg::launch_gemm<T, true, true>(x, 1, s)) != cudaSuccess)
-      return static_cast<int>(e);
+    x.l = l;
+    x.dl = dk ? 0 : l;
+    x.d = dils[l];
+    BWD_TRY(hg::launch(x, x_grid, s));
   }
   return 0;
-}
-
-// The floats of scratch walk needs (the dk partials only with dk).
-inline long long walk_part_floats(int K, int R, int D, int S, int B, int T,
-                                  bool with_dk) {
-  long long width = (long long)D * (S + R);
-  if (with_dk && (long long)K * R * 2 * D > width)
-    width = (long long)K * R * 2 * D;
-  if (R > width) width = R;
-  return tg::ceil_div((long long)B * T, ROW_CHUNK) * width;
 }
 
 }  // namespace bwd

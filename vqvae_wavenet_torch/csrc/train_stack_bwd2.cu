@@ -32,8 +32,11 @@
 // 2.51 TFLOP (shipped) / 3.49 (Magenta) and dk 1.26 / 1.40: ~2.5 + 1.3 ms
 // at the bf16 tensor-core peak, ~37 + 19 ms at the f32 FFMA peak.  dpre_all
 // is written once and read back once by dk (1.64 GB shipped in bf16, ~0.5
-// ms each way at 3.35 TB/s).  The chain is a plain tile loop on
-// train_gemm.cuh (mma.sync, single-buffered), well below the bound.
+// ms each way at 3.35 TB/s).  The chain's products are the sweep's, on
+// hopper_gemm.cuh (train_stack_bwd.cuh): bf16 11.65 ms shipped, 18.08
+// Magenta (the tile loop before: 48.45, 71.62; chip_smoke.py
+// [train-bwd2], NVIDIA H100 80GB HBM3, 700 W), its outputs bit-identical
+// to the sweep's.
 //
 // dk is a Hopper GEMM (hopper_gemm.cuh): a 4-stage ring of TMA loads
 // feeding two wgmma warpgroups (bf16, 128 x 256 x 64 tiles) or a 5-stage
@@ -80,71 +83,26 @@ inline int dk_splits(int B, int T) {
   return s < 1 ? 1 : (int)s;
 }
 
-// dk for every layer and tap in one grid: blockIdx.x = tile of 2D,
-// blockIdx.y = tap j x channel tile, blockIdx.z = layer x row split.
-// k-tile it of a split is Cfg::BK rows t0 .. t0+BK-1 of batch row b (a
-// tile never crosses a batch row); tap j's A box starts at row t0 - o_j,
-// and TMA fills rows before 0 (the causal head, or a whole tap with
-// o_j >= T) and past T with zeros.
-template <class C>
-struct DkTma {
-  using Cfg = C;
-  CUtensorMap xs;       // xs [L][B][T][R]
-  CUtensorMap dpre;     // dpre_all [L][B][T][2D]
-  const int* dils;      // [L], device memory
-  float* part;          // [splits][L][K*R][2D]
-  int L, K, R, N, tpb, row_tiles, chunk, ctiles, splits;
-
-  __device__ void k_range(int& it0, int& it1) const {
-    it0 = (blockIdx.z % splits) * chunk;
-    it1 = min(row_tiles, it0 + chunk);
-  }
-  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
-    const int l = blockIdx.z / splits;
-    const int j = blockIdx.y / ctiles;
-    const int c0 = (blockIdx.y - j * ctiles) * Cfg::BM;
-    const int b = it / tpb, t0 = (it - b * tpb) * Cfg::BK;
-    const int o = (K - 1 - j) * dils[l];
-#pragma unroll
-    for (int i = 0; i < Cfg::BM / Cfg::BOX; ++i)
-      hg::tma_load_4d(sA + i * Cfg::BOX_BYTES, &xs, bar, c0 + i * Cfg::BOX,
-                      t0 - o, b, l);
-#pragma unroll
-    for (int i = 0; i < Cfg::BN / Cfg::BOX; ++i)
-      hg::tma_load_4d(sB + i * Cfg::BOX_BYTES, &dpre, bar,
-                      blockIdx.x * Cfg::BN + i * Cfg::BOX, t0, b, l);
-  }
-  __device__ void store(int r, int c, float v0, float v1) const {
-    const int l = blockIdx.z / splits, split = blockIdx.z % splits;
-    const int j = blockIdx.y / ctiles;
-    const int m = (blockIdx.y - j * ctiles) * Cfg::BM + r;
-    const int n = blockIdx.x * Cfg::BN + c;
-    if (m >= R || n >= N) return;                 // N even, so n + 1 < N too
-    float* o = part + (((long long)split * L + l) * K * R + (long long)j * R +
-                       m) * N + n;
-    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-  }
-};
-
 template <class Cfg>
 int dk(int L, int K, int R, int D, int B, int T_, const int* dils_dev,
        const typename Cfg::T* dpre_all, const typename Cfg::T* xs,
        float* dk_out, float* part, cudaStream_t s) {
-  DkTma<Cfg> p;
+  bwd::Dk<Cfg> p;
   cudaError_t e;
-  if ((e = hg::encode_tensor_map<Cfg>(&p.xs, xs, R, T_, B, L)) != cudaSuccess ||
-      (e = hg::encode_tensor_map<Cfg>(&p.dpre, dpre_all, 2 * D, T_, B, L)) !=
+  if ((e = hg::encode_mn<Cfg>(&p.xs, xs, hg::dense(R, T_, B, L))) !=
+          cudaSuccess ||
+      (e = hg::encode_mn<Cfg>(&p.dpre, dpre_all, hg::dense(2 * D, T_, B, L))) !=
           cudaSuccess)
     return static_cast<int>(e);
   p.dils = dils_dev; p.part = part;
-  p.L = L; p.K = K; p.R = R; p.N = 2 * D;
+  p.L = L; p.K = K; p.R = R; p.N = 2 * D; p.dil = 0; p.start = 0;
   p.tpb = tg::ceil_div(T_, Cfg::BK);
   p.row_tiles = B * p.tpb;
   p.splits = dk_splits(B, T_);
   p.chunk = tg::ceil_div(p.row_tiles, p.splits);
   p.ctiles = tg::ceil_div(R, Cfg::BM);
   dim3 grid(tg::ceil_div(2 * D, Cfg::BN), K * p.ctiles, L * p.splits);
-  if ((e = hg::launch_mn_gemm(p, grid, s)) != cudaSuccess)
+  if ((e = hg::launch(p, grid, s)) != cudaSuccess)
     return static_cast<int>(e);
   return static_cast<int>(tg::launch_reduce(
       part, p.splits, (long long)L * K * R * 2 * D, dk_out, s));

@@ -25,8 +25,7 @@
 //           the causal gather reads zeros for t - o < start (so the first
 //           kept row sees the zero history of a sequence start), and both
 //           epilogues write zeros there (act, gated, xs[l+1], xout; the
-//           skip columns are then zero sums).  The rows are still swept by
-//           the GEMMs: skipping them is later work.
+//           skip columns are then zero sums).
 //   xout    when given, the last layer keeps N = S + R and writes its
 //           residual output T((x + res) + res_b) to xout [B, T, R].
 //
@@ -39,55 +38,118 @@
 //
 // What bounds it on the H100: the products, 1.88 TFLOP per step at the
 // shipped training shape (B=8, T=6656, R=D=256, S=512, K=3, L=30): ~1.9 ms
-// at the bf16 tensor-core peak, ~28 ms at the f32 FFMA peak.  This first
-// kernel is a plain single-buffered tile loop (no TMA, no wgmma), so it
-// runs well below either bound; making it fast is later work.
+// at the bf16 tensor-core peak, ~28 ms at the f32 FFMA peak.  Beside them
+// the epilogues: the gate (two transcendentals a channel) with act and
+// gated written, xs[l+1] written and xs[l] read, and the skip sum's f32
+// read-modify-write of [rows, S] (109 MB each way a layer, ~2 ms a step at
+// 3.35 TB/s).
+//
+// The design: both products run on hopper_gemm.cuh's TMA ring (wgmma in
+// bf16, FFMA in f32), K-major.  A tile is 128 rows of one batch row; the
+// conv's k runs over (tap j, 64-channel tile), and tap j's A box is the
+// xs map's rows t0 - o_j - start: the map starts at row ``start`` of every
+// batch row (xs + start * R), so rows before it -- the causal pad, and
+// the sequence-parallel head -- are negative coordinates and load zeros,
+// with no index test in the mainloop.  The weights are maps too, with a
+// box per (tap, channel tile) that is zero past R.  A tile wholly before
+// start runs no k-tiles (its outputs are zeros).  The epilogues run after
+// the mainloop from a C tile in shared memory (hopper_gemm.cuh).
+//
+// Measured (chip_smoke.py [train-stack], NVIDIA H100 80GB HBM3, 700 W):
+// bf16 9.83 ms (the tile loop before: 27.87), f32 53.95 (91.04); the
+// products alone as torch.matmul calls take 3.6 / 42.5 ms.  The bf16
+// kernel is bound by its epilogues, which do not overlap the mainloop.
 //
 // C interface (ctypes): pointers and the stream as void*, returns
 // cudaGetLastError() of the first failing launch (0 on success).
 
-#include "train_gemm.cuh"
+#include "hopper_gemm.cuh"
+#include "train_common.cuh"
 
 namespace {
 
 using tg::bf16;
+using tg::st2;
+using tg::Two;
 
-template <typename T>
-struct ConvP {
-  int M, N, K, kchunk;
-  const T* x;        // xs[l]   [rows, R]
-  const T* wt;       // [2D (interleaved), K*R]
+template <typename T> struct KCfg;
+template <> struct KCfg<bf16> { using type = hg::Bf16KCfg; };
+template <> struct KCfg<float> { using type = hg::F32KCfg; };
+
+// the (batch row, first time step) of a tile: blockIdx.z = b, blockIdx.y
+// = tile of the batch row (no division in the epilogue)
+template <class Cfg>
+__device__ __forceinline__ void row_tile(int& b, int& t0) {
+  b = blockIdx.z;
+  t0 = blockIdx.y * Cfg::BM;
+}
+
+template <class C>
+struct Conv {
+  using Cfg = C;
+  using T = typename C::T;
+  CUtensorMap x;     // xs [L][B][T - start][R], from row start
+  CUtensorMap w;     // wconv_t [L][2D (interleaved)][K][R]
   const float* lc;   // lc_encb[l] [F, B, 2D]
   T* act;            // act[l]  [rows, 2D]
   T* gated;          // [rows, D]
-  int T_, R, D, KS, d, FR, B, start;
+  int l, T_, D, KS, d, FR, B, ct, start;   // ct channel tiles per tap
+  float inv_fr;      // 1 / FR
   bool sigmoid_first;
 
-  __device__ bool a8(int m, int k, T* v) const {
-    const int j = k / R, c = k - j * R;
+  __device__ void k_range(int& it0, int& it1) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    it0 = 0;
+    it1 = t0 + Cfg::BM <= start ? 0 : KS * ct;
+  }
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    const int j = it / ct, c0 = (it - j * ct) * Cfg::BK;
     const int o = (KS - 1 - j) * d;
-    const int t = m % T_;
-    if (t - o < start) return false;   // the causal pad (start = 0: t < o)
-    tg::ld8(x + (long long)(m - o) * R + c, v);
-    return true;
+    hg::tma_load_4d(sA, &x, bar, c0, t0 - o - start, b, l);
+    hg::tma_load_4d(sB, &w, bar, c0, j, blockIdx.x * Cfg::BN, l);
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(wt + (long long)n * K + k, v);
-    return true;
+  // batch row b, time step t and output column n for the tile's (r, c)
+  __device__ bool at(int r, int c, int& b, int& t, int& n) const {
+    int t0;
+    row_tile<Cfg>(b, t0);
+    t = t0 + r;
+    n = blockIdx.x * Cfg::BN + c;
+    return t < T_ && n < 2 * D;
   }
-  __device__ void epi(int m, int n, float v0, float v1, int) const {
-    const int c = n >> 1;
-    const int b = m / T_, t = m - b * T_;
-    T* a = act + (long long)m * (2 * D);
+  struct Pre {
+    float2 l;          // the condition of both halves of channel n / 2
+  };
+  __device__ Pre fetch(int r, int c) const {
+    Pre e{};
+    int b, t, n;
+    if (at(r, c, b, t, n) && t >= start) {
+      // t / FR without an integer division: the float quotient is off by
+      // at most one (t < 2^24), then corrected
+      int f = __float2int_rz((float)t * inv_fr);
+      f -= f * FR > t;
+      f += (f + 1) * FR <= t;
+      const float* lr = lc + ((long long)f * B + b) * (2 * D);
+      e.l = make_float2(lr[n >> 1], lr[D + (n >> 1)]);
+    }
+    return e;
+  }
+  __device__ void put(int r, int c, float v0, float v1, const Pre& e) const {
+    int b, t, n;
+    if (!at(r, c, b, t, n)) return;
+    const int ch = n >> 1;                 // columns n, n+1: both halves of ch
+    const long long m = (long long)b * T_ + t;
+    T* a = act + m * (2 * D);
     if (t < start) {
       const T z = tg::from_f<T>(0.f);
-      a[c] = z;
-      a[D + c] = z;
-      gated[(long long)m * D + c] = z;
+      a[ch] = z;
+      a[D + ch] = z;
+      gated[m * D + ch] = z;
       return;
     }
-    const float* l = lc + ((long long)(t / FR) * B + b) * (2 * D);
-    const float pa = v0 + l[c], pb = v1 + l[D + c];
+    const float pa = v0 + e.l.x, pb = v1 + e.l.y;
     float f, g;
     if (sigmoid_first) {
       f = tg::rnd<T>(1.f / (1.f + expf(-pa)));
@@ -96,52 +158,89 @@ struct ConvP {
       f = tg::rnd<T>(tanhf(pa));
       g = tg::rnd<T>(1.f / (1.f + expf(-pb)));
     }
-    a[c] = tg::from_f<T>(f);
-    a[D + c] = tg::from_f<T>(g);
-    gated[(long long)m * D + c] = tg::from_f<T>(f * g);
+    a[ch] = tg::from_f<T>(f);
+    a[D + ch] = tg::from_f<T>(g);
+    gated[m * D + ch] = tg::from_f<T>(f * g);
   }
 };
 
-template <typename T>
-struct SkipResP {
-  int M, N, K, kchunk;
-  const T* gated;    // [rows, D]
-  const T* wt;       // srw^T [S+R, D]
-  const T* x;        // xs[l]   [rows, R]
-  T* xnext;          // xs[l+1] (or xout after the last layer) [rows, R]
+template <class C>
+struct SkipRes {
+  using Cfg = C;
+  using T = typename C::T;
+  CUtensorMap g;       // gated [B][T][D]
+  CUtensorMap w;       // srw^T [L][S+R][D]
+  const T* x;          // xs[l]   [rows, R]
+  T* xnext;            // xs[l+1] (or xout after the last layer) [rows, R]
   const float* res_b;  // [R]
-  float* skipacc;    // [rows, S] f32
-  T* skip_out;       // [rows, S]
-  int S, R, T_, start;
+  float* skipacc;      // [rows, S] f32
+  T* skip_out;         // [rows, S]
+  int l, N, S, R, T_, kt, start;
   bool first, last;
 
-  __device__ bool a8(int m, int k, T* v) const {
-    tg::ld8(gated + (long long)m * K + k, v);
-    return true;
+  __device__ void k_range(int& it0, int& it1) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    it0 = 0;
+    it1 = t0 + Cfg::BM <= start ? 0 : kt;
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(wt + (long long)n * K + k, v);
-    return true;
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    hg::tma_load_4d(sA, &g, bar, it * Cfg::BK, t0, b, 0);
+    hg::tma_load_4d(sB, &w, bar, it * Cfg::BK, blockIdx.x * Cfg::BN, l, 0);
   }
-  __device__ void col(int m, int n, float v) const {
+  // row m, time step t and output column n for the tile's (r, c)
+  __device__ bool at(int r, int c, long long& m, int& t, int& n) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    t = t0 + r;
+    n = blockIdx.x * Cfg::BN + c;
+    m = (long long)b * T_ + t;
+    return t < T_ && n < N;               // S, N even: n, n+1 on one side
+  }
+  struct Pre {
+    float2 a;          // skip: the running sum; residual: res_b
+    Two<T> x;          // residual: the layer input
+  };
+  __device__ Pre fetch(int r, int c) const {
+    Pre p{};
+    long long m;
+    int t, n;
+    if (!at(r, c, m, t, n)) return p;
     if (n < S) {
-      float* acc = skipacc + (long long)m * S + n;
-      const float s = first ? v : *acc + v;
-      if (last) skip_out[(long long)m * S + n] = tg::from_f<T>(s);
-      else *acc = s;
+      if (!first) p.a = *reinterpret_cast<const float2*>(skipacc + m * S + n);
+    } else if (t >= start) {
+      p.a = *reinterpret_cast<const float2*>(res_b + n - S);
+      p.x.load(x + m * R + n - S);
+    }
+    return p;
+  }
+  __device__ void put(int r, int c, float v0, float v1, const Pre& p) const {
+    long long m;
+    int t, n;
+    if (!at(r, c, m, t, n)) return;
+    if (n < S) {
+      const float s0 = first ? v0 : p.a.x + v0;
+      const float s1 = first ? v1 : p.a.y + v1;
+      if (last)
+        st2(skip_out + m * S + n, s0, s1);
+      else
+        st2(skipacc + m * S + n, s0, s1);
+    } else if (t < start) {
+      st2(xnext + m * R + n - S, 0.f, 0.f);
     } else {
-      const int c = n - S;
-      const long long i = (long long)m * R + c;
-      xnext[i] = m % T_ < start
-                     ? tg::from_f<T>(0.f)
-                     : tg::from_f<T>((tg::to_f(x[i]) + v) + res_b[c]);
+      st2(xnext + m * R + n - S, (p.x.lo() + v0) + p.a.x,
+          (p.x.hi() + v1) + p.a.y);
     }
   }
-  __device__ void epi(int m, int n, float v0, float v1, int) const {
-    col(m, n, v0);
-    col(m, n + 1, v1);
-  }
 };
+
+#define FWD_TRY(x)                                      \
+  do {                                                  \
+    const cudaError_t e_ = (x);                         \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
 
 template <typename T>
 int run(int L, int K, int R, int D, int S, int B, int T_, int FR, int start,
@@ -149,37 +248,52 @@ int run(int L, int K, int R, int D, int S, int B, int T_, int FR, int start,
         const float* res_b, const float* lc_encb, T* xs, T* act,
         T* gated, float* skipacc, T* skip_out, T* xout, bool sigmoid_first,
         cudaStream_t s) {
+  using Cfg = typename KCfg<T>::type;
   const int rows = B * T_;
   const int F = T_ / FR;
+  const int tpb = tg::ceil_div(T_, Cfg::BM);
+
+  Conv<Cfg> c;
+  // every layer's input seen from row start of each batch row
+  FWD_TRY(hg::encode_k<Cfg>(
+      &c.x, xs + (long long)start * R,
+      hg::View{{R, T_ - start > 0 ? T_ - start : 1, B, L},
+               {R, (long long)T_ * R, (long long)rows * R}},
+      Cfg::BM));
+  FWD_TRY(hg::encode_k<Cfg>(&c.w, wconv_t, hg::dense(R, K, 2 * D, L), Cfg::BN,
+                            2));
+  c.gated = gated;
+  c.T_ = T_; c.D = D; c.KS = K; c.FR = FR; c.B = B;
+  c.inv_fr = 1.f / FR;
+  c.ct = tg::ceil_div(R, Cfg::BK);
+  c.start = start;
+  c.sigmoid_first = sigmoid_first;
+  const dim3 c_grid(tg::ceil_div(2 * D, Cfg::BN), tpb, B);
+
+  SkipRes<Cfg> p;
+  FWD_TRY(hg::encode_k<Cfg>(&p.g, gated, hg::dense(D, T_, B, 1), Cfg::BM));
+  FWD_TRY(hg::encode_k<Cfg>(&p.w, srw_t, hg::dense(D, S + R, L, 1), Cfg::BN));
+  p.skipacc = skipacc;
+  p.skip_out = skip_out;
+  p.S = S; p.R = R; p.T_ = T_; p.start = start;
+  p.kt = tg::ceil_div(D, Cfg::BK);
+
   for (int l = 0; l < L; ++l) {
-    ConvP<T> c;
-    c.M = rows; c.N = 2 * D; c.K = K * R; c.kchunk = K * R;
-    c.x = xs + (long long)l * rows * R;
-    c.wt = wconv_t + (long long)l * 2 * D * K * R;
+    c.l = l;
+    c.d = dils[l];
     c.lc = lc_encb + (long long)l * F * B * 2 * D;
     c.act = act + (long long)l * rows * 2 * D;
-    c.gated = gated;
-    c.T_ = T_; c.R = R; c.D = D; c.KS = K; c.d = dils[l]; c.FR = FR; c.B = B;
-    c.start = start;
-    c.sigmoid_first = sigmoid_first;
-    cudaError_t e = tg::launch_gemm<T, true, true>(c, 1, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    FWD_TRY(hg::launch(c, c_grid, s));
 
-    SkipResP<T> p;
     const bool last = l == L - 1;
-    p.M = rows; p.N = last && !xout ? S : S + R; p.K = D; p.kchunk = D;
-    p.gated = gated;
-    p.wt = srw_t + (long long)l * (S + R) * D;
+    p.l = l;
+    p.N = last && !xout ? S : S + R;
     p.x = xs + (long long)l * rows * R;
     p.xnext = last ? xout : xs + (long long)(l + 1) * rows * R;
     p.res_b = res_b + (long long)l * R;
-    p.skipacc = skipacc;
-    p.skip_out = skip_out;
-    p.S = S; p.R = R; p.T_ = T_; p.start = start;
     p.first = l == 0;
     p.last = last;
-    e = tg::launch_gemm<T, true, true>(p, 1, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    FWD_TRY(hg::launch(p, dim3(tg::ceil_div(p.N, Cfg::BN), tpb, B), s));
   }
   return 0;
 }
