@@ -63,8 +63,8 @@
 // Tiles: bf16 MN-major 128 x 256 x 64 (each warpgroup a 64 x 256 half, one
 // m64n256k16 per 16 of k), 4 stages of 48 KB, one block an SM; bf16
 // K-major 128 x 128 x 64 (m64n128k16), 3 stages of 32 KB, two blocks an SM,
-// so that one block's epilogue can overlap the other's mainloop (the
-// K-major products carry the stack's heavy epilogues); f32 128 x 128 x 32
+// twice the warps for the stack's heavy epilogues, which carry these
+// kernels (the two blocks' epilogues overlap each other); f32 128 x 128 x 32
 // (each thread an 8 x 8 register tile), 5 stages of 32 KB, one block an
 // SM.  The consumers release a stage as soon as the products reading it
 // are done (bf16: wgmma.wait_group 1 keeps one k-tile of products in
@@ -75,9 +75,9 @@
 // On an NVIDIA H100 80GB HBM3 (700 W; chip_smoke.py): dk, MN-major, bf16
 // ~600 TFLOP/s, f32 46 TFLOP/s (68% of the FFMA peak); the stack's
 // products in train_stack_fwd.cu and train_stack_bwd.cu, whose notes give
-// their times.  What the grid does not yet do: overlap a tile's epilogue
-// with its own block's next mainloop (a persistent schedule); the two
-// blocks of an SM start together and tend to stay in step.
+// their times.  What the grid does not do: overlap a tile's epilogue with
+// a mainloop -- the two add up (measured by cutting either out), which a
+// persistent schedule with the C tile outside the ring would change.
 //
 // Host side: encode() builds a CUtensorMap through the driver entry point
 // cuTensorMapEncodeTiled, obtained from the runtime
@@ -114,9 +114,8 @@ struct F32Cfg {
 };
 
 // K-major: BK elements are 128 bytes, one swizzled row per tile row.
-// bf16 runs two blocks an SM (BLOCKS), so that one block's epilogue
-// overlaps the other's mainloop: 128 x 128 tiles (64 accumulators a
-// thread), 3 stages of 32 KB.
+// bf16 runs two blocks an SM (BLOCKS), for twice the warps in the
+// epilogues: 128 x 128 tiles (64 accumulators a thread), 3 stages of 32 KB.
 struct Bf16KCfg {
   using T = __nv_bfloat16;
   static constexpr bool K_MAJOR = true;
