@@ -79,7 +79,7 @@
 // a mainloop -- the two add up (measured by cutting either out), which a
 // persistent schedule with the C tile outside the ring would change.
 //
-// Host side: encode() builds a CUtensorMap through the driver entry point
+// Host side: encode() builds a CUtensorMap through the CUDA entry point
 // cuTensorMapEncodeTiled, obtained from the runtime
 // (cudaGetDriverEntryPoint), so nothing links against libcuda.
 #pragma once
