@@ -9,7 +9,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              nvcc, one process each, all at once (ptxas registers/spills
              of the generation and training kernels are printed);
   3. vq      the VQ kernel against its plain twin at N = 384 (generation),
-             832 (training: B=8 x 104 frames) and 65,536 (k = 512, d = 64);
+             832 (training: B=8 x 104 frames) and 65,536 (k = 512, d = 64),
+             its device time (torch.profiler) beside the bound, and exact
+             ties (equal codes: the lower index);
   4. gen     the generation kernel against its plain twin at the shipped
              wavenet_parameters.json widths with C = 128: teacher-forced
              logits (f32 and bf16), a greedy f32 clip, and sample-mode
@@ -40,7 +42,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              (R=D=136, S=200, B=3, T=5,000, a tap shifted past T) at start
              0 and, through the SP variants, start 1,000;
   9. train-epilogue  the loss-head kernel (both entries) against its
-             plain twin at the same shape, f32 and bf16;
+             plain twin at the same shape and at B=3, T=4416 (a half-empty
+             last row tile), f32 and bf16; two runs bitwise equal, the
+             device time per kernel (torch.profiler);
   10. train-e2e      the training entry point (vqvae_wavenet_torch.train)
              at -length 6656 -batch 8 on a synthetic VCTK-layout corpus
              with the shipped config in f32 and in bf16, six steps each,
@@ -197,11 +201,38 @@ def phase_build():
                 f"spill stores and loads (ptxas)")
 
 
+def _vq_ties(vk, emb, g) -> None:
+    """Exact ties: codes 300, 67 and 6 are copies of codes 100, 3 and 5 (in
+    another warp, the same thread, a neighbouring lane of the kernel's
+    code tile); rows near the lower code of each pair must get the lower
+    index from the kernel and the plain twin alike, through both row
+    groupings (8 rows at N = 384, 32 at N = 8,448)."""
+    emb = emb.clone()
+    pairs = ((100, 300), (3, 67), (5, 6))
+    for lo, hi in pairs:
+        emb[hi] = emb[lo]
+    for n in (384, 8448):
+        lows = torch.tensor([lo for lo, _ in pairs]).repeat(n // 3)
+        z = (emb[lows.cuda()] + 1e-3 * torch.randn(
+            (n, emb.shape[1]), generator=g).cuda())
+        got = vk.vq_nearest_cuda(z, emb).cpu()
+        ref = vk.vq_nearest_plain(z, emb).cpu()
+        log(f"[vq] exact ties N={n} (codes {pairs} equal): kernel returns "
+            f"the lower index on {int((got == lows).sum())} of {n} rows, "
+            f"plain on {int((ref == lows).sum())}")
+        if not (torch.equal(got, lows) and torch.equal(ref, lows)):
+            raise AssertionError("VQ: an exact tie did not go to the lower "
+                                 "index")
+
+
 def phase_vq():
     """Kernel vs plain on the card.  Indices must be equal wherever the
     plain version's best-to-second distance gap exceeds 1e-5 * ||e||^2
     (the two sum the 64-term dot in different orders, so closer ties may
-    legitimately resolve either way)."""
+    legitimately resolve either way); exact ties (equal codes) must go to
+    the lower index (_vq_ties).  Times: CUDA events around 50 calls (the
+    Python call included) and the kernel's device time by torch.profiler,
+    beside the bound."""
     from vqvae_wavenet_torch.ops import vq_kernels as vk
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -222,15 +253,36 @@ def phase_vq():
                      - dist.gather(1, ref[:, None])).abs().max())
         ms = cuda_ms(lambda: vk.vq_nearest_cuda(z, emb), 50)
         plain_ms = cuda_ms(lambda: vk.vq_nearest_plain(z, emb), 50)
-        b_ms, b_by = bound(2.0 * n * k * d, nbytes(z, emb) + 4 * n, "f32")
+        seen = _kernel_breakdown(lambda: [
+            vk.vq_nearest_cuda(z, emb) for _ in range(20)]).get(
+                "vq_argmin_kernel")
+        dev_us = seen[0] / seen[1] if seen else None
+        b_ms, b_by = bound(2.0 * n * k * d, nbytes(z, emb) + 8 * n, "f32")
         log(f"[vq] N={n} k={k} d={d}: mismatches {int((got != ref).sum())} "
             f"(outside ties {int(bad.sum())}), max |dist(kernel) - "
-            f"dist(plain)| {err:.3g}; kernel {ms * 1e3:.1f} us, plain "
+            f"dist(plain)| {err:.3g}; kernel {ms * 1e3:.1f} us (CUDA "
+            f"events, the call included), device "
+            f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} "
+            f"(torch.profiler), bound {b_ms * 1e3:.2f} us by {b_by}; plain "
             f"{plain_ms * 1e3:.1f} us")
         if bad.any():
             raise AssertionError(f"VQ kernel disagrees with plain at N={n}")
         result[n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "device_us": dev_us}
+    _vq_ties(vk, emb, g)
+    # off the shipped widths: few rows and codes with d padded to 12 (a
+    # TMA box wider and longer than the tensor), and a codebook larger
+    # than shared memory (chunks restaged for every row group)
+    for n, kk, dd in ((5, 3, 10), (1000, 700, 256)):
+        z = torch.randn((n, dd), generator=g).to(dev)
+        e = torch.randn((kk, dd), generator=g).to(dev)
+        got, ref = vk.vq_nearest_cuda(z, e), vk.vq_nearest_plain(z, e)
+        log(f"[vq] N={n} k={kk} d={dd}: mismatches "
+            f"{int((got != ref).sum())}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"VQ kernel disagrees with plain at N={n} "
+                                 f"k={kk} d={dd}")
     return result[384]
 
 
@@ -863,21 +915,35 @@ def _stack_edge(card: str) -> None:
 
 def _kernel_breakdown(fn) -> dict:
     """Device microseconds per kernel (total, calls) of one call of fn, by
-    torch.profiler, kernels named by their problem (the stack's GEMM
-    problems of csrc/hopper_gemm.cuh, the reductions)."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler, kernels named by their problem (the GEMM problems of
+    csrc/hopper_gemm.cuh) or their own name.  The profiler runs a warm-up
+    cycle of fn before the one it keeps (a session can drop the first
+    kernels it sees) and hands that cycle's events to on_trace_ready; a
+    cycle that kept no device event is run again, up to three times; {} if
+    none kept any."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        m = re.search(r"gemm<(?:\(anonymous namespace\)::|bwd::)?(\w+)<",
-                      e.key) or re.search(r"(?:tg|bwd)::(\w+)", e.key)
-        if m and e.device_time_total > 0:
-            us, n = out.get(m.group(1), (0.0, 0))
-            out[m.group(1)] = (us + e.device_time_total, n + e.count)
+    for _ in range(3):
+        kept = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.extend(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        for e in kept:
+            m = re.search(r"gemm<(?:\(anonymous namespace\)::|bwd::)?(\w+)<",
+                          e.key) or re.search(
+                r"(?:tg::|bwd::|\(anonymous namespace\)::)(\w+)", e.key)
+            if m and e.device_time_total > 0:
+                us, n = out.get(m.group(1), (0.0, 0))
+                out[m.group(1)] = (us + e.device_time_total, n + e.count)
+        if out:
+            break
     return out
 
 
@@ -1184,66 +1250,100 @@ def phase_train_bwd2(card: str):
     return out
 
 
+def _epilogue_inputs(B, T, F, dtype, g):
+    S, Q = 512, 256
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    skip = (torch.randn((B, T, S), generator=g) * 0.5).cuda()
+    w1 = ((torch.rand((S, S), generator=g) * 2 - 1)
+          * (3.0 / S) ** 0.5).to("cuda", dt)
+    w2 = ((torch.rand((S, Q), generator=g) * 2 - 1)
+          * (3.0 / S) ** 0.5).to("cuda", dt)
+    b2 = (torch.randn((Q,), generator=g) * 0.05).cuda()
+    enc2 = (torch.randn((F, B, S), generator=g) * 0.1).cuda()
+    labels = torch.randint(0, Q, (B, T), generator=g).cuda()
+    return skip, w1, w2, b2, enc2, labels
+
+
 def phase_train_epilogue(card: str):
     """The loss-head kernel (forward and backward entries) against its
-    plain twin at B=8, T=6656, S=512, Q=256, 104 frames, f32 and bf16; the
-    backward twin gets the kernel forward's saved a1 and probs.  The loss
-    within 1e-5 (f32) / 1e-3 (bf16) relative, every other leaf as in
-    train-stack.  Returns the JSON fields of both entries (bf16)."""
+    plain twin at the shipped widths S=512, Q=256, f32 and bf16, at B=8,
+    T=6656 (104 frames of 64 rows) and at B=3, T=4416 (69 frames: T % 128
+    = 64, so the last row tile of each batch row is half empty); the
+    backward twin gets the kernel forward's saved sk, a1 and probs.  The
+    loss within 1e-5 (f32) / 1e-3 (bf16) relative, every other leaf as in
+    train-stack.  At the full shape both entries run twice on the same
+    inputs and must repeat bit for bit, and torch.profiler splits their
+    device time by kernel.  Returns the JSON fields of both entries (bf16,
+    full shape)."""
     from vqvae_wavenet_torch.ops import epilogue_kernels as ek
-    B, T, F, S, Q = 8, 6656, 104, 512, 256
-    N = B * T
     g = torch.Generator(device="cpu").manual_seed(5)
     out = {}
-    for dtype in ("f32", "bf16"):
-        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
-        skip = (torch.randn((B, T, S), generator=g) * 0.5).cuda()
-        w1 = ((torch.rand((S, S), generator=g) * 2 - 1)
-              * (3.0 / S) ** 0.5).to("cuda", dt)
-        w2 = ((torch.rand((S, Q), generator=g) * 2 - 1)
-              * (3.0 / S) ** 0.5).to("cuda", dt)
-        b2 = (torch.randn((Q,), generator=g) * 0.05).cuda()
-        enc2 = (torch.randn((F, B, S), generator=g) * 0.1).cuda()
-        labels = torch.randint(0, Q, (B, T), generator=g).cuda()
-        fwd = (skip, w1, w2, b2, enc2, labels)
-        lk, a1, probs = ek.epilogue_forward_cuda(*fwd)
-        lp, a1_p, probs_p = ek.epilogue_forward_plain(*fwd)
-        l_err = abs(float(lk) - float(lp)) / abs(float(lp))
-        log(f"[train-epilogue] {dtype}: loss kernel {float(lk) / N:.6f} "
-            f"plain {float(lp) / N:.6f} (relative {l_err:.3g})")
-        if not l_err <= (1e-5 if dtype == "f32" else 1e-3):
-            raise AssertionError(f"epilogue loss disagrees ({dtype})")
-        f_err = max(l_err, _check_leaves("train-epilogue fwd", dtype, {
-            "a1": (a1, a1_p), "probs": (probs, probs_p)}))
-        gvec = torch.ones((), device="cuda")
-        bargs = (gvec, skip, a1, probs, labels, w1, w2, F)
-        gk = ek.epilogue_backward_cuda(*bargs)
-        gp = ek.epilogue_backward_plain(*bargs)
-        b_err = _check_leaves("train-epilogue bwd", dtype, dict(zip(
-            ("dskip", "dlc2", "dw1", "dw2", "db2"), zip(gk, gp))))
-        f_ms = cuda_ms(lambda: ek.epilogue_forward_cuda(*fwd), 10)
-        fp_ms = cuda_ms(lambda: ek.epilogue_forward_plain(*fwd), 5)
-        b_ms = cuda_ms(lambda: ek.epilogue_backward_cuda(*bargs), 10)
-        bp_ms = cuda_ms(lambda: ek.epilogue_backward_plain(*bargs), 5)
-        f_bound = bound(2.0 * N * (S * S + S * Q),
-                        nbytes(skip, w1, w2, b2, enc2) + 4 * N
-                        + nbytes(a1, probs) + 4, dtype)
-        b_bound = bound(2.0 * N * (2 * S * Q + 2 * S * S),
-                        nbytes(skip, a1, probs, w1, w2) + 4 * N
-                        + nbytes(*gk), dtype)
-        log(f"[train-epilogue] {dtype}: fwd kernel {f_ms:.3f} ms (plain "
-            f"{fp_ms:.3f}, bound {f_bound[0]:.3f} by {f_bound[1]}), bwd "
-            f"kernel {b_ms:.3f} ms (plain {bp_ms:.3f}, bound "
-            f"{b_bound[0]:.3f} by {b_bound[1]})  ({card})")
-        if dtype == "bf16":
-            out["train_epilogue_fwd"] = {
-                "max_abs_err": f_err, "ms": f_ms, "plain_ms": fp_ms,
-                "bound_ms": f_bound[0], "bound_by": f_bound[1],
-                "library_ms": None}
-            out["train_epilogue_bwd"] = {
-                "max_abs_err": b_err, "ms": b_ms, "plain_ms": bp_ms,
-                "bound_ms": b_bound[0], "bound_by": b_bound[1],
-                "library_ms": None}
+    for B, T, F in ((8, 6656, 104), (3, 4416, 69)):
+        N = B * T
+        for dtype in ("f32", "bf16"):
+            fwd = _epilogue_inputs(B, T, F, dtype, g)
+            skip, w1, w2, b2, enc2, labels = fwd
+            S, Q = w2.shape
+            lk, a1, probs, sk = ek.epilogue_forward_cuda(*fwd)
+            lp, a1_p, probs_p, sk_p = ek.epilogue_forward_plain(*fwd)
+            l_err = abs(float(lk) - float(lp)) / abs(float(lp))
+            log(f"[train-epilogue] {dtype} B={B} T={T}: loss kernel "
+                f"{float(lk) / N:.6f} plain {float(lp) / N:.6f} (relative "
+                f"{l_err:.3g})")
+            if not l_err <= (1e-5 if dtype == "f32" else 1e-3):
+                raise AssertionError(f"epilogue loss disagrees ({dtype})")
+            f_err = max(l_err, _check_leaves("train-epilogue fwd", dtype, {
+                "a1": (a1, a1_p), "probs": (probs, probs_p),
+                "sk": (sk, sk_p)}))
+            del a1_p, probs_p, sk_p
+            gvec = torch.ones((), device="cuda")
+            bargs = (gvec, skip, sk, a1, probs, labels, w1, w2, F)
+            gk = ek.epilogue_backward_cuda(*bargs)
+            gp = ek.epilogue_backward_plain(*bargs)
+            b_err = _check_leaves("train-epilogue bwd", dtype, dict(zip(
+                ("dskip", "dlc2", "dw1", "dw2", "db2"), zip(gk, gp))))
+            del gp
+            if B != 8:
+                continue
+            _bitwise_repeat("train-epilogue fwd", dtype, (lk, a1, probs, sk),
+                            ek.epilogue_forward_cuda(*fwd))
+            _bitwise_repeat("train-epilogue bwd", dtype, gk,
+                            ek.epilogue_backward_cuda(*bargs))
+            f_ms = cuda_ms(lambda: ek.epilogue_forward_cuda(*fwd), 10)
+            fp_ms = cuda_ms(lambda: ek.epilogue_forward_plain(*fwd), 5)
+            b_ms = cuda_ms(lambda: ek.epilogue_backward_cuda(*bargs), 10)
+            bp_ms = cuda_ms(lambda: ek.epilogue_backward_plain(*bargs), 5)
+            for name, fn in (
+                    ("fwd", lambda: ek.epilogue_forward_cuda(*fwd)),
+                    ("bwd", lambda: ek.epilogue_backward_cuda(*bargs))):
+                parts = _kernel_breakdown(fn)
+                log(f"[train-epilogue] {dtype} {name} per kernel, device us "
+                    f"per call (calls), torch.profiler: " + ", ".join(
+                        f"{k} {us / n:.1f} ({n})" for k, (us, n) in sorted(
+                            parts.items(), key=lambda kv: -kv[1][0]))
+                    + f"; sum {sum(us for us, _ in parts.values()):.1f}")
+            f_bound = bound(2.0 * N * (S * S + S * Q),
+                            nbytes(skip, w1, w2, b2, enc2) + 4 * N
+                            + nbytes(a1, probs, sk) + 4, dtype)
+            b_bound = bound(2.0 * N * (2 * S * Q + 2 * S * S),
+                            nbytes(skip, sk, a1, probs, w1, w2) + 4 * N
+                            + nbytes(*gk), dtype)
+            log(f"[train-epilogue] {dtype} B={B} T={T}: fwd kernel "
+                f"{f_ms:.3f} ms (plain {fp_ms:.3f}, bound {f_bound[0]:.3f} "
+                f"by {f_bound[1]}), bwd kernel {b_ms:.3f} ms (plain "
+                f"{bp_ms:.3f}, bound {b_bound[0]:.3f} by {b_bound[1]})  "
+                f"({card})")
+            if dtype == "bf16":
+                out["train_epilogue_fwd"] = {
+                    "max_abs_err": f_err, "ms": f_ms, "plain_ms": fp_ms,
+                    "bound_ms": f_bound[0], "bound_by": f_bound[1],
+                    "library_ms": None}
+                out["train_epilogue_bwd"] = {
+                    "max_abs_err": b_err, "ms": b_ms, "plain_ms": bp_ms,
+                    "bound_ms": b_bound[0], "bound_by": b_bound[1],
+                    "library_ms": None}
+            del fwd, skip, sk, a1, probs, gk, bargs
+            torch.cuda.empty_cache()
     return out
 
 

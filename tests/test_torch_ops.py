@@ -79,6 +79,23 @@ def test_vq_plain_matches_jax(n, k, d):
     assert vq_kernels.launches == before       # CPU: no kernel
 
 
+@pytest.mark.parametrize("pairs", [((100, 300),), ((3, 67), (5, 6))])
+def test_vq_exact_tie_goes_to_lowest_index(pairs):
+    """Equal codes (exact ties): the plain twin and vq_pallas.vq_nearest
+    both return the lower index, as the kernel must (chip_smoke [vq])."""
+    rng = np.random.default_rng(4)
+    e = rng.standard_normal((512, 64)).astype(np.float32)
+    for lo, hi in pairs:
+        e[hi] = e[lo]
+    lows = np.array([lo for lo, _ in pairs] * 16)
+    z = (e[lows] + 1e-3 * rng.standard_normal((lows.size, 64))).astype(
+        np.float32)
+    ref = np.asarray(jvq_nearest(jnp.asarray(z), jnp.asarray(e)))
+    got = vq_kernels.vq_nearest(torch.from_numpy(z), torch.from_numpy(e))
+    np.testing.assert_array_equal(ref, lows)
+    np.testing.assert_array_equal(got.numpy(), lows)
+
+
 def test_vq_kernel_wrapper_rejects_cpu_tensors():
     z = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="CUDA"):

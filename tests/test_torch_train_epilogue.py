@@ -1,7 +1,8 @@
 """The port's loss head (``fused_epilogue``: the heads and the mean sparse
 softmax CE, whose CUDA kernel runs its plain version on the CPU) against
 the XLA reference of tests/test_train_pallas.py:595-603 (S=128, Q=256,
-B=1, T=192, 8 samples per frame), values and gradients with respect to
+B=1, T=192, 8 samples per frame) and at S=64, Q=128, B=2, T=320 with 64
+samples per frame (T % 128 = 64), values and gradients with respect to
 the head parameters, the skip stream and the condition.
 
 Tolerances.  bf16: the loss within 2e-5 and every gradient within 2e-2 of
@@ -23,10 +24,15 @@ from vqvae_wavenet_torch.ops.conv import set_full_f32
 
 set_full_f32()
 
-S, Q, B, T, C, FR = 128, 256, 1, 192, 128, 8
+# (S, Q, B, T, C, FR): the reference test's shape, and the shipped 64
+# samples a frame at narrow widths with T % 128 = 64 (the kernel's last
+# row tile of each batch row half empty)
+SHAPE = (128, 256, 1, 192, 128, 8)
+RAGGED = (64, 128, 2, 320, 32, 64)
 
 
-def make(seed=61):
+def make(shape=SHAPE, seed=61):
+    S, Q, B, T, C, FR = shape
     rng = np.random.default_rng(seed)
 
     def u(shape, fan):
@@ -43,6 +49,7 @@ def make(seed=61):
 
 
 def xla_ref(pp1, pp2, skip, lc, labels, cd):
+    Q = pp2["kernel"].shape[2]
     net = jax.nn.relu(skip).astype(cd)
     net = jnp.einsum("btc,cf->btf", net, pp1["kernel"][0],
                      preferred_element_type=jnp.float32) + pp1["bias"]
@@ -53,10 +60,13 @@ def xla_ref(pp1, pp2, skip, lc, labels, cd):
     return wavenet_loss(net.reshape(-1, Q), labels.reshape(-1))
 
 
-@pytest.mark.parametrize("dtype,loss_tol,grad_tol", [
-    ("bf16", 2e-5, 2e-2), ("f32", 1e-6, 1e-5)])
-def test_epilogue_matches_xla(dtype, loss_tol, grad_tol):
-    pp1, pp2, skip, lc, labels = make()
+@pytest.mark.parametrize("dtype,loss_tol,grad_tol,shape", [
+    pytest.param("bf16", 2e-5, 2e-2, SHAPE, id="bf16-2e-05-0.02"),
+    pytest.param("f32", 1e-6, 1e-5, SHAPE, id="f32-1e-06-1e-05"),
+    pytest.param("bf16", 2e-5, 2e-2, RAGGED, id="bf16-ragged"),
+    pytest.param("f32", 1e-6, 1e-5, RAGGED, id="f32-ragged")])
+def test_epilogue_matches_xla(dtype, loss_tol, grad_tol, shape):
+    pp1, pp2, skip, lc, labels = make(shape)
     jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     td = torch.bfloat16 if dtype == "bf16" else torch.float32
     cast = lambda t: {k: jnp.asarray(v, jd) for k, v in t.items()}  # noqa
@@ -90,6 +100,27 @@ def test_epilogue_matches_xla(dtype, loss_tol, grad_tol):
         rel = np.abs(g.double().numpy() - ref).max() / (np.abs(ref).max()
                                                         + 1e-9)
         assert rel < grad_tol, (key, rel)
+
+
+@pytest.mark.parametrize("entry,Q,frames", [
+    ("fwd", 512, 3), ("bwd", 264, 3), ("fwd", 128, 2)])
+def test_epilogue_wrapper_refuses_shapes_before_device(entry, Q, frames):
+    """A Q the kernel's 256-column softmax tile cannot hold, or frames
+    whose rows do not divide its 128-row tile, raise ValueError with the
+    reason, before the wrapper looks at the device (CPU tensors here)."""
+    S, B, T = 16, 1, 192
+    skip, w1 = torch.zeros((B, T, S)), torch.zeros((S, S))
+    w2, labels = torch.zeros((S, Q)), torch.zeros((B, T), dtype=torch.int32)
+    match = "at most 256" if Q > 256 else "divid"
+    with pytest.raises(ValueError, match=match):
+        if entry == "fwd":
+            epilogue_kernels.epilogue_forward_cuda(
+                skip, w1, w2, torch.zeros(Q), torch.zeros((frames, B, S)),
+                labels)
+        else:
+            epilogue_kernels.epilogue_backward_cuda(
+                torch.ones(()), skip, skip, skip, torch.zeros((B, T, Q)),
+                labels, w1, w2, frames)
 
 
 def test_epilogue_wrapper_refuses_cpu_tensors():

@@ -40,6 +40,9 @@
 //   __device__ Pre fetch(int r, int c) const;            // loads only
 //   __device__ void put(int r, int c, float v0, float v1, const Pre&) const;
 //       // C[r][c], C[r][c+1] of the block's tile (r < BM, c < BN, c even)
+//   or, for an epilogue that needs more than a pair (a row's softmax,
+//   column sums), __device__ void tile(float* C) const over the whole
+//   staged tile (finish() below).
 //
 // The epilogue fetches a group of pairs before it puts any: a load after a
 // store that may alias it waits for it, so a read-modify-write (dX, the
@@ -66,11 +69,13 @@
 // twice the warps for the stack's heavy epilogues, which carry these
 // kernels (the two blocks' epilogues overlap each other); f32 128 x 128 x 32
 // (each thread an 8 x 8 register tile), 5 stages of 32 KB, one block an
-// SM.  The consumers release a stage as soon as the products reading it
-// are done (bf16: wgmma.wait_group 1 keeps one k-tile of products in
-// flight), so the producer keeps STAGES-1 k-tiles of loads ahead of the
-// math.  A k-tile's products are summed in a fixed order, so a run
-// repeats bit for bit.
+// SM; K-major with 256 columns (Bf16KWCfg 128 x 256, F32KWCfg 64 x 256)
+// for an epilogue that needs whole rows of up to 256 columns.  The
+// consumers release a stage as soon as the products reading it are done
+// (bf16: wgmma.wait_group 1 keeps one k-tile of products in flight), so
+// the producer keeps STAGES-1 k-tiles of loads ahead of the math.  A
+// k-tile's products are summed in a fixed order, so a run repeats bit
+// for bit.
 //
 // On an NVIDIA H100 80GB HBM3 (700 W; chip_smoke.py): dk, MN-major, bf16
 // ~600 TFLOP/s, f32 46 TFLOP/s (68% of the FFMA peak); the stack's
@@ -88,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hg {
 
@@ -128,6 +135,20 @@ struct Bf16KCfg {
 struct F32KCfg : F32Cfg {
   static constexpr bool K_MAJOR = true;
   static constexpr CUtensorMapSwizzle SWIZZLE = CU_TENSOR_MAP_SWIZZLE_128B;
+};
+
+// K-major with 256 columns, for an epilogue that needs whole rows of C
+// (the loss head's softmax over Q <= 256 classes): bf16 128 x 256 x 64
+// (m64n256k16, 128 accumulators a thread), 4 stages of 48 KB; f32 64 x 256
+// x 32 (each thread 4 rows x 16 columns), 5 stages of 40 KB.  One block
+// an SM.
+struct Bf16KWCfg : Bf16KCfg {
+  static constexpr int BN = 256, STAGES = 4, BLOCKS = 1;
+  static constexpr int B_BYTES = BN * BK * 2;
+};
+struct F32KWCfg : F32KCfg {
+  static constexpr int BM = 64, BN = 256;
+  static constexpr int A_BYTES = BM * BK * 4, B_BYTES = BN * BK * 4;
 };
 
 constexpr int NCONS = 256;               // consumer threads: 2 warpgroups
@@ -351,6 +372,10 @@ static_assert(F32Cfg::BM * c_pitch<F32Cfg>() * 4 <=
                   F32Cfg::STAGES * stage_bytes<F32Cfg>(), "C tile");
 static_assert(Bf16KCfg::BM * c_pitch<Bf16KCfg>() * 4 <=
                   Bf16KCfg::STAGES * stage_bytes<Bf16KCfg>(), "C tile");
+static_assert(Bf16KWCfg::BM * c_pitch<Bf16KWCfg>() * 4 <=
+                  Bf16KWCfg::STAGES * stage_bytes<Bf16KWCfg>(), "C tile");
+static_assert(F32KWCfg::BM * c_pitch<F32KWCfg>() * 4 <=
+                  F32KWCfg::STAGES * stage_bytes<F32KWCfg>(), "C tile");
 
 // The epilogue over the staged tile: pair (r, c..c+1) by pair, the 256
 // consumer threads on consecutive pairs of a row (coalesced global
@@ -381,6 +406,23 @@ __device__ __forceinline__ void epilogue(const P& p, const float* C) {
   }
 }
 
+// A problem may run its own epilogue over the whole staged tile instead
+// of fetch and put: ``__device__ void tile(float* C) const``, called by
+// every consumer thread (C rows c_pitch<Cfg>() apart; the ring's bytes
+// past the tile are free for it).  The loss head's row softmax and its
+// per-frame column sums need more than a pair.
+template <class P, class = void> struct has_tile : std::false_type {};
+template <class P>
+struct has_tile<P, std::void_t<decltype(&P::tile)>> : std::true_type {};
+
+template <class P>
+__device__ __forceinline__ void finish(const P& p, float* C) {
+  if constexpr (has_tile<P>::value)
+    p.tile(C);
+  else
+    epilogue(p, C);
+}
+
 // ---------------------------------------------------------------- consumers
 
 // bf16: warpgroup wg (0, 1) computes rows [64 wg, 64 wg + 64) of the tile
@@ -407,7 +449,10 @@ __device__ __forceinline__ void consume_bf16(const P& p, uint32_t base,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < Cfg::BK / 16; ++kk) {
-      if constexpr (Cfg::K_MAJOR)                // 16 of k = 32 bytes of a row
+      if constexpr (Cfg::K_MAJOR && Cfg::BN == 256)  // 16 of k = 32 bytes
+        wgmma_m64n256k16<0>(acc, desc_sw128(a + kk * 32, 16, 1024),
+                            desc_sw128(b + kk * 32, 16, 1024));
+      else if constexpr (Cfg::K_MAJOR)
         wgmma_m64n128k16<0>(acc, desc_sw128(a + kk * 32, 16, 1024),
                             desc_sw128(b + kk * 32, 16, 1024));
       else                                       // 16 rows = 2 KB of a box
@@ -438,7 +483,7 @@ __device__ __forceinline__ void consume_bf16(const P& p, uint32_t base,
         make_float2(acc[q], acc[q + 1]);
   }
   consumers_sync();
-  epilogue(p, C);
+  finish(p, C);
 }
 
 // f32: thread (ty, tx) = (t / 16, t % 16) holds rows {4ty..4ty+3, 64+4ty..}
@@ -487,34 +532,35 @@ __device__ __forceinline__ void consume_f32(const P& p, uint8_t* base_ptr,
         make_float4(acc[ii][4], acc[ii][5], acc[ii][6], acc[ii][7]);
   }
   consumers_sync();
-  epilogue(p, C);
+  finish(p, C);
 }
 
 // f32, K-major: tiles of 128-byte rows (32 floats of k), 16-byte chunk c of
 // row r stored at chunk c ^ (r % 8).  Thread (ty, tx) holds rows ty + 16 i
-// (i < 8; r % 8 = ty % 8 for all of them) and the column pairs
-// (2 g, 2 g + 1), g = tx + 16 q (q < 4).  It reads B row 2 g + (e ^ flip)
-// into slot e, flip = bit 2 of tx: for a fixed slot, the 8 threads of a
-// shared-memory phase (tx 0-7 or 8-15, one ty) then read rows whose r % 8
-// are all different, hence 8 different chunks (without the flip, tx and
-// tx + 4 would share one).  The A reads of a phase are one address (a
-// broadcast).
+// (i < RI = BM / 16; r % 8 = ty % 8 for all of them) and the column pairs
+// (2 g, 2 g + 1), g = tx + 16 q (q < QN = BN / 32).  It reads B row
+// 2 g + (e ^ flip) into slot e, flip = bit 2 of tx: for a fixed slot, the
+// 8 threads of a shared-memory phase (tx 0-7 or 8-15, one ty) then read
+// rows whose r % 8 are all different, hence 8 different chunks (without
+// the flip, tx and tx + 4 would share one).  The A reads of a phase are
+// one address (a broadcast).
 template <class P>
 __device__ __forceinline__ void consume_f32k(const P& p, uint8_t* base_ptr,
                                              uint32_t full, uint32_t empty,
                                              int nk) {
   using Cfg = typename P::Cfg;
   constexpr int SB = stage_bytes<Cfg>();
+  constexpr int RI = Cfg::BM / 16, QN = Cfg::BN / 32;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int flip = (tx >> 2) & 1;
   const int xa = ty & 7;
   const int rb0 = 2 * tx + flip, rb1 = 2 * tx + (flip ^ 1);
   const int xb0 = rb0 & 7, xb1 = rb1 & 7;
-  float acc[8][8];                        // acc[i][2 q + e]
+  float acc[RI][2 * QN];                  // acc[i][2 q + e]
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 2 * QN; ++j) acc[i][j] = 0.f;
   for (int i = 0; i < nk; ++i) {
     const int s = i % Cfg::STAGES;
     mbar_wait(full + 8 * s, (i / Cfg::STAGES) & 1);
@@ -522,22 +568,22 @@ __device__ __forceinline__ void consume_f32k(const P& p, uint8_t* base_ptr,
     const uint8_t* Bs = As + Cfg::A_BYTES;
 #pragma unroll 2
     for (int kc = 0; kc < Cfg::BK / 4; ++kc) {
-      float4 a[8], b[8];
+      float4 a[RI], b[2 * QN];
 #pragma unroll
-      for (int ii = 0; ii < 8; ++ii)
+      for (int ii = 0; ii < RI; ++ii)
         a[ii] = *reinterpret_cast<const float4*>(
             As + (ty + 16 * ii) * 128 + ((kc ^ xa) << 4));
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < QN; ++q) {
         b[2 * q] = *reinterpret_cast<const float4*>(
             Bs + (rb0 + 32 * q) * 128 + ((kc ^ xb0) << 4));
         b[2 * q + 1] = *reinterpret_cast<const float4*>(
             Bs + (rb1 + 32 * q) * 128 + ((kc ^ xb1) << 4));
       }
 #pragma unroll
-      for (int ii = 0; ii < 8; ++ii)
+      for (int ii = 0; ii < RI; ++ii)
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
+        for (int jj = 0; jj < 2 * QN; ++jj) {
           float t = acc[ii][jj];
           t = fmaf(a[ii].x, b[jj].x, t);
           t = fmaf(a[ii].y, b[jj].y, t);
@@ -551,16 +597,16 @@ __device__ __forceinline__ void consume_f32k(const P& p, uint8_t* base_ptr,
   consumers_sync();
   float* C = reinterpret_cast<float*>(base_ptr);
 #pragma unroll
-  for (int ii = 0; ii < 8; ++ii)
+  for (int ii = 0; ii < RI; ++ii)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < QN; ++q) {
       const float u = acc[ii][2 * q], v = acc[ii][2 * q + 1];
       *reinterpret_cast<float2*>(C + (ty + 16 * ii) * c_pitch<Cfg>() +
                                  2 * (tx + 16 * q)) =
           flip ? make_float2(v, u) : make_float2(u, v);
     }
   consumers_sync();
-  epilogue(p, C);
+  finish(p, C);
 }
 
 // ---------------------------------------------------------------- kernel

@@ -4,8 +4,8 @@
 // per-chunk column sums).  No float atomics anywhere, so every sum is
 // taken in one order and a run repeats bit for bit.
 //
-// Included by train_gemm.cuh (the loss head's tile GEMM) and by the stack
-// kernels, whose products run on hopper_gemm.cuh.
+// Included by the stack kernels and the loss head, whose products run on
+// hopper_gemm.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +30,19 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
 }
 
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+constexpr int FILL_BLOCKS = 132;  // blocks a reduction over the rows aims at
+
+// Splits of a reduction over the rows (a weight gradient's split-K) with
+// ``tiles`` output tiles: as many whole sets of tiles as one block on each
+// of an H100's SMs holds (a fixed number, so the sums' order depends on
+// the shapes alone; rounding up would leave a second wave almost empty),
+// at least one, at most one per k-tile.
+inline int fill_splits(int tiles, int row_tiles) {
+  int s = FILL_BLOCKS / (tiles > 1 ? tiles : 1);
+  if (s > row_tiles) s = row_tiles;
+  return s < 1 ? 1 : s;
+}
 
 // Two adjacent values of a row in the compute type, as they lie in memory
 // (the first index even: 4- or 8-byte aligned), and two floats stored so.

@@ -7,134 +7,273 @@
 // (postprocess1's condition projection + bias, folded outside) is added
 // per row.
 //
-// Forward (train_pallas.py:1909-1940):
-//   h1   [N, S] = T(relu(skip)) . W1       epilogue: + enc2[t/FR, b],
+// Forward (train_pallas.py:1909-1940), compute type T:
+//   sk   [N, S] = T(relu(skip))            one elementwise pass; saved for
+//                                          the backward (TMA cannot apply
+//                                          relu or round f32 to bf16)
+//   h1   [N, S] = sk . W1                  epilogue: + enc2[t/FR, b],
 //                                          a1 = T(relu(h1)) (saved)
-//   h2   [N, Q] = a1 . W2                  epilogue: + b2 -> f32 logits
-//   rows: log-softmax over Q per row (one warp per row), probs saved in
-//   the compute type, nll = logsumexp - logit[label]; per-block partial
-//   sums, then a fixed-order final sum.
+//   h2   [N, Q] = a1 . W2                  epilogue, one block owning whole
+//                                          rows: + b2, the row's max,
+//                                          sum of exp, probs = T(softmax)
+//                                          (saved), nll = lse -
+//                                          logit[label]; each block sums
+//                                          its rows' nll in row order,
+//                                          then a fixed-order final sum.
+//                                          The logits never reach memory.
 // Backward (train_pallas.py:1942-1978), g = the loss's cotangent:
 //   dlogits = (probs - onehot) * g / N      (f32; db2 = its column sums,
 //                                            T(dlogits) feeds the products)
 //   dW2  [S, Q] = a1^T . T(dlogits)         (split-K over rows)
 //   da1  [N, S] = T(dlogits) . W2^T         epilogue: dh1 = [a1 > 0] da1
-//   dlc2 [F, B, S] = per-frame sums of dh1 (f32)
-//   dW1  [S, S] = T(relu(skip))^T . T(dh1)  (split-K over rows)
-//   dskip [N, S] = T([skip > 0] (T(dh1) . W1^T))
+//                                           written as T(dh1); the tile's
+//                                           per-frame column sums of the
+//                                           f32 dh1 are dlc2 [F, B, S]
+//   dW1  [S, S] = sk^T . T(dh1)             (split-K over rows)
+//   dskip [N, S] = T([skip > 0] (T(dh1) . W1^T))   (the mask on f32 skip)
 //
 // What bounds it on the H100: at the shipped training shape (N = 53,248,
 // S = 512, Q = 256) the forward is 42 GFLOP over ~0.19 GB (bytes bind in
 // bf16: ~57 us) and the backward 84 GFLOP over ~0.25 GB (~85 us, products
-// bind in bf16).  This first version round-trips the f32 logits and dh1
-// through device memory and runs well above those bounds.
+// bind in bf16).
+//
+// The design: every product runs on hopper_gemm.cuh's TMA ring (wgmma in
+// bf16, FFMA in f32).  The row products (h1, h2, da1, dskip) are K-major:
+// a tile is BM rows of one batch row (blockIdx.z = b), so a tile never
+// straddles a batch row, and since FR divides BM = 128 and T, never a
+// frame.  h2 takes the 256-column K-major tile (Bf16KWCfg / F32KWCfg), so
+// its block holds a whole row of logits (Q <= 256) in the staged C tile
+// and runs the softmax there.  The weight gradients are MN-major (the
+// dk layout) with split counts that fill one wave and a fixed-order sum
+// of the partials.  Nothing sums with atomics: a run repeats bit for bit.
+//
+// Measured (chip_smoke.py [train-epilogue], NVIDIA H100 80GB HBM3, 700 W,
+// B=8 x 6656): bf16 forward 0.265 ms, backward 0.370 (the mma.sync tile
+// loop with the f32 logits and dh1 in memory before: 0.661, 1.525); f32
+// 1.270, 2.181.  Per kernel (bf16, us): H1 92, Head 81 (its softmax
+// epilogue, run after the mainloop, is most of it), relu_round 52 (the
+// bytes' pace); Dskip 110, Da1 84, Dw 42 each.  The row products take
+// about mainloop plus epilogue, as the stack's do (hopper_gemm.cuh).
 //
 // C interface (ctypes): pointers and the stream as void*, returns
 // cudaGetLastError() of the first failing launch (0 on success).
 
-#include "train_gemm.cuh"
+#include "hopper_gemm.cuh"
+#include "train_common.cuh"
 
 namespace {
 
 using tg::bf16;
+using tg::st2;
+using tg::Two;
 
-constexpr int ROW_CHUNK = 1024;     // rows per split of the dW products
+// the mainloop layouts of each compute type: K for the row products, KW
+// for the softmax's whole-row tile, MN for the weight gradients
+template <typename T> struct Cfgs;
+template <> struct Cfgs<bf16> {
+  using K = hg::Bf16KCfg;
+  using KW = hg::Bf16KWCfg;
+  using MN = hg::Bf16Cfg;
+};
+template <> struct Cfgs<float> {
+  using K = hg::F32KCfg;
+  using KW = hg::F32KWCfg;
+  using MN = hg::F32Cfg;
+};
+
+constexpr int MAX_Q = 256;          // classes of the softmax tile
 constexpr int DL_ROWS = 64;         // rows per block of the dlogits pass
-constexpr int SM_ROWS = 64;         // rows per block of the softmax pass
 
-// relu(skip) rounded to the compute type, 8 values along one row
-template <typename T>
-__device__ __forceinline__ void relu8(const float* src, T* v) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+// the (batch row, first time step) of a row-product tile
+template <class Cfg>
+__device__ __forceinline__ void row_tile(int& b, int& t0) {
+  b = blockIdx.z;
+  t0 = blockIdx.y * Cfg::BM;
+}
+
+// eight values stored in the compute type as one or two 16-byte stores
+__device__ __forceinline__ void st8(float* o, const float (&v)[8]) {
+  reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void st8(bf16* o, const float (&v)[8]) {
+  __nv_bfloat162 h[4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = tg::from_f<T>(fmaxf(x[i], 0.f));
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(h);
 }
 
+// sk = T(relu(skip)), eight values a thread
 template <typename T>
-struct H1P {
-  int M, N, K, kchunk;     // M = rows, N = K = S
-  const float* skip;       // [rows, S] f32
-  const T* w1t;            // W1^T [S, S]
-  const float* enc2;       // [F, B, S]
-  T* a1;                   // [rows, S]
-  int T_, FR, B;
+__global__ void relu_round(const float* __restrict__ skip, long long n8,
+                           T* __restrict__ sk) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  const float4 a = reinterpret_cast<const float4*>(skip)[2 * i];
+  const float4 b = reinterpret_cast<const float4*>(skip)[2 * i + 1];
+  const float v[8] = {fmaxf(a.x, 0.f), fmaxf(a.y, 0.f), fmaxf(a.z, 0.f),
+                      fmaxf(a.w, 0.f), fmaxf(b.x, 0.f), fmaxf(b.y, 0.f),
+                      fmaxf(b.z, 0.f), fmaxf(b.w, 0.f)};
+  st8(sk + 8 * i, v);
+}
 
-  __device__ bool a8(int m, int k, T* v) const {
-    relu8(skip + (long long)m * K + k, v);
-    return true;
+// h1 = sk . W1 + enc2, a1 = T(relu(h1))
+template <class Cf>
+struct H1 {
+  using Cfg = Cf;
+  using T = typename Cf::T;
+  CUtensorMap sk;       // [B][T][S]
+  CUtensorMap w;        // W1^T [S][S]
+  const float* enc2;    // [F, B, S]
+  T* a1;                // [rows, S]
+  int T_, S, B, fr_shift, kt;
+
+  __device__ void k_range(int& it0, int& it1) const {
+    it0 = 0;
+    it1 = kt;
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(w1t + (long long)n * K + k, v);
-    return true;
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    hg::tma_load_4d(sA, &sk, bar, it * Cfg::BK, t0, b, 0);
+    hg::tma_load_4d(sB, &w, bar, it * Cfg::BK, blockIdx.x * Cfg::BN, 0, 0);
   }
-  __device__ void epi(int m, int n, float v0, float v1, int) const {
-    const int b = m / T_, t = m - b * T_;
-    const float* e = enc2 + ((long long)(t / FR) * B + b) * N + n;
-    T* o = a1 + (long long)m * N + n;
-    o[0] = tg::from_f<T>(fmaxf(v0 + e[0], 0.f));
-    o[1] = tg::from_f<T>(fmaxf(v1 + e[1], 0.f));
+  __device__ bool at(int r, int c, int& b, int& t, int& n) const {
+    int t0;
+    row_tile<Cfg>(b, t0);
+    t = t0 + r;
+    n = blockIdx.x * Cfg::BN + c;
+    return t < T_ && n < S;                 // S even: n + 1 < S too
+  }
+  struct Pre {
+    float2 e;
+  };
+  __device__ Pre fetch(int r, int c) const {
+    Pre p{};
+    int b, t, n;
+    if (at(r, c, b, t, n))
+      p.e = *reinterpret_cast<const float2*>(
+          enc2 + ((long long)(t >> fr_shift) * B + b) * S + n);
+    return p;
+  }
+  __device__ void put(int r, int c, float v0, float v1, const Pre& p) const {
+    int b, t, n;
+    if (!at(r, c, b, t, n)) return;
+    st2(a1 + ((long long)b * T_ + t) * S + n, fmaxf(v0 + p.e.x, 0.f),
+        fmaxf(v1 + p.e.y, 0.f));
   }
 };
 
-template <typename T>
-struct H2P {
-  int M, N, K, kchunk;     // M = rows, N = Q, K = S
-  const T* a1;             // [rows, S]
-  const T* w2t;            // W2^T [Q, S]
-  const float* b2;         // [Q]
-  float* logits;           // [rows, Q]
+// logits = a1 . W2 + b2 and the softmax of each row, in the C tile of a
+// block that holds whole rows (BN = 256 >= Q columns)
+template <class Cf>
+struct Head {
+  using Cfg = Cf;
+  using T = typename Cf::T;
+  CUtensorMap a1;       // [B][T][S]
+  CUtensorMap w;        // W2^T [Q][S]
+  const float* b2;      // [Q]
+  const int* labels;    // [rows]
+  T* probs;             // [rows, Q]
+  float* part;          // [B * tiles of a batch row]: each tile's nll sum
+  int T_, Q, kt;
 
-  __device__ bool a8(int m, int k, T* v) const {
-    tg::ld8(a1 + (long long)m * K + k, v);
-    return true;
+  __device__ void k_range(int& it0, int& it1) const {
+    it0 = 0;
+    it1 = kt;
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(w2t + (long long)n * K + k, v);
-    return true;
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    hg::tma_load_4d(sA, &a1, bar, it * Cfg::BK, t0, b, 0);
+    hg::tma_load_4d(sB, &w, bar, it * Cfg::BK, 0, 0, 0);
   }
-  __device__ void epi(int m, int n, float v0, float v1, int) const {
-    float* o = logits + (long long)m * N + n;
-    o[0] = v0 + b2[n];
-    o[1] = v1 + b2[n + 1];
-  }
-};
-
-// one warp per row: probs = T(softmax(logits)), nll = lse - logit[label];
-// each block sums its rows' nll in row order into part[blockIdx.x]
-template <typename T>
-__global__ void softmax_rows(const float* __restrict__ logits,
-                             const int* __restrict__ labels, int rows, int Q,
-                             T* __restrict__ probs, float* __restrict__ part) {
-  __shared__ float row_nll[SM_ROWS];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int i = w; i < SM_ROWS; i += blockDim.x / 32) {
-    const int r = (int)blockIdx.x * SM_ROWS + i;
-    float nll = 0.f;
-    if (r < rows) {
-      const float* x = logits + (long long)r * Q;
-      float m = -INFINITY;
-      for (int q = lane; q < Q; q += 32) m = fmaxf(m, x[q]);
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float se = 0.f;
-      for (int q = lane; q < Q; q += 32) se += expf(x[q] - m);
-      for (int o = 16; o > 0; o >>= 1)
-        se += __shfl_xor_sync(0xffffffffu, se, o);
-      for (int q = lane; q < Q; q += 32)
-        probs[(long long)r * Q + q] = tg::from_f<T>(expf(x[q] - m) / se);
-      nll = (logf(se) + m) - x[labels[r]];
+  // A quarter-warp owns a row: warp w takes rows w RW + i (i < RW), its
+  // quarter-warp qw the rows i = 4 ii + qw, four consecutive rows at once;
+  // lane l8 of the quarter holds the column pairs 2 l8 + 16 j (float2
+  // reads of the staged tile: consecutive rows start 8 banks apart, so a
+  // warp's read takes the least two wavefronts).  Max and sum are
+  // butterflies over the quarter's 8 lanes (a fixed order).  The rows'
+  // labels are loaded before the first row (lane i holds row w RW + i's),
+  // and the picked logit comes from the lane holding it.  Rows past T
+  // (zeros in the tile) are computed too, so every lane takes part in
+  // every shuffle, and are stored nowhere.
+  __device__ void tile(float* C) const {
+    constexpr int PITCH = hg::c_pitch<Cfg>(), NJ = Cfg::BN / 16;
+    constexpr int RW = Cfg::BM / 8;         // rows of a warp (<= 32)
+    float* nll = C + Cfg::BM * PITCH;       // past the tile, in the ring
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int qw = lane >> 3, l8 = lane & 7;
+    float bias[2 * NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = 2 * l8 + 16 * j;
+      const float2 v = c < Q ? *reinterpret_cast<const float2*>(b2 + c)
+                             : make_float2(0.f, 0.f);
+      bias[2 * j] = v.x;
+      bias[2 * j + 1] = v.y;
     }
-    if (lane == 0) row_nll[i] = nll;
+    const int lt = t0 + w * RW + lane;
+    const int my_label =
+        lane < RW && lt < T_ ? labels[(long long)b * T_ + lt] : 0;
+#pragma unroll 1
+    for (int ii = 0; ii < RW / 4; ++ii) {
+      const int i = 4 * ii + qw, r = w * RW + i, t = t0 + r;
+      const bool live = t < T_;
+      const int lab = __shfl_sync(0xffffffffu, my_label, i);
+      const long long m = (long long)b * T_ + t;
+      const float* row = C + r * PITCH;
+      float x[2 * NJ];
+      float mx = -INFINITY, pick = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = 2 * l8 + 16 * j;
+        const float2 y = *reinterpret_cast<const float2*>(row + c);
+        x[2 * j] = y.x + bias[2 * j];
+        x[2 * j + 1] = y.y + bias[2 * j + 1];
+        if (c < Q) mx = fmaxf(mx, fmaxf(x[2 * j], x[2 * j + 1]));
+        if (j == lab >> 4) pick = lab & 1 ? x[2 * j + 1] : x[2 * j];
+      }
+      pick = __shfl_sync(0xffffffffu, pick, (lane & 24) | ((lab & 15) >> 1));
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      float se = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (2 * l8 + 16 * j < Q) {
+          x[2 * j] = expf(x[2 * j] - mx);
+          x[2 * j + 1] = expf(x[2 * j + 1] - mx);
+          se += x[2 * j];
+          se += x[2 * j + 1];
+        }
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1)
+        se += __shfl_xor_sync(0xffffffffu, se, o);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = 2 * l8 + 16 * j;
+        if (live && c < Q)
+          st2(probs + m * Q + c, x[2 * j] / se, x[2 * j + 1] / se);
+      }
+      if (l8 == 0) nll[r] = live ? (logf(se) + mx) - pick : 0.f;
+    }
+    hg::consumers_sync();
+    if (threadIdx.x < 32) {                 // rows in order: lane l sums a
+      constexpr int RL = Cfg::BM / 32;      // run of RL, then a butterfly
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < RL; ++i) s += nll[lane * RL + i];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) part[(long long)b * gridDim.y + blockIdx.y] = s;
+    }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int i = 0; i < SM_ROWS; ++i) s += row_nll[i];
-    part[blockIdx.x] = s;
-  }
-}
+};
 
 // dlogits, one thread per column q, DL_ROWS rows per block: writes
 // T(dlogits) and the block's f32 column sums (for db2)
@@ -158,173 +297,274 @@ __global__ void dlogits_rows(const T* __restrict__ probs,
   part[(long long)blockIdx.x * Q + q] = s;
 }
 
-template <typename T>
-struct Dw2P {
-  int M, N, K, kchunk;     // M = S, N = Q, K = rows
-  const T* a1;             // [rows, S]
-  const T* dl;             // [rows, Q]
-  float* part;
+// a weight gradient part[split] [M, N] = sum over the split's rows of
+// a[row]^T b[row]: blockIdx.x = tile of N, blockIdx.y = tile of M,
+// blockIdx.z = split; k-tile it = Cfg::BK rows t0.. of batch row bb
+template <class Cf>
+struct Dw {
+  using Cfg = Cf;
+  CUtensorMap a, b;     // [B][T][M], [B][T][N]
+  float* part;          // [splits][M][N]
+  int M, N, tpb, row_tiles, chunk;
 
-  __device__ bool a8(int m, int k, T* v) const {
-    tg::ld8(a1 + (long long)k * M + m, v);
-    return true;
+  __device__ void k_range(int& it0, int& it1) const {
+    it0 = blockIdx.z * chunk;
+    it1 = min(row_tiles, it0 + chunk);
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(dl + (long long)k * N + n, v);
-    return true;
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    const int bb = it / tpb, t0 = (it - bb * tpb) * Cfg::BK;
+#pragma unroll
+    for (int i = 0; i < Cfg::BM / Cfg::BOX; ++i)
+      hg::tma_load_4d(sA + i * Cfg::BOX_BYTES, &a, bar,
+                      blockIdx.y * Cfg::BM + i * Cfg::BOX, t0, bb, 0);
+#pragma unroll
+    for (int i = 0; i < Cfg::BN / Cfg::BOX; ++i)
+      hg::tma_load_4d(sB + i * Cfg::BOX_BYTES, &b, bar,
+                      blockIdx.x * Cfg::BN + i * Cfg::BOX, t0, bb, 0);
   }
-  __device__ void epi(int m, int n, float v0, float v1, int split) const {
-    float* o = part + ((long long)split * M + m) * N + n;
-    o[0] = v0;
-    o[1] = v1;
+  struct Pre {};
+  __device__ Pre fetch(int, int) const { return {}; }
+  __device__ void put(int r, int c, float v0, float v1, const Pre&) const {
+    const int m = blockIdx.y * Cfg::BM + r;
+    const int n = blockIdx.x * Cfg::BN + c;
+    if (m >= M || n >= N) return;           // N even: n + 1 < N too
+    st2(part + ((long long)blockIdx.z * M + m) * N + n, v0, v1);
   }
 };
 
-template <typename T>
-struct Da1P {
-  int M, N, K, kchunk;     // M = rows, N = S, K = Q
-  const T* dl;             // [rows, Q]
-  const T* w2;             // W2 [S, Q]
-  const T* a1;             // [rows, S]
-  float* dh1;              // [rows, S] f32
-  T* dh16;                 // [rows, S]
+// da1 = T(dl) . W2^T; dh1 = [a1 > 0] da1 -> T(dh1), and the per-frame
+// column sums of the f32 dh1 -> dlc2 (each frame lies in one tile)
+template <class Cf>
+struct Da1 {
+  using Cfg = Cf;
+  using T = typename Cf::T;
+  CUtensorMap dl;       // [B][T][Q]
+  CUtensorMap w;        // W2 [S][Q]
+  const T* a1;          // [rows, S]
+  T* dh16;              // [rows, S]
+  float* dlc2;          // [F, B, S]
+  int T_, S, B, FR, kt;
 
-  __device__ bool a8(int m, int k, T* v) const {
-    tg::ld8(dl + (long long)m * K + k, v);
-    return true;
+  __device__ void k_range(int& it0, int& it1) const {
+    it0 = 0;
+    it1 = kt;
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(w2 + (long long)n * K + k, v);
-    return true;
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    hg::tma_load_4d(sA, &dl, bar, it * Cfg::BK, t0, b, 0);
+    hg::tma_load_4d(sB, &w, bar, it * Cfg::BK, blockIdx.x * Cfg::BN, 0, 0);
   }
-  __device__ void epi(int m, int n, float v0, float v1, int) const {
-    const long long i = (long long)m * N + n;
-    const float h0 = tg::to_f(a1[i]) > 0.f ? v0 : 0.f;
-    const float h1 = tg::to_f(a1[i + 1]) > 0.f ? v1 : 0.f;
-    dh1[i] = h0;
-    dh1[i + 1] = h1;
-    dh16[i] = tg::from_f<T>(h0);
-    dh16[i + 1] = tg::from_f<T>(h1);
+  // Pass 1, pair by pair (a group of G a1 loads in flight before any
+  // store): the masked f32 dh1 goes back into the tile and T(dh1) to
+  // memory.  Pass 2: thread per (frame, column), FR rows in order.
+  __device__ void tile(float* C) const {
+    constexpr int PITCH = hg::c_pitch<Cfg>(), PAIRS = Cfg::BN / 2;
+    constexpr int TOTAL = Cfg::BM * PAIRS, G = 8;
+    static_assert(TOTAL % (hg::NCONS * G) == 0, "tile");
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    const int n0 = blockIdx.x * Cfg::BN;
+#pragma unroll 1
+    for (int i0 = threadIdx.x; i0 < TOTAL; i0 += hg::NCONS * G) {
+      Two<T> a[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int i = i0 + g * hg::NCONS, r = i / PAIRS, c = 2 * (i % PAIRS);
+        if (t0 + r < T_ && n0 + c < S)
+          a[g].load(a1 + ((long long)b * T_ + t0 + r) * S + n0 + c);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int i = i0 + g * hg::NCONS, r = i / PAIRS, c = 2 * (i % PAIRS);
+        float2* p = reinterpret_cast<float2*>(C + r * PITCH + c);
+        float h0 = 0.f, h1 = 0.f;
+        if (t0 + r < T_ && n0 + c < S) {
+          const float2 v = *p;
+          h0 = a[g].lo() > 0.f ? v.x : 0.f;
+          h1 = a[g].hi() > 0.f ? v.y : 0.f;
+          st2(dh16 + ((long long)b * T_ + t0 + r) * S + n0 + c, h0, h1);
+        }
+        *p = make_float2(h0, h1);
+      }
+    }
+    hg::consumers_sync();
+    const int rows = min(Cfg::BM, T_ - t0);   // whole frames: FR | BM, T
+    const int nf = rows / FR, f0 = t0 / FR;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < nf * Cfg::BN; i += hg::NCONS) {
+      const int fl = i / Cfg::BN, c = i - fl * Cfg::BN;
+      if (n0 + c >= S) continue;
+      const float* col = C + fl * FR * PITCH + c;
+      float s = 0.f;
+      for (int rr = 0; rr < FR; ++rr) s += col[rr * PITCH];
+      dlc2[((long long)(f0 + fl) * B + b) * S + n0 + c] = s;
+    }
   }
 };
 
-template <typename T>
-struct Dw1P {
-  int M, N, K, kchunk;     // M = N = S, K = rows
-  const float* skip;       // [rows, S] f32
-  const T* dh16;           // [rows, S]
-  float* part;
+// dskip = T([skip > 0] (T(dh1) . W1^T))
+template <class Cf>
+struct Dskip {
+  using Cfg = Cf;
+  using T = typename Cf::T;
+  CUtensorMap dh;       // T(dh1) [B][T][S]
+  CUtensorMap w;        // W1 [S][S]
+  const float* skip;    // [rows, S] f32
+  T* dskip;             // [rows, S]
+  int T_, S, kt;
 
-  __device__ bool a8(int m, int k, T* v) const {
-    relu8(skip + (long long)k * M + m, v);
-    return true;
+  __device__ void k_range(int& it0, int& it1) const {
+    it0 = 0;
+    it1 = kt;
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(dh16 + (long long)k * N + n, v);
-    return true;
+  __device__ void load(int it, uint32_t sA, uint32_t sB, uint32_t bar) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    hg::tma_load_4d(sA, &dh, bar, it * Cfg::BK, t0, b, 0);
+    hg::tma_load_4d(sB, &w, bar, it * Cfg::BK, blockIdx.x * Cfg::BN, 0, 0);
   }
-  __device__ void epi(int m, int n, float v0, float v1, int split) const {
-    float* o = part + ((long long)split * M + m) * N + n;
-    o[0] = v0;
-    o[1] = v1;
+  __device__ bool at(int r, int c, long long& i) const {
+    int b, t0;
+    row_tile<Cfg>(b, t0);
+    const int n = blockIdx.x * Cfg::BN + c;
+    i = ((long long)b * T_ + t0 + r) * S + n;
+    return t0 + r < T_ && n < S;
+  }
+  struct Pre {
+    float2 s;
+  };
+  __device__ Pre fetch(int r, int c) const {
+    Pre p{};
+    long long i;
+    if (at(r, c, i)) p.s = *reinterpret_cast<const float2*>(skip + i);
+    return p;
+  }
+  __device__ void put(int r, int c, float v0, float v1, const Pre& p) const {
+    long long i;
+    if (!at(r, c, i)) return;
+    st2(dskip + i, p.s.x > 0.f ? v0 : 0.f, p.s.y > 0.f ? v1 : 0.f);
   }
 };
 
-template <typename T>
-struct DskipP {
-  int M, N, K, kchunk;     // M = rows, N = K = S
-  const T* dh16;           // [rows, S]
-  const T* w1;             // W1 [S, S]
-  const float* skip;       // [rows, S] f32
-  T* dskip;                // [rows, S]
+#define EPI_TRY(x)                                      \
+  do {                                                  \
+    const cudaError_t e_ = (x);                         \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
 
-  __device__ bool a8(int m, int k, T* v) const {
-    tg::ld8(dh16 + (long long)m * K + k, v);
-    return true;
+// FR = 2^shift dividing the row tile (128), so a tile holds whole frames
+inline bool frame_shift(int FR, int& shift) {
+  if (FR < 1 || 128 % FR) return false;
+  for (shift = 0; (1 << shift) < FR; ++shift) {}
+  return true;
+}
+
+// The splits of a weight gradient [M, N] over the rows, and the floats of
+// their partials
+template <class MC> struct DwSplits {
+  int row_tiles, splits;
+  DwSplits(int M, int N, int B, int T) {
+    row_tiles = B * tg::ceil_div(T, MC::BK);
+    splits = tg::fill_splits(tg::ceil_div(M, MC::BM) * tg::ceil_div(N, MC::BN),
+                             row_tiles);
   }
-  __device__ bool b8(int n, int k, T* v) const {
-    tg::ld8(w1 + (long long)n * K + k, v);
-    return true;
-  }
-  __device__ void epi(int m, int n, float v0, float v1, int) const {
-    const long long i = (long long)m * N + n;
-    dskip[i] = tg::from_f<T>(skip[i] > 0.f ? v0 : 0.f);
-    dskip[i + 1] = tg::from_f<T>(skip[i + 1] > 0.f ? v1 : 0.f);
+  static long long floats(int M, int N, int B, int T) {
+    return (long long)DwSplits(M, N, B, T).splits * M * N;
   }
 };
 
 template <typename T>
 int fwd(int B, int T_, int FR, int S, int Q, const float* skip, const T* w1t,
         const T* w2t, const float* b2, const float* enc2, const int* labels,
-        T* a1, T* probs, float* logits, float* part, float* total,
-        cudaStream_t s) {
-  const int rows = B * T_;
-  cudaError_t e;
-  H1P<T> h;
-  h.M = rows; h.N = S; h.K = S; h.kchunk = S;
-  h.skip = skip; h.w1t = w1t; h.enc2 = enc2; h.a1 = a1;
-  h.T_ = T_; h.FR = FR; h.B = B;
-  if ((e = tg::launch_gemm<T, true, true>(h, 1, s)) != cudaSuccess)
-    return static_cast<int>(e);
-  H2P<T> o;
-  o.M = rows; o.N = Q; o.K = S; o.kchunk = S;
-  o.a1 = a1; o.w2t = w2t; o.b2 = b2; o.logits = logits;
-  if ((e = tg::launch_gemm<T, true, true>(o, 1, s)) != cudaSuccess)
-    return static_cast<int>(e);
-  const int nblk = tg::ceil_div(rows, SM_ROWS);
-  softmax_rows<T><<<nblk, 256, 0, s>>>(logits, labels, rows, Q, probs, part);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  tg::sum_all<<<1, 256, 0, s>>>(part, nblk, total);
+        T* sk, T* a1, T* probs, float* part, float* total, cudaStream_t s) {
+  using KC = typename Cfgs<T>::K;
+  using WC = typename Cfgs<T>::KW;
+  int shift;
+  if (!frame_shift(FR, shift) || Q > MAX_Q)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n8 = (long long)B * T_ * S / 8;
+  relu_round<T><<<(unsigned)((n8 + 255) / 256), 256, 0, s>>>(skip, n8, sk);
+  EPI_TRY(cudaGetLastError());
+
+  H1<KC> h;
+  EPI_TRY(hg::encode_k<KC>(&h.sk, sk, hg::dense(S, T_, B, 1), KC::BM));
+  EPI_TRY(hg::encode_k<KC>(&h.w, w1t, hg::dense(S, S, 1, 1), KC::BN));
+  h.enc2 = enc2; h.a1 = a1;
+  h.T_ = T_; h.S = S; h.B = B; h.fr_shift = shift;
+  h.kt = tg::ceil_div(S, KC::BK);
+  EPI_TRY(hg::launch(h, dim3(tg::ceil_div(S, KC::BN), tg::ceil_div(T_, KC::BM),
+                             B), s));
+
+  Head<WC> o;
+  EPI_TRY(hg::encode_k<WC>(&o.a1, a1, hg::dense(S, T_, B, 1), WC::BM));
+  EPI_TRY(hg::encode_k<WC>(&o.w, w2t, hg::dense(S, Q, 1, 1), WC::BN));
+  o.b2 = b2; o.labels = labels; o.probs = probs; o.part = part;
+  o.T_ = T_; o.Q = Q;
+  o.kt = tg::ceil_div(S, WC::BK);
+  const int tpb = tg::ceil_div(T_, WC::BM);
+  EPI_TRY(hg::launch(o, dim3(1, tpb, B), s));
+  tg::sum_all<<<1, 256, 0, s>>>(part, B * tpb, total);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int bwd(int B, int T_, int FR, int S, int Q, const float* g, const T* probs,
-        const int* labels, const T* a1, const float* skip, const T* w1,
-        const T* w2, T* dskip, float* dlc2, float* dw1, float* dw2,
-        float* db2, T* dl, float* dh1, T* dh16, float* part,
-        cudaStream_t s) {
+        const int* labels, const T* a1, const T* sk, const float* skip,
+        const T* w1, const T* w2, T* dskip, float* dlc2, float* dw1,
+        float* dw2, float* db2, T* dl, T* dh16, float* part, cudaStream_t s) {
+  using KC = typename Cfgs<T>::K;
+  using MC = typename Cfgs<T>::MN;
+  int shift;
+  if (!frame_shift(FR, shift)) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = B * T_;
-  cudaError_t e;
   const int nblk = tg::ceil_div(rows, DL_ROWS);
   dlogits_rows<T><<<nblk, Q, 0, s>>>(probs, labels, g, rows, Q, dl, part);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  if ((e = tg::launch_reduce(part, nblk, Q, db2, s)) != cudaSuccess)
-    return static_cast<int>(e);
+  EPI_TRY(cudaGetLastError());
+  EPI_TRY(tg::launch_reduce(part, nblk, Q, db2, s));
 
-  const int splits = tg::ceil_div(rows, ROW_CHUNK);
-  Dw2P<T> w;
-  w.M = S; w.N = Q; w.K = rows; w.kchunk = ROW_CHUNK;
-  w.a1 = a1; w.dl = dl; w.part = part;
-  if ((e = tg::launch_gemm<T, false, false>(w, splits, s)) != cudaSuccess)
-    return static_cast<int>(e);
-  if ((e = tg::launch_reduce(part, splits, (long long)S * Q, dw2, s))
-      != cudaSuccess)
-    return static_cast<int>(e);
+  const DwSplits<MC> s2(S, Q, B, T_);
+  Dw<MC> w;
+  EPI_TRY(hg::encode_mn<MC>(&w.a, a1, hg::dense(S, T_, B, 1)));
+  EPI_TRY(hg::encode_mn<MC>(&w.b, dl, hg::dense(Q, T_, B, 1)));
+  w.part = part;
+  w.M = S; w.N = Q;
+  w.tpb = tg::ceil_div(T_, MC::BK);
+  w.row_tiles = s2.row_tiles;
+  w.chunk = tg::ceil_div(s2.row_tiles, s2.splits);
+  EPI_TRY(hg::launch(w, dim3(tg::ceil_div(Q, MC::BN), tg::ceil_div(S, MC::BM),
+                             s2.splits), s));
+  EPI_TRY(tg::launch_reduce(part, s2.splits, (long long)S * Q, dw2, s));
 
-  Da1P<T> a;
-  a.M = rows; a.N = S; a.K = Q; a.kchunk = Q;
-  a.dl = dl; a.w2 = w2; a.a1 = a1; a.dh1 = dh1; a.dh16 = dh16;
-  if ((e = tg::launch_gemm<T, true, true>(a, 1, s)) != cudaSuccess)
-    return static_cast<int>(e);
-  if ((e = tg::launch_frame_sum<float>(dh1, B, T_, FR, S, dlc2, s))
-      != cudaSuccess)
-    return static_cast<int>(e);
+  Da1<KC> a;
+  EPI_TRY(hg::encode_k<KC>(&a.dl, dl, hg::dense(Q, T_, B, 1), KC::BM));
+  EPI_TRY(hg::encode_k<KC>(&a.w, w2, hg::dense(Q, S, 1, 1), KC::BN));
+  a.a1 = a1; a.dh16 = dh16; a.dlc2 = dlc2;
+  a.T_ = T_; a.S = S; a.B = B; a.FR = FR;
+  a.kt = tg::ceil_div(Q, KC::BK);
+  const dim3 row_grid(tg::ceil_div(S, KC::BN), tg::ceil_div(T_, KC::BM), B);
+  EPI_TRY(hg::launch(a, row_grid, s));
 
-  Dw1P<T> v;
-  v.M = S; v.N = S; v.K = rows; v.kchunk = ROW_CHUNK;
-  v.skip = skip; v.dh16 = dh16; v.part = part;
-  if ((e = tg::launch_gemm<T, false, false>(v, splits, s)) != cudaSuccess)
-    return static_cast<int>(e);
-  if ((e = tg::launch_reduce(part, splits, (long long)S * S, dw1, s))
-      != cudaSuccess)
-    return static_cast<int>(e);
+  const DwSplits<MC> s1(S, S, B, T_);
+  Dw<MC> v;
+  EPI_TRY(hg::encode_mn<MC>(&v.a, sk, hg::dense(S, T_, B, 1)));
+  EPI_TRY(hg::encode_mn<MC>(&v.b, dh16, hg::dense(S, T_, B, 1)));
+  v.part = part;
+  v.M = S; v.N = S;
+  v.tpb = w.tpb;
+  v.row_tiles = s1.row_tiles;
+  v.chunk = tg::ceil_div(s1.row_tiles, s1.splits);
+  EPI_TRY(hg::launch(v, dim3(tg::ceil_div(S, MC::BN), tg::ceil_div(S, MC::BM),
+                             s1.splits), s));
+  EPI_TRY(tg::launch_reduce(part, s1.splits, (long long)S * S, dw1, s));
 
-  DskipP<T> k;
-  k.M = rows; k.N = S; k.K = S; k.kchunk = S;
-  k.dh16 = dh16; k.w1 = w1; k.skip = skip; k.dskip = dskip;
-  if ((e = tg::launch_gemm<T, true, true>(k, 1, s)) != cudaSuccess)
-    return static_cast<int>(e);
+  Dskip<KC> k;
+  EPI_TRY(hg::encode_k<KC>(&k.dh, dh16, hg::dense(S, T_, B, 1), KC::BM));
+  EPI_TRY(hg::encode_k<KC>(&k.w, w1, hg::dense(S, S, 1, 1), KC::BN));
+  k.skip = skip; k.dskip = dskip;
+  k.T_ = T_; k.S = S;
+  k.kt = tg::ceil_div(S, KC::BK);
+  EPI_TRY(hg::launch(k, row_grid, s));
   return 0;
 }
 
@@ -333,75 +573,82 @@ int bwd(int B, int T_, int FR, int S, int Q, const float* g, const T* probs,
 // The floats of scratch (part) each entry needs; the caller sizes part
 // with these, so the row blocking is known to this file alone.
 extern "C" long long train_epilogue_fwd_part_floats(int B, int T) {
-  return tg::ceil_div(B * T, SM_ROWS);
+  return (long long)B * tg::ceil_div(T, hg::F32KWCfg::BM);   // the smaller BM
 }
 
 extern "C" long long train_epilogue_bwd_part_floats(int B, int T, int S,
                                                     int Q) {
-  const long long dl = tg::ceil_div(B * T, DL_ROWS) * (long long)Q;
-  const long long dw = tg::ceil_div(B * T, ROW_CHUNK) * (long long)S *
-                       (S > Q ? S : Q);
-  return dl > dw ? dl : dw;
+  const long long need[5] = {
+      (long long)tg::ceil_div((long long)B * T, DL_ROWS) * Q,
+      DwSplits<hg::Bf16Cfg>::floats(S, Q, B, T),
+      DwSplits<hg::Bf16Cfg>::floats(S, S, B, T),
+      DwSplits<hg::F32Cfg>::floats(S, Q, B, T),
+      DwSplits<hg::F32Cfg>::floats(S, S, B, T)};
+  long long most = 0;
+  for (long long v : need)
+    if (v > most) most = v;
+  return most;
 }
 
-// dtype 0 = float32, 1 = bfloat16.  part holds
-// train_epilogue_fwd_part_floats(B, T) floats; total gets the summed NLL
-// (the caller divides by B*T).
+// dtype 0 = float32, 1 = bfloat16.  sk gets T(relu(skip)) [B*T, S] (the
+// backward reads it); part holds train_epilogue_fwd_part_floats(B, T)
+// floats; total gets the summed NLL (the caller divides by B*T).
 extern "C" int train_epilogue_fwd(int dtype, int B, int T, int FR, int S,
                                   int Q, const void* skip, const void* w1t,
                                   const void* w2t, const void* b2,
                                   const void* enc2, const void* labels,
-                                  void* a1, void* probs, void* logits,
+                                  void* sk, void* a1, void* probs,
                                   void* part, void* total, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sk = static_cast<const float*>(skip);
+  const float* sp = static_cast<const float*>(skip);
   const float* bb = static_cast<const float*>(b2);
   const float* en = static_cast<const float*>(enc2);
   const int* lab = static_cast<const int*>(labels);
-  float* lg = static_cast<float*>(logits);
   float* pt = static_cast<float*>(part);
   float* tot = static_cast<float*>(total);
   if (dtype == 1)
-    return fwd<bf16>(B, T, FR, S, Q, sk, static_cast<const bf16*>(w1t),
+    return fwd<bf16>(B, T, FR, S, Q, sp, static_cast<const bf16*>(w1t),
                      static_cast<const bf16*>(w2t), bb, en, lab,
-                     static_cast<bf16*>(a1), static_cast<bf16*>(probs), lg,
-                     pt, tot, s);
-  return fwd<float>(B, T, FR, S, Q, sk, static_cast<const float*>(w1t),
+                     static_cast<bf16*>(sk), static_cast<bf16*>(a1),
+                     static_cast<bf16*>(probs), pt, tot, s);
+  return fwd<float>(B, T, FR, S, Q, sp, static_cast<const float*>(w1t),
                     static_cast<const float*>(w2t), bb, en, lab,
-                    static_cast<float*>(a1), static_cast<float*>(probs), lg,
-                    pt, tot, s);
+                    static_cast<float*>(sk), static_cast<float*>(a1),
+                    static_cast<float*>(probs), pt, tot, s);
 }
 
-// part holds train_epilogue_bwd_part_floats(B, T, S, Q) floats.
+// dl [B*T, Q] and dh16 [B*T, S] (compute type) are scratch; part holds
+// train_epilogue_bwd_part_floats(B, T, S, Q) floats.
 extern "C" int train_epilogue_bwd(int dtype, int B, int T, int FR, int S,
                                   int Q, const void* g, const void* probs,
                                   const void* labels, const void* a1,
-                                  const void* skip, const void* w1,
-                                  const void* w2, void* dskip, void* dlc2,
-                                  void* dw1, void* dw2, void* db2, void* dl,
-                                  void* dh1, void* dh16, void* part,
+                                  const void* sk, const void* skip,
+                                  const void* w1, const void* w2, void* dskip,
+                                  void* dlc2, void* dw1, void* dw2, void* db2,
+                                  void* dl, void* dh16, void* part,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gg = static_cast<const float*>(g);
   const int* lab = static_cast<const int*>(labels);
-  const float* sk = static_cast<const float*>(skip);
+  const float* sp = static_cast<const float*>(skip);
   float* lc = static_cast<float*>(dlc2);
   float* w1g = static_cast<float*>(dw1);
   float* w2g = static_cast<float*>(dw2);
   float* b2g = static_cast<float*>(db2);
-  float* h = static_cast<float*>(dh1);
   float* pt = static_cast<float*>(part);
   if (dtype == 1)
     return bwd<bf16>(B, T, FR, S, Q, gg, static_cast<const bf16*>(probs), lab,
-                     static_cast<const bf16*>(a1), sk,
+                     static_cast<const bf16*>(a1),
+                     static_cast<const bf16*>(sk), sp,
                      static_cast<const bf16*>(w1),
                      static_cast<const bf16*>(w2), static_cast<bf16*>(dskip),
-                     lc, w1g, w2g, b2g, static_cast<bf16*>(dl), h,
+                     lc, w1g, w2g, b2g, static_cast<bf16*>(dl),
                      static_cast<bf16*>(dh16), pt, s);
   return bwd<float>(B, T, FR, S, Q, gg, static_cast<const float*>(probs), lab,
-                    static_cast<const float*>(a1), sk,
+                    static_cast<const float*>(a1),
+                    static_cast<const float*>(sk), sp,
                     static_cast<const float*>(w1),
                     static_cast<const float*>(w2), static_cast<float*>(dskip),
-                    lc, w1g, w2g, b2g, static_cast<float*>(dl), h,
+                    lc, w1g, w2g, b2g, static_cast<float*>(dl),
                     static_cast<float*>(dh16), pt, s);
 }

@@ -306,18 +306,7 @@ __global__ void seed_dx(const T* __restrict__ dxout, long long n, int T_,
 }
 
 constexpr int ROW_CHUNK = 256;    // rows per split of drb's column sums
-constexpr int FILL_BLOCKS = 132;  // blocks a per-layer row reduction aims at
-
-// Splits of a per-layer reduction over the rows with ``tiles`` output
-// tiles: as many whole sets of tiles as one block on each of an H100's
-// SMs holds (a fixed number, so the sums' order depends on the shapes
-// alone; rounding up would leave a second wave almost empty), at least
-// one, at most one per k-tile.
-inline int fill_splits(int tiles, int row_tiles) {
-  int s = FILL_BLOCKS / (tiles > 1 ? tiles : 1);
-  if (s > row_tiles) s = row_tiles;
-  return s < 1 ? 1 : s;
-}
+using tg::fill_splits;
 
 template <class MC> struct Splits {
   int row_tiles, sk_tiles, sk, dk_tiles, dk;

@@ -10,8 +10,9 @@ per-frame condition of postprocess1 and its bias fold into ``enc2``
 condition weights' gradients come from autograd against ``dlc2``.
 
 Rounding points (kernel and plain version alike), compute type T:
-  forward   h1 = T(relu(skip)) . W1 + enc2 (f32); a1 = T(relu(h1)) (saved);
-            logits = a1 . W2 + b2 (f32); probs = T(softmax) (saved);
+  forward   sk = T(relu(skip)) (saved); h1 = sk . W1 + enc2 (f32);
+            a1 = T(relu(h1)) (saved); logits = a1 . W2 + b2 (f32);
+            probs = T(softmax) (saved);
             loss = sum(logsumexp - logit[label]) / (B*T)
   backward  dlogits = (probs - onehot) * g / (B*T) in f32 (db2 its sums);
             T(dlogits) feeds dW2 and da1; dh1 = [a1 > 0] da1 (f32; dlc2
@@ -38,26 +39,28 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def epilogue_forward_plain(skip, w1, w2, b2, enc2, labels):
     """skip [B, T, S] f32, w1 [S, S] and w2 [S, Q] in the compute type,
     b2 [Q] f32, enc2 [F, B, S] f32, labels [B, T] int.  Returns (summed
-    NLL f32 scalar, a1 [B, T, S], probs [B, T, Q]) in the compute type."""
+    NLL f32 scalar, a1 [B, T, S], probs [B, T, Q], sk = T(relu(skip))
+    [B, T, S]), the last three in the compute type."""
     cd = w1.dtype
     B, T, S = skip.shape
     F = enc2.shape[0]
-    sk16 = torch.relu(skip).to(cd).float()
-    h1 = (sk16 @ w1.float()).reshape(B, F, T // F, S) \
+    sk = torch.relu(skip).to(cd)
+    h1 = (sk.float() @ w1.float()).reshape(B, F, T // F, S) \
         + enc2.permute(1, 0, 2)[:, :, None, :]
     a1 = torch.relu(h1.reshape(B, T, S)).to(cd)
     logits = a1.float() @ w2.float() + b2.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     probs = torch.softmax(logits, dim=-1).to(cd)
-    return (lse - picked).sum(), a1, probs
+    return (lse - picked).sum(), a1, probs, sk
 
 
-def epilogue_backward_plain(g, skip, a1, probs, labels, w1, w2,
+def epilogue_backward_plain(g, skip, sk, a1, probs, labels, w1, w2,
                             frames: int):
     """Backward of ``epilogue_forward_plain``'s loss sum / (B*T) for its
-    cotangent g.  Returns (dskip [B, T, S] in the compute type, and float32
-    dlc2 [F, B, S], dw1 [S, S], dw2 [S, Q], db2 [Q])."""
+    cotangent g, from the forward's saved sk, a1 and probs.  Returns
+    (dskip [B, T, S] in the compute type, and float32 dlc2 [F, B, S],
+    dw1 [S, S], dw2 [S, Q], db2 [Q])."""
     cd = w1.dtype
     B, T, S = skip.shape
     Q = w2.shape[1]
@@ -71,8 +74,7 @@ def epilogue_backward_plain(g, skip, a1, probs, labels, w1, w2,
     dh1 = torch.where(a1.float() > 0, da1, torch.zeros_like(da1))
     dlc2 = dh1.reshape(B, frames, T // frames, S).sum(2).permute(1, 0, 2)
     dh16 = dh1.to(cd).float()
-    sk16 = torch.relu(skip).to(cd).float()
-    dw1 = sk16.reshape(n, S).T @ dh16.reshape(n, S)
+    dw1 = sk.float().reshape(n, S).T @ dh16.reshape(n, S)
     dsk = dh16 @ w1.float().T
     dskip = torch.where(skip > 0, dsk, torch.zeros_like(dsk)).to(cd)
     return dskip, dlc2, dw1, dw2, db2
@@ -80,12 +82,26 @@ def epilogue_backward_plain(g, skip, a1, probs, labels, w1, w2,
 
 # ----------------------------------------------------------------- kernels
 
-def _check(cd, S, Q, *tensors):
+# the classes one block's softmax tile holds: a whole row of logits in
+# the 256-column C tile (csrc/train_epilogue.cu, MAX_Q)
+MAX_Q = 256
+
+
+def _check(cd, S, Q, frame_rows, *tensors):
+    """Shapes first (so a width the kernel cannot take raises before any
+    device check), then devices and layout."""
     if cd not in _DTYPES:
         raise TypeError(f"epilogue kernel takes float32 or bfloat16, not {cd}")
-    if S % 8 or Q % 8 or not 8 <= Q <= 1024:
-        raise ValueError(f"epilogue kernel needs S, Q multiples of 8 and "
-                         f"Q <= 1024 (got S={S}, Q={Q})")
+    if S % 8 or Q % 8 or not 8 <= Q:
+        raise ValueError(f"epilogue kernel needs S, Q multiples of 8 "
+                         f"(TMA rows of 16 bytes; got S={S}, Q={Q})")
+    if Q > MAX_Q:
+        raise ValueError(f"epilogue kernel: a block's softmax tile holds a "
+                         f"whole row of at most {MAX_Q} classes (got Q={Q})")
+    if frame_rows < 1 or 128 % frame_rows:
+        raise ValueError(f"epilogue kernel needs frames of rows dividing "
+                         f"its 128-row tile, so that a tile holds whole "
+                         f"frames (got {frame_rows} rows a frame)")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError("the epilogue kernel needs CUDA tensors")
@@ -131,11 +147,10 @@ def epilogue_forward_cuda(skip, w1, w2, b2, enc2, labels):
     b2f = b2.float().contiguous()
     enc2 = enc2.float().contiguous()
     lab = labels.to(torch.int32).contiguous()
-    _check(cd, S, Q, skip32, w1t, w2t, b2f, enc2, lab)
-    n = B * T
+    _check(cd, S, Q, T // F, skip32, w1t, w2t, b2f, enc2, lab)
     a1 = torch.empty((B, T, S), dtype=cd, device=dev)
     probs = torch.empty((B, T, Q), dtype=cd, device=dev)
-    logits = torch.empty((n, Q), dtype=torch.float32, device=dev)
+    sk = torch.empty((B, T, S), dtype=cd, device=dev)
     lib = _lib()
     part = torch.empty((lib.train_epilogue_fwd_part_floats(B, T),),
                        dtype=torch.float32, device=dev)
@@ -145,30 +160,32 @@ def epilogue_forward_cuda(skip, w1, w2, b2, enc2, labels):
         err = lib.train_epilogue_fwd(
             _DTYPES[cd], B, T, T // F, S, Q, skip32.data_ptr(),
             w1t.data_ptr(), w2t.data_ptr(), b2f.data_ptr(), enc2.data_ptr(),
-            lab.data_ptr(), a1.data_ptr(), probs.data_ptr(),
-            logits.data_ptr(), part.data_ptr(), total.data_ptr(), stream)
+            lab.data_ptr(), sk.data_ptr(), a1.data_ptr(), probs.data_ptr(),
+            part.data_ptr(), total.data_ptr(), stream)
     _build.check(lib, err, "train_epilogue_fwd")
     fwd_launches += 1
-    return total, a1, probs
+    return total, a1, probs, sk
 
 
-def epilogue_backward_cuda(g, skip, a1, probs, labels, w1, w2, frames: int):
+def epilogue_backward_cuda(g, skip, sk, a1, probs, labels, w1, w2,
+                           frames: int):
     """Launch the backward entry; same contract as
     ``epilogue_backward_plain``."""
     global bwd_launches
     cd = w1.dtype
     B, T, S = skip.shape
     Q = w2.shape[1]
-    if T % frames or a1.dtype != cd or probs.dtype != cd \
-            or tuple(probs.shape) != (B, T, Q):
+    if T % frames or a1.dtype != cd or probs.dtype != cd or sk.dtype != cd \
+            or tuple(probs.shape) != (B, T, Q) \
+            or tuple(sk.shape) != (B, T, S):
         raise ValueError("epilogue operands do not fit")
     dev = skip.device
     g32 = g.float().reshape(1).contiguous()
     skip32 = skip.float().contiguous()
     lab = labels.to(torch.int32).contiguous()
     w1c, w2c = w1.contiguous(), w2.contiguous()
-    a1, probs = a1.contiguous(), probs.contiguous()
-    _check(cd, S, Q, skip32, g32, lab, w1c, w2c, a1, probs)
+    sk, a1, probs = sk.contiguous(), a1.contiguous(), probs.contiguous()
+    _check(cd, S, Q, T // frames, skip32, g32, lab, w1c, w2c, sk, a1, probs)
     n = B * T
     f32 = torch.float32
     dskip = torch.empty((B, T, S), dtype=cd, device=dev)
@@ -177,7 +194,6 @@ def epilogue_backward_cuda(g, skip, a1, probs, labels, w1, w2, frames: int):
     dw2 = torch.empty((S, Q), dtype=f32, device=dev)
     db2 = torch.empty((Q,), dtype=f32, device=dev)
     dl = torch.empty((n, Q), dtype=cd, device=dev)
-    dh1 = torch.empty((n, S), dtype=f32, device=dev)
     dh16 = torch.empty((n, S), dtype=cd, device=dev)
     lib = _lib()
     part = torch.empty((lib.train_epilogue_bwd_part_floats(B, T, S, Q),),
@@ -186,11 +202,11 @@ def epilogue_backward_cuda(g, skip, a1, probs, labels, w1, w2, frames: int):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_epilogue_bwd(
             _DTYPES[cd], B, T, T // frames, S, Q, g32.data_ptr(),
-            probs.data_ptr(), lab.data_ptr(), a1.data_ptr(),
+            probs.data_ptr(), lab.data_ptr(), a1.data_ptr(), sk.data_ptr(),
             skip32.data_ptr(), w1c.data_ptr(), w2c.data_ptr(),
             dskip.data_ptr(), dlc2.data_ptr(), dw1.data_ptr(),
-            dw2.data_ptr(), db2.data_ptr(), dl.data_ptr(), dh1.data_ptr(),
-            dh16.data_ptr(), part.data_ptr(), stream)
+            dw2.data_ptr(), db2.data_ptr(), dl.data_ptr(), dh16.data_ptr(),
+            part.data_ptr(), stream)
     _build.check(lib, err, "train_epilogue_bwd")
     bwd_launches += 1
     return dskip, dlc2, dw1, dw2, db2
@@ -214,16 +230,17 @@ class _Epilogue(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w1, w2, b2, enc2, skip, labels):
-        total, a1, probs = epilogue_forward(skip, w1, w2, b2, enc2, labels)
-        ctx.save_for_backward(w1, w2, skip, a1, probs, labels)
+        total, a1, probs, sk = epilogue_forward(skip, w1, w2, b2, enc2,
+                                                labels)
+        ctx.save_for_backward(w1, w2, skip, sk, a1, probs, labels)
         ctx.frames = enc2.shape[0]
         return total / (skip.shape[0] * skip.shape[1])
 
     @staticmethod
     def backward(ctx, g):
-        w1, w2, skip, a1, probs, labels = ctx.saved_tensors
+        w1, w2, skip, sk, a1, probs, labels = ctx.saved_tensors
         dskip, dlc2, dw1, dw2, db2 = epilogue_backward(
-            g, skip, a1, probs, labels, w1, w2, ctx.frames)
+            g, skip, sk, a1, probs, labels, w1, w2, ctx.frames)
         return (dw1.to(w1.dtype), dw2.to(w2.dtype), db2, dlc2,
                 dskip.float(), None)
 

@@ -40,10 +40,21 @@ def _lib():
     return lib
 
 
+def _aligned(t: torch.Tensor, d4: int) -> torch.Tensor:
+    """t [rows, d] as the kernel reads it: d zero-padded to d4 (a multiple
+    of 4: the rows of its TMA maps are whole 16-byte pieces; zeros change
+    no dot product or norm) and 16-byte aligned.  Returns t itself at the
+    shipped widths."""
+    if t.shape[1] != d4:
+        t = torch.nn.functional.pad(t, (0, d4 - t.shape[1]))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def vq_nearest_cuda(z_flat: torch.Tensor,
                     embedding: torch.Tensor) -> torch.Tensor:
     """Launch the kernel; z_flat [N, d] and embedding [k, d] float32 CUDA
-    tensors on one device, contiguous, d <= 256.  Returns int64 [N]."""
+    tensors on one device, contiguous, d <= 256.  Returns int64 [N],
+    written by the kernel itself."""
     global launches
     if not (z_flat.is_cuda and embedding.is_cuda
             and z_flat.device == embedding.device):
@@ -61,17 +72,19 @@ def vq_nearest_cuda(z_flat: torch.Tensor,
                          f"(got d={d}, k={k})")
     if not (z_flat.is_contiguous() and embedding.is_contiguous()):
         raise ValueError("vq_nearest_cuda needs contiguous tensors")
-    out = torch.empty((n,), dtype=torch.int32, device=z_flat.device)
+    out = torch.empty((n,), dtype=torch.int64, device=z_flat.device)
     if n == 0:
-        return out.long()
+        return out
+    d4 = -(-d // 4) * 4
+    z_flat, embedding = _aligned(z_flat, d4), _aligned(embedding, d4)
     lib = _lib()
     with torch.cuda.device(z_flat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vq_argmin(z_flat.data_ptr(), embedding.data_ptr(), n, k, d,
+        err = lib.vq_argmin(z_flat.data_ptr(), embedding.data_ptr(), n, k, d4,
                             out.data_ptr(), stream)
     _build.check(lib, err, "vq_argmin")
     launches += 1
-    return out.long()
+    return out
 
 
 def vq_nearest(z_flat: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
