@@ -119,8 +119,8 @@ def test_epilogue_wrapper_refuses_shapes_before_device(entry, Q, frames):
                 labels)
         else:
             epilogue_kernels.epilogue_backward_cuda(
-                torch.ones(()), skip, skip, skip, torch.zeros((B, T, Q)),
-                labels, w1, w2, frames)
+                torch.ones(()), skip, skip, torch.zeros((B, T, Q)), labels,
+                w1, w2, frames, skip)
 
 
 def test_epilogue_wrapper_refuses_cpu_tensors():

@@ -10,14 +10,17 @@ per-frame condition of postprocess1 and its bias fold into ``enc2``
 condition weights' gradients come from autograd against ``dlc2``.
 
 Rounding points (kernel and plain version alike), compute type T:
-  forward   sk = T(relu(skip)) (saved); h1 = sk . W1 + enc2 (f32);
-            a1 = T(relu(h1)) (saved); logits = a1 . W2 + b2 (f32);
-            probs = T(softmax) (saved);
+  forward   h1 = T(relu(skip)) . W1 + enc2 (f32); a1 = T(relu(h1)) (saved);
+            logits = a1 . W2 + b2 (f32); probs = T(softmax) (saved);
             loss = sum(logsumexp - logit[label]) / (B*T)
   backward  dlogits = (probs - onehot) * g / (B*T) in f32 (db2 its sums);
             T(dlogits) feeds dW2 and da1; dh1 = [a1 > 0] da1 (f32; dlc2
             its per-frame sums); T(dh1) feeds dW1 and dskip;
             dskip = T([skip > 0] (T(dh1) . W1^T)).
+
+The kernel's forward also writes sk = T(relu(skip)), the operand its
+products read through TMA, and its backward reads sk for dW1; the plain
+version recomputes relu(skip) where it needs it.
 """
 from __future__ import annotations
 
@@ -39,28 +42,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def epilogue_forward_plain(skip, w1, w2, b2, enc2, labels):
     """skip [B, T, S] f32, w1 [S, S] and w2 [S, Q] in the compute type,
     b2 [Q] f32, enc2 [F, B, S] f32, labels [B, T] int.  Returns (summed
-    NLL f32 scalar, a1 [B, T, S], probs [B, T, Q], sk = T(relu(skip))
-    [B, T, S]), the last three in the compute type."""
+    NLL f32 scalar, a1 [B, T, S], probs [B, T, Q]) in the compute type."""
     cd = w1.dtype
     B, T, S = skip.shape
     F = enc2.shape[0]
-    sk = torch.relu(skip).to(cd)
-    h1 = (sk.float() @ w1.float()).reshape(B, F, T // F, S) \
+    sk16 = torch.relu(skip).to(cd).float()
+    h1 = (sk16 @ w1.float()).reshape(B, F, T // F, S) \
         + enc2.permute(1, 0, 2)[:, :, None, :]
     a1 = torch.relu(h1.reshape(B, T, S)).to(cd)
     logits = a1.float() @ w2.float() + b2.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     probs = torch.softmax(logits, dim=-1).to(cd)
-    return (lse - picked).sum(), a1, probs, sk
+    return (lse - picked).sum(), a1, probs
 
 
-def epilogue_backward_plain(g, skip, sk, a1, probs, labels, w1, w2,
+def epilogue_backward_plain(g, skip, a1, probs, labels, w1, w2,
                             frames: int):
     """Backward of ``epilogue_forward_plain``'s loss sum / (B*T) for its
-    cotangent g, from the forward's saved sk, a1 and probs.  Returns
-    (dskip [B, T, S] in the compute type, and float32 dlc2 [F, B, S],
-    dw1 [S, S], dw2 [S, Q], db2 [Q])."""
+    cotangent g.  Returns (dskip [B, T, S] in the compute type, and float32
+    dlc2 [F, B, S], dw1 [S, S], dw2 [S, Q], db2 [Q])."""
     cd = w1.dtype
     B, T, S = skip.shape
     Q = w2.shape[1]
@@ -74,7 +75,8 @@ def epilogue_backward_plain(g, skip, sk, a1, probs, labels, w1, w2,
     dh1 = torch.where(a1.float() > 0, da1, torch.zeros_like(da1))
     dlc2 = dh1.reshape(B, frames, T // frames, S).sum(2).permute(1, 0, 2)
     dh16 = dh1.to(cd).float()
-    dw1 = sk.float().reshape(n, S).T @ dh16.reshape(n, S)
+    sk16 = torch.relu(skip).to(cd).float()
+    dw1 = sk16.reshape(n, S).T @ dh16.reshape(n, S)
     dsk = dh16 @ w1.float().T
     dskip = torch.where(skip > 0, dsk, torch.zeros_like(dsk)).to(cd)
     return dskip, dlc2, dw1, dw2, db2
@@ -130,8 +132,9 @@ def _lib():
 
 
 def epilogue_forward_cuda(skip, w1, w2, b2, enc2, labels):
-    """Launch the forward entry; same contract as
-    ``epilogue_forward_plain``."""
+    """Launch the forward entry; ``epilogue_forward_plain``'s contract,
+    and sk = T(relu(skip)) [B, T, S] in the compute type after probs (the
+    backward entry's operand)."""
     global fwd_launches
     cd = w1.dtype
     B, T, S = skip.shape
@@ -167,10 +170,10 @@ def epilogue_forward_cuda(skip, w1, w2, b2, enc2, labels):
     return total, a1, probs, sk
 
 
-def epilogue_backward_cuda(g, skip, sk, a1, probs, labels, w1, w2,
-                           frames: int):
-    """Launch the backward entry; same contract as
-    ``epilogue_backward_plain``."""
+def epilogue_backward_cuda(g, skip, a1, probs, labels, w1, w2, frames: int,
+                           sk):
+    """Launch the backward entry; ``epilogue_backward_plain``'s contract,
+    with the forward entry's sk last."""
     global bwd_launches
     cd = w1.dtype
     B, T, S = skip.shape
@@ -212,35 +215,29 @@ def epilogue_backward_cuda(g, skip, sk, a1, probs, labels, w1, w2,
     return dskip, dlc2, dw1, dw2, db2
 
 
-def epilogue_forward(*args):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    return (epilogue_forward_cuda if args[0].is_cuda
-            else epilogue_forward_plain)(*args)
-
-
-def epilogue_backward(*args):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    return (epilogue_backward_cuda if args[1].is_cuda
-            else epilogue_backward_plain)(*args)
-
-
 class _Epilogue(torch.autograd.Function):
-    """Mean NLL of the heads over ``skip``; the backward is the kernel's
-    backward entry (or its plain version on the CPU)."""
+    """Mean NLL of the heads over ``skip``: the kernel's entries for CUDA
+    tensors (the forward's sk saved for the backward), their plain
+    versions for CPU tensors."""
 
     @staticmethod
     def forward(ctx, w1, w2, b2, enc2, skip, labels):
-        total, a1, probs, sk = epilogue_forward(skip, w1, w2, b2, enc2,
-                                                labels)
-        ctx.save_for_backward(w1, w2, skip, sk, a1, probs, labels)
+        args = (skip, w1, w2, b2, enc2, labels)
+        if skip.is_cuda:
+            total, a1, probs, sk = epilogue_forward_cuda(*args)
+        else:
+            (total, a1, probs), sk = epilogue_forward_plain(*args), None
+        ctx.save_for_backward(w1, w2, skip, a1, probs, labels, sk)
         ctx.frames = enc2.shape[0]
         return total / (skip.shape[0] * skip.shape[1])
 
     @staticmethod
     def backward(ctx, g):
-        w1, w2, skip, sk, a1, probs, labels = ctx.saved_tensors
-        dskip, dlc2, dw1, dw2, db2 = epilogue_backward(
-            g, skip, sk, a1, probs, labels, w1, w2, ctx.frames)
+        w1, w2, skip, a1, probs, labels, sk = ctx.saved_tensors
+        args = (g, skip, a1, probs, labels, w1, w2, ctx.frames)
+        dskip, dlc2, dw1, dw2, db2 = (
+            epilogue_backward_cuda(*args, sk) if skip.is_cuda
+            else epilogue_backward_plain(*args))
         return (dw1.to(w1.dtype), dw2.to(w2.dtype), db2, dlc2,
                 dskip.float(), None)
 
