@@ -77,6 +77,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              counters reset before each run and read after; generate from
              the bf16 checkpoint; the "off" step's loss and gradients
              against the default's on one fixed batch.
+  15. encoders  Encoder_2019 and Encoder_Magenta: the loss head at the
+             2019 encoder's 320-row frames (B=8, T=6,400, F=20) against its
+             plain twin in f32 and bf16, bitwise repeats, device times
+             beside FR=64 in one run; vqvae_wavenet_torch.train six steps
+             each with the 2019 encoder (-length 6400) in f32 and bf16 and
+             the Magenta encoder (-length 6656) in bf16; generate from the
+             2019 bf16 checkpoint on the 8,192-sample wav (ratio 315, the
+             last 2 samples read the last frame) in bf16 and int8, greedy
+             and sample; the generation kernel teacher-forced at ratio 315
+             against its twin;
+  16. prior  vqvae_wavenet_torch.prior over a random full-width VQ-VAE:
+             20 training steps at -batch 8 -length 6656 in f32 and bf16
+             (NLL, code perplexity, steps/s), then -sample 4 -seconds 1.0
+             through the generation kernel (samples/s).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and
 prints no result.  Outputs go under build/chip_smoke/ (gitignored).
@@ -586,10 +600,11 @@ def _gen_times(gk, params, w, lcb, length: int, iters: int):
 
 
 def _teacher_forced_check(tag, params, w, lc, gc, gate_order, tol, g,
-                          steps: int = 256) -> float:
+                          steps: int = 256, ratio=None) -> float:
     """Teacher-forced logits of the kernel against the plain twin over
-    ``steps`` steps of a noisy sine; raises beyond tol * max(1, max|logit|).
-    Returns max |kernel - plain|."""
+    ``steps`` steps of a noisy sine (sample i reads frame i // ratio, the
+    last frame past the last; ratio steps // frames unless given); raises
+    beyond tol * max(1, max|logit|).  Returns max |kernel - plain|."""
     from vqvae_wavenet_torch.ops import gen_kernels as gk
     b = lc.shape[0]
     t = torch.arange(steps, dtype=torch.float32)
@@ -598,14 +613,15 @@ def _teacher_forced_check(tag, params, w, lc, gc, gate_order, tol, g,
     forced = torch.cat([torch.zeros((b, 1)), x[:, :-1]], dim=1).to(lc.device)
     gcon, g_pp1 = gk.condition_terms(params, w, b, gc)
     kw = dict(length=steps, gate_order=gate_order, forced=forced,
-              want_logits=True)
+              want_logits=True, ratio=ratio)
     _, lk = gk.generate_clip_cuda(w, lc, gcon, g_pp1, **kw)
     _, lp = gk.generate_clip_plain(w, lc, gcon, g_pp1, **kw)
     err = float((lk - lp).abs().max())
     scale = max(1.0, float(lp.abs().max()))
     wt = str(w.w_a.dtype).split(".")[-1]
     log(f"[{tag}] teacher-forced {wt} weights B={b} {gate_order} "
-        f"gc={'yes' if gc is not None else 'no'} T={steps}: max |logit err| "
+        f"gc={'yes' if gc is not None else 'no'} T={steps} frames "
+        f"{lc.shape[1]} ratio {ratio or steps // lc.shape[1]}: max |logit err| "
         f"{err:.3g} (mean {float((lk - lp).abs().mean()):.3g}), max |logit| "
         f"{scale:.3g}, tolerance {tol * scale:.3g}")
     if not err <= tol * scale:
@@ -1267,54 +1283,88 @@ def _epilogue_inputs(B, T, F, dtype, g):
     return skip, w1, w2, b2, enc2, labels
 
 
+def _epilogue_check(tag, B, T, F, dtype, g) -> dict:
+    """Both loss-head entries against their plain twins on one random case
+    at S=512, Q=256 (frames of T / F rows): the loss within 1e-5 (f32) /
+    1e-3 (bf16) relative, sk = T(relu(skip)) bit for bit, every other
+    leaf as in train-stack; the backward twin gets the kernel forward's a1
+    and probs and rounds relu(skip) itself.  Returns the case: its forward
+    and backward arguments, the kernel's outputs and the errors."""
+    from vqvae_wavenet_torch.ops import epilogue_kernels as ek
+    N = B * T
+    fwd = _epilogue_inputs(B, T, F, dtype, g)
+    skip, w1, w2, b2, enc2, labels = fwd
+    lk, a1, probs, sk = ek.epilogue_forward_cuda(*fwd)
+    lp, a1_p, probs_p = ek.epilogue_forward_plain(*fwd)
+    l_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    log(f"[{tag}] {dtype} B={B} T={T} F={F}: loss kernel "
+        f"{float(lk) / N:.6f} plain {float(lp) / N:.6f} (relative "
+        f"{l_err:.3g})")
+    if not l_err <= (1e-5 if dtype == "f32" else 1e-3):
+        raise AssertionError(f"epilogue loss disagrees ({dtype})")
+    if not torch.equal(sk, torch.relu(skip).to(w1.dtype)):
+        raise AssertionError(f"epilogue sk is not T(relu(skip)) "
+                             f"bit for bit ({dtype})")
+    f_err = max(l_err, _check_leaves(f"{tag} fwd", dtype, {
+        "a1": (a1, a1_p), "probs": (probs, probs_p)}))
+    del a1_p, probs_p
+    gvec = torch.ones((), device="cuda")
+    bargs = (gvec, skip, a1, probs, labels, w1, w2, F)
+    gk = ek.epilogue_backward_cuda(*bargs, sk)
+    gp = ek.epilogue_backward_plain(*bargs)
+    b_err = _check_leaves(f"{tag} bwd", dtype, dict(zip(
+        ("dskip", "dlc2", "dw1", "dw2", "db2"), zip(gk, gp))))
+    return {"fwd": fwd, "bargs": bargs, "sk": sk, "out": (lk, a1, probs, sk),
+            "grads": gk, "f_err": f_err, "b_err": b_err}
+
+
+def _epilogue_bounds(case, dtype):
+    """The loss head's bounds from the function's own traffic: skip, the
+    weights, enc2 and the labels (int32) in; a1, probs and the loss
+    (backward: the gradients) out.  sk is the design's operand for TMA, not
+    the function's."""
+    skip, w1, w2, b2, enc2, _ = case["fwd"]
+    _, a1, probs, _ = case["out"]
+    B, T, S = skip.shape
+    N, Q = B * T, w2.shape[1]
+    f_bound = bound(2.0 * N * (S * S + S * Q),
+                    nbytes(skip, w1, w2, b2, enc2) + 4 * N
+                    + nbytes(a1, probs) + 4, dtype)
+    b_bound = bound(2.0 * N * (2 * S * Q + 2 * S * S),
+                    nbytes(skip, a1, probs, w1, w2) + 4 * N
+                    + nbytes(*case["grads"]), dtype)
+    return f_bound, b_bound
+
+
+def _epilogue_repeat(tag, dtype, case) -> None:
+    """Both entries again on the same inputs: bit for bit."""
+    from vqvae_wavenet_torch.ops import epilogue_kernels as ek
+    _bitwise_repeat(f"{tag} fwd", dtype, case["out"],
+                    ek.epilogue_forward_cuda(*case["fwd"]))
+    _bitwise_repeat(f"{tag} bwd", dtype, case["grads"],
+                    ek.epilogue_backward_cuda(*case["bargs"], case["sk"]))
+
+
 def phase_train_epilogue(card: str):
     """The loss-head kernel (forward and backward entries) against its
     plain twin at the shipped widths S=512, Q=256, f32 and bf16, at B=8,
     T=6656 (104 frames of 64 rows) and at B=3, T=4416 (69 frames: T % 128
-    = 64, so the last row tile of each batch row is half empty); the
-    backward twin gets the kernel forward's saved a1 and probs and rounds
-    relu(skip) itself, and the kernel's sk must be T(relu(skip)) bit for
-    bit.  The loss within 1e-5 (f32) / 1e-3 (bf16) relative, every other
-    leaf as in train-stack.  At the full shape both entries run twice on
-    the same inputs and must repeat bit for bit, and torch.profiler splits
-    their device time by kernel.  Returns the JSON fields of both entries (bf16,
-    full shape)."""
+    = 64, so the last row tile of each batch row is half empty), by
+    ``_epilogue_check``.  At the full shape both entries run twice on the
+    same inputs and must repeat bit for bit, and torch.profiler splits
+    their device time by kernel.  Returns the JSON fields of both entries
+    (bf16, full shape)."""
     from vqvae_wavenet_torch.ops import epilogue_kernels as ek
     g = torch.Generator(device="cpu").manual_seed(5)
     out = {}
     for B, T, F in ((8, 6656, 104), (3, 4416, 69)):
-        N = B * T
         for dtype in ("f32", "bf16"):
-            fwd = _epilogue_inputs(B, T, F, dtype, g)
-            skip, w1, w2, b2, enc2, labels = fwd
-            S, Q = w2.shape
-            lk, a1, probs, sk = ek.epilogue_forward_cuda(*fwd)
-            lp, a1_p, probs_p = ek.epilogue_forward_plain(*fwd)
-            l_err = abs(float(lk) - float(lp)) / abs(float(lp))
-            log(f"[train-epilogue] {dtype} B={B} T={T}: loss kernel "
-                f"{float(lk) / N:.6f} plain {float(lp) / N:.6f} (relative "
-                f"{l_err:.3g})")
-            if not l_err <= (1e-5 if dtype == "f32" else 1e-3):
-                raise AssertionError(f"epilogue loss disagrees ({dtype})")
-            if not torch.equal(sk, torch.relu(skip).to(w1.dtype)):
-                raise AssertionError(f"epilogue sk is not T(relu(skip)) "
-                                     f"bit for bit ({dtype})")
-            f_err = max(l_err, _check_leaves("train-epilogue fwd", dtype, {
-                "a1": (a1, a1_p), "probs": (probs, probs_p)}))
-            del a1_p, probs_p
-            gvec = torch.ones((), device="cuda")
-            bargs = (gvec, skip, a1, probs, labels, w1, w2, F)
-            gk = ek.epilogue_backward_cuda(*bargs, sk)
-            gp = ek.epilogue_backward_plain(*bargs)
-            b_err = _check_leaves("train-epilogue bwd", dtype, dict(zip(
-                ("dskip", "dlc2", "dw1", "dw2", "db2"), zip(gk, gp))))
-            del gp
+            case = _epilogue_check("train-epilogue", B, T, F, dtype, g)
             if B != 8:
+                del case
                 continue
-            _bitwise_repeat("train-epilogue fwd", dtype, (lk, a1, probs, sk),
-                            ek.epilogue_forward_cuda(*fwd))
-            _bitwise_repeat("train-epilogue bwd", dtype, gk,
-                            ek.epilogue_backward_cuda(*bargs, sk))
+            _epilogue_repeat("train-epilogue", dtype, case)
+            fwd, bargs, sk = case["fwd"], case["bargs"], case["sk"]
             f_ms = cuda_ms(lambda: ek.epilogue_forward_cuda(*fwd), 10)
             fp_ms = cuda_ms(lambda: ek.epilogue_forward_plain(*fwd), 5)
             b_ms = cuda_ms(lambda: ek.epilogue_backward_cuda(*bargs, sk),
@@ -1333,16 +1383,7 @@ def phase_train_epilogue(card: str):
                     rr = parts.get("relu_round")
                     rr_txt = ("not measured" if rr is None
                               else f"{rr[0] / rr[1] / 1e3:.3f} ms")
-            # the function's own traffic: skip, the weights, enc2 and the
-            # labels (int32) in; a1, probs and the loss (backward: the
-            # gradients) out.  sk is this design's operand for TMA, not
-            # the function's: relu_round's time is a cost above the bound.
-            f_bound = bound(2.0 * N * (S * S + S * Q),
-                            nbytes(skip, w1, w2, b2, enc2) + 4 * N
-                            + nbytes(a1, probs) + 4, dtype)
-            b_bound = bound(2.0 * N * (2 * S * Q + 2 * S * S),
-                            nbytes(skip, a1, probs, w1, w2) + 4 * N
-                            + nbytes(*gk), dtype)
+            f_bound, b_bound = _epilogue_bounds(case, dtype)
             log(f"[train-epilogue] {dtype} B={B} T={T}: fwd kernel "
                 f"{f_ms:.3f} ms (plain {fp_ms:.3f}, bound {f_bound[0]:.3f} "
                 f"by {f_bound[1]}; its relu_round pass, which writes sk "
@@ -1351,14 +1392,14 @@ def phase_train_epilogue(card: str):
                 f"{b_bound[0]:.3f} by {b_bound[1]})  ({card})")
             if dtype == "bf16":
                 out["train_epilogue_fwd"] = {
-                    "max_abs_err": f_err, "ms": f_ms, "plain_ms": fp_ms,
-                    "bound_ms": f_bound[0], "bound_by": f_bound[1],
-                    "library_ms": None}
+                    "max_abs_err": case["f_err"], "ms": f_ms,
+                    "plain_ms": fp_ms, "bound_ms": f_bound[0],
+                    "bound_by": f_bound[1], "library_ms": None}
                 out["train_epilogue_bwd"] = {
-                    "max_abs_err": b_err, "ms": b_ms, "plain_ms": bp_ms,
-                    "bound_ms": b_bound[0], "bound_by": b_bound[1],
-                    "library_ms": None}
-            del fwd, skip, sk, a1, probs, gk, bargs
+                    "max_abs_err": case["b_err"], "ms": b_ms,
+                    "plain_ms": bp_ms, "bound_ms": b_bound[0],
+                    "bound_by": b_bound[1], "library_ms": None}
+            del case, fwd, bargs, sk
             torch.cuda.empty_cache()
     return out
 
@@ -1690,11 +1731,13 @@ def phase_sp_stack(card: str):
     return out
 
 
-def _train_config(dtype: str) -> str:
-    """build/chip_smoke/model_<dtype>.json: model_parameters.json with
-    "train_dtype": dtype and an absolute wavenet_parameters path (written
+def _train_config(dtype: str, encoder: str = "64") -> str:
+    """build/chip_smoke/model_<dtype>.json (model_<encoder>_<dtype>.json
+    for another encoder): model_parameters.json with "train_dtype": dtype,
+    "encoder": encoder and an absolute wavenet_parameters path (written
     once; the ranks read the file the parent wrote)."""
-    path = os.path.join(OUT, f"model_{dtype}.json")
+    name = f"model_{dtype}" if encoder == "64" else f"model_{encoder}_{dtype}"
+    path = os.path.join(OUT, f"{name}.json")
     if not os.path.exists(path):
         with open(os.path.join(REPO, "model_parameters.json")) as f:
             mp = json.load(f)
@@ -1703,7 +1746,7 @@ def _train_config(dtype: str) -> str:
         os.makedirs(OUT, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "w") as f:
-            json.dump(dict(mp, train_dtype=dtype), f)
+            json.dump(dict(mp, train_dtype=dtype, encoder=encoder), f)
         os.replace(tmp, path)
     return path
 
@@ -1926,9 +1969,240 @@ def phase_sp_train(card: str):
     return launches
 
 
+def _cli_train(tag, card, params_json, length: int, data: str, save: str):
+    """vqvae_wavenet_torch.train for six steps at -batch 8 with the VQ,
+    stack and loss-head counters set to 0 just before and read just after;
+    finite losses and a checkpoint.  Returns (result, counts)."""
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.ops import (epilogue_kernels, train_kernels,
+                                         vq_kernels)
+    vq_kernels.launches = 0
+    train_kernels.fwd_launches = train_kernels.bwd_launches = 0
+    epilogue_kernels.fwd_launches = epilogue_kernels.bwd_launches = 0
+    res = train_cli.main([
+        "-dataset", "VCTK", "-length", str(length), "-batch", "8", "-step",
+        "6", "-save", os.path.join(save, "weights"), "-params", params_json,
+        "-data", data, "-device", "cuda", "-log_every", "1", "-interval",
+        "1000", "-ckpt_interval", "1000"])
+    counts = {"vq_argmin": vq_kernels.launches,
+              "train_stack_fwd": train_kernels.fwd_launches,
+              "train_stack_bwd": train_kernels.bwd_launches,
+              "train_epilogue_fwd": epilogue_kernels.fwd_launches,
+              "train_epilogue_bwd": epilogue_kernels.bwd_launches}
+    print()
+    steady = res["step_seconds"][2:]
+    log(f"[{tag}] losses " + " ".join(f"{v:.4f}" for v in res["losses"])
+        + f"; {len(steady) / sum(steady):.3f} steps/s over steps 3-6 (host "
+        f"clock, synchronised; first step {res['step_seconds'][0]:.2f} s); "
+        f"kernel launches {counts}  ({card})")
+    if not np.isfinite(res["losses"]).all():
+        raise AssertionError(f"[{tag}] non-finite training loss")
+    if not os.path.exists(res["path"] + ".npz"):
+        raise AssertionError(f"[{tag}] no checkpoint written")
+    return res, counts
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_encoders(card: str):
+    """Encoder_2019 and Encoder_Magenta on the card.
+    (1) The loss head at Encoder_2019's frames (B=8, T=6,400, F=20: 320
+    rows a frame, which its 128-row tiles cut, so the dlc2 join runs)
+    against its plain twin in f32 and bf16 (``_epilogue_check``), both
+    entries bit for bit on a second run; device times by CUDA events of
+    both entries at FR=320 beside FR=64 (B=8, T=6,656, F=104, the shipped
+    frames), bf16, in the order 64, 320, 320, 64.
+    (2) vqvae_wavenet_torch.train six steps each: the 2019 encoder at
+    -length 6400 in f32 and bf16, the Magenta encoder at -length 6656 in
+    bf16; the VQ and stack kernels launched in every run, the loss head in
+    bf16.  (3) vqvae_wavenet_torch.generate from the 2019 bf16 checkpoint
+    on the 8,192-sample wav (26 frames, ratio 315: the last 2 samples read
+    the last frame) in bf16 and int8, greedy and sample; and the generation
+    kernel against its plain twin teacher-forced at ratio 315 over the
+    wav's last two frames (632 samples: the last 2 read the second frame
+    again), f32 and bf16.  Returns the main-path runs' launches."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.models.vqvae import vqvae_encode
+    from vqvae_wavenet_torch.ops import epilogue_kernels as ek
+    from vqvae_wavenet_torch.ops import gen_kernels as gk
+    from vqvae_wavenet_torch.params import load_npz
+    g = torch.Generator(device="cpu").manual_seed(9)
+    for dtype in ("f32", "bf16"):
+        case = _epilogue_check("encoders epilogue FR=320", 8, 6400, 20,
+                               dtype, g)
+        _epilogue_repeat("encoders epilogue FR=320", dtype, case)
+        del case
+        torch.cuda.empty_cache()
+    cases = {fr: _epilogue_check(f"encoders epilogue FR={fr}", 8, T, F,
+                                 "bf16", g)
+             for fr, T, F in ((64, 6656, 104), (320, 6400, 20))}
+    times = {64: [], 320: []}
+    for fr in (64, 320, 320, 64):
+        c = cases[fr]
+        times[fr].append((
+            cuda_ms(lambda: ek.epilogue_forward_cuda(*c["fwd"]), 20),
+            cuda_ms(lambda: ek.epilogue_backward_cuda(*c["bargs"], c["sk"]),
+                    20)))
+    for fr in (64, 320):
+        f_bound, b_bound = _epilogue_bounds(cases[fr], "bf16")
+        log(f"[encoders] loss head bf16 FR={fr}: fwd "
+            + " / ".join(f"{f:.3f}" for f, _ in times[fr])
+            + f" ms (bound {f_bound[0]:.3f} by {f_bound[1]}), bwd "
+            + " / ".join(f"{b:.3f}" for _, b in times[fr])
+            + f" ms (bound {b_bound[0]:.3f} by {b_bound[1]}); CUDA events, "
+            f"mean of 20 calls, order 64 320 320 64  ({card})")
+    del cases
+    torch.cuda.empty_cache()
+
+    data = _train_corpus()
+    launches: dict = {}
+    ckpt = None
+    for encoder, dtype, length in (("2019", "f32", 6400),
+                                   ("2019", "bf16", 6400),
+                                   ("Magenta", "bf16", 6656)):
+        res, counts = _cli_train(
+            f"encoders train {encoder} {dtype} -length {length}", card,
+            _train_config(dtype, encoder), length, data,
+            os.path.join(OUT, f"train_{encoder}_{dtype}"))
+        need = ["vq_argmin", "train_stack_fwd", "train_stack_bwd"]
+        if dtype == "bf16":
+            need += ["train_epilogue_fwd", "train_epilogue_bwd"]
+        if min(counts[k] for k in need) < 1:
+            raise AssertionError(f"[encoders] a kernel of the {encoder} "
+                                 f"{dtype} training path was never "
+                                 f"launched: {counts}")
+        _add(launches, {k: counts[k] for k in need})
+        if (encoder, dtype) == ("2019", "bf16"):
+            ckpt = res["path"] + ".npz"
+
+    params_json = _train_config("bf16", "2019")
+    audio = _e2e_wav()
+    for dtype in ("bf16", "int8"):
+        for mode in ("greedy", "sample"):
+            _add(launches, _convert(card, "encoders 2019", ckpt, params_json,
+                                    audio, dtype, mode, distinct=True))
+    cfg = ModelConfig.from_json(params_json)
+    params, state = load_npz(ckpt, "cuda")
+    from scipy.io import wavfile
+    x = torch.from_numpy(wavfile.read(audio)[1].astype(np.float32)
+                         / 32768.0).reshape(1, -1, 1).cuda()
+    y = torch.zeros((1, 1, 109), device="cuda")
+    y[0, 0, 1] = 1.0
+    with torch.no_grad():
+        lc, _ = vqvae_encode(params, state, cfg, x, y)
+        if lc.shape[1] != 26 or 8192 // 26 != 315:
+            raise AssertionError(f"2019 encode of 8,192 samples gave "
+                                 f"{lc.shape[1]} frames, not 26")
+        for dtype, tol in ((torch.float32, F32_LOGIT_TOL),
+                           (torch.bfloat16, BF16_LOGIT_TOL)):
+            w = gk.pack_gen_params(params["decoder"], cfg.wavenet, dtype,
+                                   "cuda")
+            _teacher_forced_check("encoders 2019", params["decoder"], w,
+                                  lc[:, -2:].contiguous(), None,
+                                  "tanh_first", tol, g, steps=632,
+                                  ratio=315)
+    log(f"[encoders] kernel launches in the main-path runs: {launches}")
+    return launches
+
+
+def _prior_vqvae(path: str, data: str) -> None:
+    """A random full-width model_parameters.json VQ-VAE (weights from a
+    seed) whose codebook is 512 of its own encoder's output frames on the
+    corpus, plus noise: a random codebook sends every frame to one code,
+    which leaves the prior nothing to learn."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.data import read_wav_16k
+    from vqvae_wavenet_torch.models.encoders import encoder_forward
+    from vqvae_wavenet_torch.params import random_params_np, save_npz, to_torch
+    cfg = ModelConfig.from_json(os.path.join(REPO, "model_parameters.json"))
+    params, state = random_params_np(cfg, 109, seed=0)
+    root = os.path.join(data, "VCTK-Corpus", "wav48")
+    with open(os.path.join(data, "vctk_info", "vctk_train.txt")) as f:
+        wavs = [read_wav_16k(os.path.join(root, n.strip()))
+                for n in f if n.strip()]
+    x = torch.from_numpy(np.stack(wavs)[..., None]).cuda()
+    with torch.no_grad():
+        z, _ = encoder_forward("64", to_torch(params["encoder"], "cuda"),
+                               to_torch(state["encoder"], "cuda"), x)
+    z = z.reshape(-1, z.shape[-1]).cpu().numpy()
+    rng = np.random.default_rng(0)
+    pick = z[rng.choice(len(z), cfg.k, replace=len(z) < cfg.k)]
+    params["vq"]["embedding"] = (pick + 0.01 * z.std() * rng.standard_normal(
+        pick.shape)).astype(np.float32)
+    save_npz(path, params, state)
+
+
+def phase_prior(card: str):
+    """The prior entry point (vqvae_wavenet_torch.prior) over a random
+    full-width model_parameters.json VQ-VAE (``_prior_vqvae``) on the
+    synthetic corpus: 20 training steps at -batch 8 -length 6656 in f32
+    and in bf16 (finite NLL; the VQ kernel launched: it encodes the codes),
+    NLL, code perplexity and steps/s over steps 3-20; then -sample 4
+    -seconds 1.0 -speakers p225 p226 p225 None from the bf16 prior: four
+    16,000-sample clips through the generation kernel, finite, in [-1, 1],
+    samples/s.  Counters are set to 0 just before each run and read just
+    after.  Returns the main-path runs' launches."""
+    from scipy.io import wavfile
+    from vqvae_wavenet_torch import prior as prior_cli
+    from vqvae_wavenet_torch.ops import gen_kernels, vq_kernels
+    params_json = os.path.join(REPO, "model_parameters.json")
+    data = _train_corpus()
+    ckpt = os.path.join(OUT, "prior_vqvae.npz")
+    _prior_vqvae(ckpt, data)
+    common = ["-restore", ckpt, "-params", params_json, "-data", data,
+              "-device", "cuda"]
+    launches: dict = {}
+    for dtype in ("f32", "bf16"):
+        vq_kernels.launches = 0
+        res = prior_cli.main(common + [
+            "-length", "6656", "-batch", "8", "-step", "20", "-save",
+            os.path.join(OUT, f"prior_{dtype}"), "-train_dtype", dtype,
+            "-interval", "1000", "-ckpt_interval", "1000", "-log_every",
+            "1"])
+        counts = {"vq_argmin": vq_kernels.launches}
+        print()
+        steady = res["step_seconds"][2:]
+        log(f"[prior] train {dtype}: nll {res['nll'][0]:.4f} -> "
+            f"{res['nll'][-1]:.4f}, code perplexity "
+            f"{res['code_perplexity'][0]:.1f} -> "
+            f"{res['code_perplexity'][-1]:.1f}; "
+            f"{len(steady) / sum(steady):.3f} steps/s over steps 3-20 (host "
+            f"clock, synchronised; first step {res['step_seconds'][0]:.2f} "
+            f"s); launches {counts}  ({card})")
+        if not np.isfinite(res["nll"]).all() or res["step"] != 20:
+            raise AssertionError(f"[prior] {dtype} training failed")
+        if counts["vq_argmin"] < 1:
+            raise AssertionError("[prior] the VQ kernel was never launched")
+        _add(launches, counts)
+    vq_kernels.launches = 0
+    gen_kernels.launches = gen_kernels.int8_launches = 0
+    res = prior_cli.main(common + [
+        "-prior", os.path.join(OUT, "prior_bf16"), "-sample", "4",
+        "-seconds", "1.0", "-speakers", "p225", "p226", "p225", "None"])
+    counts = {"gen_wavenet": gen_kernels.launches}
+    outs = [wavfile.read(p)[1] for p in res["paths"]]
+    if len(outs) != 4 or any(o.shape != (16000,) or not np.isfinite(o).all()
+                             or np.abs(o).max() > 1.0 for o in outs):
+        raise AssertionError("[prior] expected four finite 16,000-sample "
+                             "wavs in [-1, 1]")
+    if counts["gen_wavenet"] < 1:
+        raise AssertionError("[prior] the generation kernel was never "
+                             "launched")
+    log(f"[prior] sample: 4x16000 samples in {res['gen_seconds']:.3f} s of "
+        f"generation ({res['samples'] / res['gen_seconds']:,.0f} samples/s "
+        f"aggregate, {res['gen_seconds'] / 16000 * 1e6:.1f} us a sample "
+        f"step at B=4; codes and decode {res['seconds']:.3f} s, host clock); "
+        f"launches {counts}  ({card})")
+    _add(launches, counts)
+    return launches
+
+
 PHASES = ("vq", "gen", "gen-int8", "e2e", "magenta", "train-stack",
           "train-epilogue", "train-e2e", "sp-stack", "sp-train",
-          "train-bwd2", "magenta-train")
+          "train-bwd2", "magenta-train", "encoders", "prior")
 
 
 def main(argv=None) -> int:
@@ -1954,7 +2228,9 @@ def main(argv=None) -> int:
                 "sp-stack": lambda: phase_sp_stack(card),
                 "sp-train": lambda: phase_sp_train(card),
                 "train-bwd2": lambda: phase_train_bwd2(card),
-                "magenta-train": lambda: phase_magenta_train(card)}
+                "magenta-train": lambda: phase_magenta_train(card),
+                "encoders": lambda: phase_encoders(card),
+                "prior": lambda: phase_prior(card)}
         for name in only:
             runs[name]()
         log(f"[only] {' '.join(only)}: passed")
@@ -1968,6 +2244,14 @@ def main(argv=None) -> int:
              **phase_sp_stack(card), **phase_train_bwd2(card)}
     train_launches = {**phase_train_e2e(card), **phase_sp_train(card),
                       **phase_magenta_train(card)}
+    # the new paths' launches add to the earlier main paths' counts
+    extra: dict = {}
+    _add(extra, phase_encoders(card))
+    _add(extra, phase_prior(card))
+    launches["vq_argmin"] += extra.pop("vq_argmin", 0)
+    launches["gen_wavenet"] += extra.pop("gen_wavenet", 0)
+    magenta["gen_wavenet_int8"] += extra.pop("gen_wavenet_int8", 0)
+    _add(train_launches, extra)
     kernels = [
         {"name": "vq_argmin", "route": "cuda", "source": VQ_SOURCE,
          "replaces": VQ_REPLACES, "launches": launches["vq_argmin"], **vq},

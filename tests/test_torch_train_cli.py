@@ -28,6 +28,7 @@ PORT_MODULES = [
     "vqvae_wavenet_torch.generation.fast",
     "vqvae_wavenet_torch.models.encoders", "vqvae_wavenet_torch.models.vq",
     "vqvae_wavenet_torch.models.magenta", "vqvae_wavenet_torch.ops.signal",
+    "vqvae_wavenet_torch.models.prior", "vqvae_wavenet_torch.prior",
     "vqvae_wavenet_torch.models.vqvae", "vqvae_wavenet_torch.models.wavenet",
     "vqvae_wavenet_torch.ops._build", "vqvae_wavenet_torch.ops.conv",
     "vqvae_wavenet_torch.ops.mu_law", "vqvae_wavenet_torch.ops.vq_kernels",

@@ -106,9 +106,10 @@ def test_epilogue_matches_xla(dtype, loss_tol, grad_tol, shape):
     ("fwd", 512, 3), ("bwd", 264, 3), ("fwd", 128, 2)])
 def test_epilogue_wrapper_refuses_shapes_before_device(entry, Q, frames):
     """A Q the kernel's 256-column softmax tile cannot hold, or frames
-    whose rows do not divide its 128-row tile, raise ValueError with the
-    reason, before the wrapper looks at the device (CPU tensors here)."""
-    S, B, T = 16, 1, 192
+    that do not divide T, raise ValueError with the reason, before the
+    wrapper looks at the device (CPU tensors here).  Frames of any number
+    of rows dividing T are taken (65 here, 97.5 for frames=2)."""
+    S, B, T = 16, 1, 195
     skip, w1 = torch.zeros((B, T, S)), torch.zeros((S, S))
     w2, labels = torch.zeros((S, Q)), torch.zeros((B, T), dtype=torch.int32)
     match = "at most 256" if Q > 256 else "divid"

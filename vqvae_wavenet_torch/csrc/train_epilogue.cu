@@ -27,8 +27,9 @@
 //   dW2  [S, Q] = a1^T . T(dlogits)         (split-K over rows)
 //   da1  [N, S] = T(dlogits) . W2^T         epilogue: dh1 = [a1 > 0] da1
 //                                           written as T(dh1); the tile's
-//                                           per-frame column sums of the
-//                                           f32 dh1 are dlc2 [F, B, S]
+//                                           column sums of each frame's
+//                                           rows of the f32 dh1 give
+//                                           dlc2 [F, B, S] (below)
 //   dW1  [S, S] = sk^T . T(dh1)             (split-K over rows)
 //   dskip [N, S] = T([skip > 0] (T(dh1) . W1^T))   (the mask on f32 skip)
 //
@@ -40,10 +41,20 @@
 // The design: every product runs on hopper_gemm.cuh's TMA ring (wgmma in
 // bf16, FFMA in f32).  The row products (h1, h2, da1, dskip) are K-major:
 // a tile is BM rows of one batch row (blockIdx.z = b), so a tile never
-// straddles a batch row, and since FR divides BM = 128 and T, never a
-// frame.  h2 takes the 256-column K-major tile (Bf16KWCfg / F32KWCfg), so
-// its block holds a whole row of logits (Q <= 256) in the staged C tile
-// and runs the softmax there.  The weight gradients are MN-major (the
+// straddles a batch row.  Frames of any FR rows dividing T: h1 finds a
+// row's frame t / FR by a shift when FR is a power of two (a template
+// flag: the general form cost its epilogue ~1.5% at FR=64), else by a
+// float reciprocal and an exact correction; da1's tile sums each frame
+// segment it holds (its rows of one frame, in row order), writes the sum
+// of a frame that lies whole in the tile straight to dlc2 and the sums of
+// the frames cut by the tile's edges (at most its first and last
+// segment) to a scratch, and a second pass adds each cut frame's segments
+// in tile order (dlc2_join).  When FR divides BM = 128, as Encoder_64's
+// 64-row frames do, no frame is cut, the second pass has no work and is
+// not launched, and every sum is the former per-tile sum bit for bit;
+// Encoder_2019's 320-row frames are all cut.  h2 takes the 256-column
+// K-major tile (Bf16KWCfg / F32KWCfg), so its block holds a whole row of
+// logits (Q <= 256) in the staged C tile and runs the softmax there.  The weight gradients are MN-major (the
 // dk layout) with split counts that fill one wave and a fixed-order sum
 // of the partials.  Nothing sums with atomics: a run repeats bit for bit.
 //
@@ -54,6 +65,9 @@
 // epilogue, run after the mainloop, is most of it), relu_round 52 (the
 // bytes' pace); Dskip 110, Da1 84, Dw 42 each.  The row products take
 // about mainloop plus epilogue, as the stack's do (hopper_gemm.cuh).
+// At Encoder_2019's frames (chip_smoke.py [encoders], B=8 x 6400, FR=320,
+// bf16, same card): forward 0.253 ms, backward 0.357, beside 0.257 /
+// 0.360 at FR=64 in the same run.
 //
 // C interface (ctypes): pointers and the stream as void*, returns
 // cudaGetLastError() of the first failing launch (0 on success).
@@ -118,8 +132,8 @@ __global__ void relu_round(const float* __restrict__ skip, long long n8,
   st8(sk + 8 * i, v);
 }
 
-// h1 = sk . W1 + enc2, a1 = T(relu(h1))
-template <class Cf>
+// h1 = sk . W1 + enc2, a1 = T(relu(h1)); POW2: FR = 2^fr_shift
+template <class Cf, bool POW2>
 struct H1 {
   using Cfg = Cf;
   using T = typename Cf::T;
@@ -127,7 +141,8 @@ struct H1 {
   CUtensorMap w;        // W1^T [S][S]
   const float* enc2;    // [F, B, S]
   T* a1;                // [rows, S]
-  int T_, S, B, fr_shift, kt;
+  int T_, S, B, FR, fr_shift, kt;
+  float inv_fr;         // 1 / FR
 
   __device__ void k_range(int& it0, int& it1) const {
     it0 = 0;
@@ -152,9 +167,22 @@ struct H1 {
   __device__ Pre fetch(int r, int c) const {
     Pre p{};
     int b, t, n;
-    if (at(r, c, b, t, n))
+    if (at(r, c, b, t, n)) {
+      // t / FR: a shift for a power of two (the epilogue sets this
+      // kernel's pace, and the general form cost ~1.5% at FR=64); else
+      // without an integer division: the float quotient is off by at most
+      // one (t < 2^24), then corrected
+      int f;
+      if (POW2) {
+        f = t >> fr_shift;
+      } else {
+        f = __float2int_rz((float)t * inv_fr);
+        f -= f * FR > t;
+        f += (f + 1) * FR <= t;
+      }
       p.e = *reinterpret_cast<const float2*>(
-          enc2 + ((long long)(t >> fr_shift) * B + b) * S + n);
+          enc2 + ((long long)f * B + b) * S + n);
+    }
     return p;
   }
   __device__ void put(int r, int c, float v0, float v1, const Pre& p) const {
@@ -332,8 +360,10 @@ struct Dw {
   }
 };
 
-// da1 = T(dl) . W2^T; dh1 = [a1 > 0] da1 -> T(dh1), and the per-frame
-// column sums of the f32 dh1 -> dlc2 (each frame lies in one tile)
+// da1 = T(dl) . W2^T; dh1 = [a1 > 0] da1 -> T(dh1), and the column sums
+// of the f32 dh1 over each frame segment the tile holds: a whole frame's
+// to dlc2, a cut frame's to seg (slot 0: the tile's first segment, slot
+// 1: its last), which dlc2_join adds up
 template <class Cf>
 struct Da1 {
   using Cfg = Cf;
@@ -343,6 +373,7 @@ struct Da1 {
   const T* a1;          // [rows, S]
   T* dh16;              // [rows, S]
   float* dlc2;          // [F, B, S]
+  float* seg;           // [B][row tiles][2][S]
   int T_, S, B, FR, kt;
 
   __device__ void k_range(int& it0, int& it1) const {
@@ -357,7 +388,8 @@ struct Da1 {
   }
   // Pass 1, pair by pair (a group of G a1 loads in flight before any
   // store): the masked f32 dh1 goes back into the tile and T(dh1) to
-  // memory.  Pass 2: thread per (frame, column), FR rows in order.
+  // memory.  Pass 2: thread per (frame segment, column), its rows in
+  // order.
   __device__ void tile(float* C) const {
     constexpr int PITCH = hg::c_pitch<Cfg>(), PAIRS = Cfg::BN / 2;
     constexpr int TOTAL = Cfg::BM * PAIRS, G = 8;
@@ -389,19 +421,43 @@ struct Da1 {
       }
     }
     hg::consumers_sync();
-    const int rows = min(Cfg::BM, T_ - t0);   // whole frames: FR | BM, T
-    const int nf = rows / FR, f0 = t0 / FR;
+    const int rows = min(Cfg::BM, T_ - t0);
+    const int f0 = t0 / FR, nseg = (t0 + rows - 1) / FR - f0 + 1;
 #pragma unroll 1
-    for (int i = threadIdx.x; i < nf * Cfg::BN; i += hg::NCONS) {
-      const int fl = i / Cfg::BN, c = i - fl * Cfg::BN;
+    for (int i = threadIdx.x; i < nseg * Cfg::BN; i += hg::NCONS) {
+      const int sg = i / Cfg::BN, c = i - sg * Cfg::BN;
       if (n0 + c >= S) continue;
-      const float* col = C + fl * FR * PITCH + c;
+      const int f = f0 + sg;
+      const int lo = f * FR - t0, hi = lo + FR;  // the frame's rows, tile-relative
+      const int r0 = max(lo, 0), r1 = min(hi, rows);
+      const float* col = C + c;
       float s = 0.f;
-      for (int rr = 0; rr < FR; ++rr) s += col[rr * PITCH];
-      dlc2[((long long)(f0 + fl) * B + b) * S + n0 + c] = s;
+      for (int rr = r0; rr < r1; ++rr) s += col[rr * PITCH];
+      if (r0 == lo && r1 == hi)
+        dlc2[((long long)f * B + b) * S + n0 + c] = s;
+      else
+        seg[(((long long)b * gridDim.y + blockIdx.y) * 2 + (sg > 0)) * S
+            + n0 + c] = s;
     }
   }
 };
+
+// dlc2 of the frames no tile holds whole: a thread per (frame, batch row,
+// column) adds the frame's segments in tile order (Da1's seg slots: 0
+// where the frame is the tile's first, else 1)
+__global__ void dlc2_join(const float* __restrict__ seg, int B, int S, int F,
+                          int FR, int BM, int tiles, float* __restrict__ dlc2) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= (long long)F * B * S) return;
+  const int n = (int)(i % S), fb = (int)(i / S);
+  const int b = fb % B, f = fb / B;
+  const int j0 = f * FR / BM, j1 = ((f + 1) * FR - 1) / BM;
+  if (j0 == j1) return;                     // whole in one tile: Da1 wrote it
+  float s = 0.f;
+  for (int j = j0; j <= j1; ++j)
+    s += seg[(((long long)b * tiles + j) * 2 + (j * BM / FR != f)) * S + n];
+  dlc2[i] = s;
+}
 
 // dskip = T([skip > 0] (T(dh1) . W1^T))
 template <class Cf>
@@ -453,11 +509,12 @@ struct Dskip {
     if (e_ != cudaSuccess) return static_cast<int>(e_); \
   } while (0)
 
-// FR = 2^shift dividing the row tile (128), so a tile holds whole frames
-inline bool frame_shift(int FR, int& shift) {
-  if (FR < 1 || 128 % FR) return false;
-  for (shift = 0; (1 << shift) < FR; ++shift) {}
-  return true;
+// frames of FR rows tiling each batch row
+inline bool frames_fit(int T, int FR) { return FR >= 1 && T % FR == 0; }
+
+// the floats of Da1's segment scratch: two slots per row tile and column
+inline long long seg_floats(int B, int T, int S) {
+  return 2LL * B * tg::ceil_div(T, hg::Bf16KCfg::BM) * S;
 }
 
 // The splits of a weight gradient [M, N] over the rows, and the floats of
@@ -474,27 +531,43 @@ template <class MC> struct DwSplits {
   }
 };
 
+// h1's launch, FR a power of two (POW2, fr_shift its log2) or not
+template <class KC, bool POW2, typename T>
+cudaError_t launch_h1(const T* sk, const T* w1t, const float* enc2, T* a1,
+                      int B, int T_, int S, int FR, int fr_shift,
+                      cudaStream_t s) {
+  H1<KC, POW2> h;
+  cudaError_t e = hg::encode_k<KC>(&h.sk, sk, hg::dense(S, T_, B, 1), KC::BM);
+  if (e == cudaSuccess)
+    e = hg::encode_k<KC>(&h.w, w1t, hg::dense(S, S, 1, 1), KC::BN);
+  if (e != cudaSuccess) return e;
+  h.enc2 = enc2; h.a1 = a1;
+  h.T_ = T_; h.S = S; h.B = B; h.FR = FR; h.fr_shift = fr_shift;
+  h.inv_fr = 1.f / (float)FR;
+  h.kt = tg::ceil_div(S, KC::BK);
+  return hg::launch(h, dim3(tg::ceil_div(S, KC::BN), tg::ceil_div(T_, KC::BM),
+                            B), s);
+}
+
 template <typename T>
 int fwd(int B, int T_, int FR, int S, int Q, const float* skip, const T* w1t,
         const T* w2t, const float* b2, const float* enc2, const int* labels,
         T* sk, T* a1, T* probs, float* part, float* total, cudaStream_t s) {
   using KC = typename Cfgs<T>::K;
   using WC = typename Cfgs<T>::KW;
-  int shift;
-  if (!frame_shift(FR, shift) || Q > MAX_Q)
+  if (!frames_fit(T_, FR) || Q > MAX_Q)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n8 = (long long)B * T_ * S / 8;
   relu_round<T><<<(unsigned)((n8 + 255) / 256), 256, 0, s>>>(skip, n8, sk);
   EPI_TRY(cudaGetLastError());
 
-  H1<KC> h;
-  EPI_TRY(hg::encode_k<KC>(&h.sk, sk, hg::dense(S, T_, B, 1), KC::BM));
-  EPI_TRY(hg::encode_k<KC>(&h.w, w1t, hg::dense(S, S, 1, 1), KC::BN));
-  h.enc2 = enc2; h.a1 = a1;
-  h.T_ = T_; h.S = S; h.B = B; h.fr_shift = shift;
-  h.kt = tg::ceil_div(S, KC::BK);
-  EPI_TRY(hg::launch(h, dim3(tg::ceil_div(S, KC::BN), tg::ceil_div(T_, KC::BM),
-                             B), s));
+  int shift = 0;
+  while ((1 << shift) < FR) ++shift;
+  const cudaError_t h1 =
+      (1 << shift) == FR
+          ? launch_h1<KC, true>(sk, w1t, enc2, a1, B, T_, S, FR, shift, s)
+          : launch_h1<KC, false>(sk, w1t, enc2, a1, B, T_, S, FR, 0, s);
+  EPI_TRY(h1);
 
   Head<WC> o;
   EPI_TRY(hg::encode_k<WC>(&o.a1, a1, hg::dense(S, T_, B, 1), WC::BM));
@@ -515,8 +588,8 @@ int bwd(int B, int T_, int FR, int S, int Q, const float* g, const T* probs,
         float* dw2, float* db2, T* dl, T* dh16, float* part, cudaStream_t s) {
   using KC = typename Cfgs<T>::K;
   using MC = typename Cfgs<T>::MN;
-  int shift;
-  if (!frame_shift(FR, shift)) return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(KC::BM == hg::Bf16KCfg::BM, "seg_floats counts these tiles");
+  if (!frames_fit(T_, FR)) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = B * T_;
   const int nblk = tg::ceil_div(rows, DL_ROWS);
   dlogits_rows<T><<<nblk, Q, 0, s>>>(probs, labels, g, rows, Q, dl, part);
@@ -539,11 +612,17 @@ int bwd(int B, int T_, int FR, int S, int Q, const float* g, const T* probs,
   Da1<KC> a;
   EPI_TRY(hg::encode_k<KC>(&a.dl, dl, hg::dense(Q, T_, B, 1), KC::BM));
   EPI_TRY(hg::encode_k<KC>(&a.w, w2, hg::dense(Q, S, 1, 1), KC::BN));
-  a.a1 = a1; a.dh16 = dh16; a.dlc2 = dlc2;
+  a.a1 = a1; a.dh16 = dh16; a.dlc2 = dlc2; a.seg = part;
   a.T_ = T_; a.S = S; a.B = B; a.FR = FR;
   a.kt = tg::ceil_div(Q, KC::BK);
   const dim3 row_grid(tg::ceil_div(S, KC::BN), tg::ceil_div(T_, KC::BM), B);
   EPI_TRY(hg::launch(a, row_grid, s));
+  if (KC::BM % FR) {                         // some frame is cut by a tile
+    const long long n = (long long)(T_ / FR) * B * S;
+    dlc2_join<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        part, B, S, T_ / FR, FR, KC::BM, row_grid.y, dlc2);
+    EPI_TRY(cudaGetLastError());
+  }
 
   const DwSplits<MC> s1(S, S, B, T_);
   Dw<MC> v;
@@ -578,12 +657,13 @@ extern "C" long long train_epilogue_fwd_part_floats(int B, int T) {
 
 extern "C" long long train_epilogue_bwd_part_floats(int B, int T, int S,
                                                     int Q) {
-  const long long need[5] = {
+  const long long need[6] = {
       (long long)tg::ceil_div((long long)B * T, DL_ROWS) * Q,
       DwSplits<hg::Bf16Cfg>::floats(S, Q, B, T),
       DwSplits<hg::Bf16Cfg>::floats(S, S, B, T),
       DwSplits<hg::F32Cfg>::floats(S, Q, B, T),
-      DwSplits<hg::F32Cfg>::floats(S, S, B, T)};
+      DwSplits<hg::F32Cfg>::floats(S, S, B, T),
+      seg_floats(B, T, S)};
   long long most = 0;
   for (long long v : need)
     if (v > most) most = v;

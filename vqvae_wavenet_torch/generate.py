@@ -10,10 +10,14 @@ port's train.py, or an export by tools/export_torch_npz.py of an orbax
 checkpoint.  The main family generates from the EMA parameters, the
 Magenta family from the raw ones (a checkpoint's train/params), as the
 JAX generate.py restores.  The conditioning wav is
-trimmed to a multiple of 512 samples and encoded once (Encoder_64 -> VQ ->
-speaker concat; or, with ``-params magenta_parameters.json``, the Magenta
-encoder -> VQ, with the speaker as a per-layer global condition); the local
-condition -- never the wav -- is zero-padded to a 1024/8192-sample bucket;
+trimmed to a multiple of 512 samples and encoded once (the config's
+encoder, "64", "Magenta" or "2019" -> VQ -> speaker concat; or, with
+``-params magenta_parameters.json``, the Magenta family's encoder -> VQ,
+with the speaker as a per-layer global condition); sample i reads latent
+frame i // ratio, ratio = length // frames (the 2019 encoder's 320-sample
+frames need not divide the length: past the last frame, the last is
+read); the local condition -- never the wav -- is zero-padded to a
+1024/8192-sample bucket;
 the whole clip is generated in one kernel launch on CUDA; one 16 kHz wav
 per speaker is written beside the checkpoint, with the codebook and
 speaker embeddings as .npy files.  ``-dtype int8`` quantizes the decoder
@@ -93,20 +97,26 @@ def speaker_one_hots(speakers, data_path):
 
 
 def _vqvae_generate(params, state, cfg, x, y, padded, generator, mode, dtype):
-    """Encoder_64 -> VQ -> speaker concat, the condition zero-padded to the
-    bucket, then generation."""
+    """Encoder -> VQ -> speaker concat, then generation of ``padded``
+    samples.  Sample i reads frame i // ratio with the floor ratio of the
+    real length (length // frames; the TF1 reference's), passed down
+    explicitly: the condition is first extended with copies of its last
+    frame to cover the real length (samples past the last frame read it),
+    then zero-padded to the bucket, which only the cut tail reads."""
     from vqvae_wavenet_torch.generation.fast import generate
     from vqvae_wavenet_torch.models.vqvae import vqvae_encode
+    from vqvae_wavenet_torch.ops.gen_kernels import (condition_frames,
+                                                     frame_ratio)
     length = x.shape[1]
     lc, _codes = vqvae_encode(params, state, cfg, x, y)
-    if padded > length:
-        ratio = length // lc.shape[1]
-        if padded % ratio:
-            raise ValueError(f"bucket {padded} not a multiple of frame "
-                             f"ratio {ratio}")
-        lc = torch.nn.functional.pad(lc, (0, 0, 0, (padded - length) // ratio))
+    ratio = frame_ratio(length, lc.shape[1])
+    lc = condition_frames(lc, length, ratio)
+    need = -(-padded // ratio)
+    if need > lc.shape[1]:
+        lc = torch.nn.functional.pad(lc, (0, 0, 0, need - lc.shape[1]))
     return generate(params["decoder"], cfg.wavenet, lc, length=padded,
-                    generator=generator, mode=mode, dtype=dtype, verbose=True)
+                    generator=generator, mode=mode, dtype=dtype, verbose=True,
+                    ratio=ratio)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -140,9 +150,6 @@ def main(argv=None):
 
     cfg = ModelConfig.from_json(args.parameter_path)
     magenta = cfg.model_family == "magenta"
-    if not magenta and cfg.encoder != "64":
-        raise NotImplementedError("the torch port generates with Encoder_64 "
-                                  "and the Magenta family only")
     m = re.search(r"-(\d+)(\.npz)?$", args.restore_path.rstrip("/"))
     gs = int(m.group(1)) if m else 0
     batch_size = len(args.speakers)

@@ -7,8 +7,10 @@ CUDA launch for CUDA weights, the plain step loop (``gen_step``) for CPU
 weights.  The fast-
 WaveNet ring semantics are the reference's: per-layer rings start zeroed,
 so taps read while t < j*d see zeros, every tap is read before the layer
-writes its input, and sample i is conditioned on frame
-i // (length // T_cond).
+writes its input, and sample i is conditioned on frame i // ratio with the
+TF1 reference's floor ratio = length // T_cond (or a ratio the caller
+gives from the real clip length); where i // ratio passes the last frame,
+the last frame is read (ops/gen_kernels.py::condition_frames).
 """
 from __future__ import annotations
 
@@ -31,10 +33,12 @@ def generate(params, cfg, local_condition: torch.Tensor, *, length: int,
              mode: str = "sample", gate_order: str = "tanh_first",
              dtype: torch.dtype = torch.float32,
              global_condition: Optional[torch.Tensor] = None,
-             verbose: bool = False) -> torch.Tensor:
+             verbose: bool = False,
+             ratio: Optional[int] = None) -> torch.Tensor:
     """Generate ``length`` samples for each row of the local condition
-    [B, T_cond, C_lc] (length must be a multiple of T_cond) from the
-    decoder parameters ``params`` and WavenetConfig ``cfg``.
+    [B, T_cond, C_lc] from the decoder parameters ``params`` and
+    WavenetConfig ``cfg``; sample i reads frame min(i // ratio, last
+    frame), ratio = length // T_cond unless given.
 
     Weights and activations run in ``dtype`` (float32 | bfloat16) on the
     local condition's device, with float32 accumulation; ``torch.int8``
@@ -45,10 +49,7 @@ def generate(params, cfg, local_condition: torch.Tensor, *, length: int,
     float32.  Returns the float waveform [B, length] in [-1, 1]."""
     if mode not in ("sample", "greedy"):
         raise NotImplementedError(f"decode mode {mode} not implemented")
-    b, t_cond, _ = local_condition.shape
-    if length % t_cond:
-        raise ValueError(f"length {length} is not a multiple of the "
-                         f"conditioning frames ({t_cond})")
+    b = local_condition.shape[0]
     device = local_condition.device
     w = pack_gen_params(params, cfg, dtype, device)
     gcon, g_pp1 = condition_terms(params, w, b, global_condition)
@@ -57,15 +58,16 @@ def generate(params, cfg, local_condition: torch.Tensor, *, length: int,
               f"batch={b}")
     bins, _ = generate_clip(w, local_condition.to(w.dtype), gcon, g_pp1,
                             length=length, mode=mode,
-                            seed=draw_seed(generator), gate_order=gate_order)
+                            seed=draw_seed(generator), gate_order=gate_order,
+                            ratio=ratio)
     return mu_law_decode(bins, cfg.quantization_channels)
 
 
 def teacher_forced_stepper(params, cfg, x: torch.Tensor,
                            local_condition: torch.Tensor,
                            gate_order: str = "tanh_first",
-                           global_condition: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           global_condition: Optional[torch.Tensor] = None,
+                           ratio: Optional[int] = None) -> torch.Tensor:
     """Drive the generation step with ground-truth audio x [B, T, 1] and
     return the per-step float32 logits [B, T, Q] (fast.py:286-306)."""
     b, t_len, _ = x.shape
@@ -77,5 +79,5 @@ def teacher_forced_stepper(params, cfg, x: torch.Tensor,
     _, logits = generate_clip(w, local_condition.to(w.dtype), gcon, g_pp1,
                               length=t_len, mode="greedy",
                               gate_order=gate_order, forced=forced,
-                              want_logits=True)
+                              want_logits=True, ratio=ratio)
     return logits

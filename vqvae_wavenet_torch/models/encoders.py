@@ -1,17 +1,33 @@
-"""Encoder_64 (port of vqvae_wavenet_tpu/models/encoders.py:58-149):
-6 x [conv k=5 s=2 SAME -> relu -> norm] -> 1x1 conv to latent_dim -> norm.
-Batch norm uses the running statistics at inference and the batch's own
-in training (var = E[x^2] - E[x]^2, momentum 0.99, returning the new
-running statistics); group norm is batch-independent.  Statistics are
-float32 with eps = 1e-3, whatever the activations' type.
+"""The three encoders (port of vqvae_wavenet_tpu/models/encoders.py:58-273).
 
-Encoder_Magenta and Encoder_2019 are not ported yet.
+  * Encoder_64: 6 x [conv k=5 s=2 SAME -> relu -> norm] -> 1x1 conv to
+    latent_dim -> norm.  Batch norm uses the running statistics at
+    inference and the batch's own in training (var = E[x^2] - E[x]^2,
+    momentum 0.99, returning the new running statistics); group norm is
+    batch-independent.  Statistics are float32 with eps = 1e-3, whatever
+    the activations' type.
+  * Encoder_Magenta: shift_right, the mu-law *float* encode, a causal
+    preprocess conv (k=5), then six layers of [1x1 stride-2 VALID "down"
+    conv -> gate/filter causal convs at dilations 1, 2, 4, 8, 16, 16 ->
+    tanh * sigmoid -> causal 1x1 residual added to the down output], a
+    causal 1x1 postprocess to latent_dim.  64x downsample.
+  * Encoder_2019: MFCC (ops/signal.py), two SAME k=3 convs with a
+    residual, a SAME k=4 stride-2 conv, two residual k=3 convs, four
+    "relu layers" kept as the reference has them (net = r + r, i.e.
+    2 * relu(conv(net)), not net + relu), a SAME 1x1 to latent_dim.
+    320 samples a frame (160-sample hop x stride 2).
+
+Neither Encoder_Magenta nor Encoder_2019 has model state; both return
+the state they are given.  All three run in the JAX package through XLA
+(no Pallas kernel), so their convs are ``F.conv1d`` here.
 """
 from __future__ import annotations
 
 import torch
 
-from vqvae_wavenet_torch.ops.conv import conv1d
+from vqvae_wavenet_torch.ops.conv import causal_conv1d, conv1d, shift_right
+from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
+from vqvae_wavenet_torch.ops.signal import mfcc
 
 EPS = 1e-3
 MOMENTUM = 0.99
@@ -74,9 +90,70 @@ def encoder_64_forward(params, state, x: torch.Tensor, norm: str = "batch",
     return normalize(len(params["convs"]), net), {"bn": new_bn}
 
 
+MAGENTA_DILATIONS = (1, 2, 4, 8, 16, 16)
+
+
+def encoder_magenta_forward(params, state, x: torch.Tensor,
+                            norm: str = "batch", train: bool = False):
+    """x: [B, T, 1] -> (z_e [B, T/64, latent_dim], state) in x's dtype
+    (encoders.py:181-201: causal convs throughout, the reference's 'VALID'
+    convs still left-pad)."""
+    net = mu_law_encode(shift_right(x)).to(x.dtype)
+    en = causal_conv1d(net, params["preprocess"]["kernel"],
+                       params["preprocess"]["bias"])
+    for layer, dil in zip(params["layers"], MAGENTA_DILATIONS):
+        d = conv1d(en, layer["down"]["kernel"], layer["down"]["bias"],
+                   stride=2, padding="VALID")
+        g = causal_conv1d(d, layer["gate"]["kernel"], layer["gate"]["bias"],
+                          dilation=dil)
+        f = causal_conv1d(d, layer["filter"]["kernel"],
+                          layer["filter"]["bias"], dilation=dil)
+        gated = torch.tanh(g) * torch.sigmoid(f)
+        en = d + causal_conv1d(gated, layer["residual"]["kernel"],
+                               layer["residual"]["bias"])
+    z = causal_conv1d(en, params["postprocess"]["kernel"],
+                      params["postprocess"]["bias"])
+    return z, state
+
+
+def encoder_2019_forward(params, state, x: torch.Tensor,
+                         norm: str = "batch", train: bool = False):
+    """x: [B, T, 1] -> (z_e [B, ceil(ceil(T/160)/2), latent_dim], state),
+    float32 (encoders.py:224-247)."""
+    def conv(net, p, stride=1):
+        return conv1d(net, p["kernel"], p["bias"], stride=stride,
+                      padding="SAME")
+
+    net = torch.relu(conv(mfcc(x[..., 0]), params["pre1"]))
+    net = torch.relu(conv(net, params["pre2"])) + net
+    net = torch.relu(conv(net, params["strided"], stride=2))
+    for p in params["res"]:
+        net = torch.relu(conv(net, p)) + net
+    for p in params["relu"]:
+        r = torch.relu(conv(net, p))
+        net = r + r          # the reference's oddity: 2 * relu(conv(net))
+    return conv(net, params["out"]), state
+
+
+# name -> (forward, samples per latent frame)
+ENCODERS = {
+    "64": (encoder_64_forward, 64),
+    "Magenta": (encoder_magenta_forward, 64),
+    "2019": (encoder_2019_forward, 320),
+}
+
+
+def _entry(name: str):
+    if name not in ENCODERS:
+        raise NotImplementedError(f"encoder {name!r} not implemented")
+    return ENCODERS[name]
+
+
 def encoder_forward(name: str, params, state, x: torch.Tensor,
                     norm: str = "batch", train: bool = False):
-    if name != "64":
-        raise NotImplementedError(
-            f"encoder {name!r} is not ported to torch yet (only '64')")
-    return encoder_64_forward(params, state, x, norm=norm, train=train)
+    return _entry(name)[0](params, state, x, norm=norm, train=train)
+
+
+def encoder_downsample_rate(name: str) -> int:
+    """Samples per latent frame: 64, 64, 320."""
+    return _entry(name)[1]

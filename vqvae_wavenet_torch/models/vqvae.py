@@ -5,7 +5,9 @@ generation-time encoding.
 
 Training numerics (vqvae.py:122-215): under train_dtype 'f32' the stack
 kernel runs in f32 and the heads and loss are plain torch; under 'bf16'
-the encoder runs in bf16 with z_e back in f32, the decoder parameters and
+the encoder runs in bf16 with z_e back in f32 (Encoder_2019 stays f32, as
+in JAX, vqvae.py:132: its MFCC front end frames and transforms the
+waveform, which bf16 would degrade), the decoder parameters and
 the local condition run in bf16, labels come from the f32 waveform, and
 the stack kernel hands its skip sum to the loss-head kernel
 (ops/epilogue_kernels.py).  ``time_jitter`` and ``condition_upsample``
@@ -77,15 +79,18 @@ def vqvae_forward(params, state, cfg, x: torch.Tensor,
             "time_jitter and condition_upsample are not ported to training "
             "yet (ROADMAP.md queue A)")
     bf16 = cfg.train_dtype == "bf16"
-    if bf16:
+    # Encoder_Magenta and Encoder_2019 have no state, and their empty tree
+    # leaves no key in an .npz checkpoint
+    enc_state0 = state.get("encoder", {})
+    if bf16 and cfg.encoder != "2019":
         z_e, enc_state = enc.encoder_forward(
             cfg.encoder, _cast(params["encoder"], torch.bfloat16),
-            state["encoder"], x.to(torch.bfloat16), norm=cfg.encoder_norm,
+            enc_state0, x.to(torch.bfloat16), norm=cfg.encoder_norm,
             train=train)
         z_e = z_e.float()
     else:
         z_e, enc_state = enc.encoder_forward(
-            cfg.encoder, params["encoder"], state["encoder"], x,
+            cfg.encoder, params["encoder"], enc_state0, x,
             norm=cfg.encoder_norm, train=train)
     aux = {"z_e": z_e, "state": {"encoder": enc_state}}
     if cfg.use_vq:
@@ -130,7 +135,8 @@ def vqvae_encode(params, state, cfg, x: torch.Tensor,
     """Encode the conditioning wav x [B, T, 1] once: returns the decoder's
     local condition [B, T_cond, C_lc] and the code indices (or None)."""
     z_e, _ = enc.encoder_forward(cfg.encoder, params["encoder"],
-                                 state["encoder"], x, norm=cfg.encoder_norm)
+                                 state.get("encoder", {}), x,
+                                 norm=cfg.encoder_norm)
     if cfg.use_vq:
         q = vq_mod.quantize(params["vq"], z_e, mode=cfg.vq_mode)
         z_q, codes = q["z_q"], q["q_z_x"]

@@ -20,7 +20,10 @@ Rounding points (kernel and plain version alike), compute type T:
 
 The kernel's forward also writes sk = T(relu(skip)), the operand its
 products read through TMA, and its backward reads sk for dW1; the plain
-version recomputes relu(skip) where it needs it.
+version recomputes relu(skip) where it needs it.  Frames may have any
+number of rows FR = T / F (64 for Encoder_64 and Encoder_Magenta, 320 for
+Encoder_2019); the kernel joins the per-frame sums of frames its 128-row
+tiles cut in a fixed order (csrc/train_epilogue.cu).
 """
 from __future__ import annotations
 
@@ -89,9 +92,10 @@ def epilogue_backward_plain(g, skip, a1, probs, labels, w1, w2,
 MAX_Q = 256
 
 
-def _check(cd, S, Q, frame_rows, *tensors):
+def _check(cd, S, Q, *tensors):
     """Shapes first (so a width the kernel cannot take raises before any
-    device check), then devices and layout."""
+    device check), then devices and layout.  Frames of any number of rows
+    that divides T fit (the callers check T % F)."""
     if cd not in _DTYPES:
         raise TypeError(f"epilogue kernel takes float32 or bfloat16, not {cd}")
     if S % 8 or Q % 8 or not 8 <= Q:
@@ -100,10 +104,6 @@ def _check(cd, S, Q, frame_rows, *tensors):
     if Q > MAX_Q:
         raise ValueError(f"epilogue kernel: a block's softmax tile holds a "
                          f"whole row of at most {MAX_Q} classes (got Q={Q})")
-    if frame_rows < 1 or 128 % frame_rows:
-        raise ValueError(f"epilogue kernel needs frames of rows dividing "
-                         f"its 128-row tile, so that a tile holds whole "
-                         f"frames (got {frame_rows} rows a frame)")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError("the epilogue kernel needs CUDA tensors")
@@ -141,16 +141,17 @@ def epilogue_forward_cuda(skip, w1, w2, b2, enc2, labels):
     Q = w2.shape[1]
     F = enc2.shape[0]
     if w2.dtype != cd or tuple(w1.shape) != (S, S) or w2.shape[0] != S \
-            or T % F or tuple(enc2.shape) != (F, B, S) \
+            or F < 1 or T % F or tuple(enc2.shape) != (F, B, S) \
             or tuple(labels.shape) != (B, T):
-        raise ValueError("epilogue operands do not fit")
+        raise ValueError("epilogue operands do not fit (shapes and types, "
+                         "or F frames not dividing T)")
     dev = skip.device
     skip32 = skip.float().contiguous()
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     b2f = b2.float().contiguous()
     enc2 = enc2.float().contiguous()
     lab = labels.to(torch.int32).contiguous()
-    _check(cd, S, Q, T // F, skip32, w1t, w2t, b2f, enc2, lab)
+    _check(cd, S, Q, skip32, w1t, w2t, b2f, enc2, lab)
     a1 = torch.empty((B, T, S), dtype=cd, device=dev)
     probs = torch.empty((B, T, Q), dtype=cd, device=dev)
     sk = torch.empty((B, T, S), dtype=cd, device=dev)
@@ -178,17 +179,18 @@ def epilogue_backward_cuda(g, skip, a1, probs, labels, w1, w2, frames: int,
     cd = w1.dtype
     B, T, S = skip.shape
     Q = w2.shape[1]
-    if T % frames or a1.dtype != cd or probs.dtype != cd or sk.dtype != cd \
+    if frames < 1 or T % frames or a1.dtype != cd or probs.dtype != cd or sk.dtype != cd \
             or tuple(probs.shape) != (B, T, Q) \
             or tuple(sk.shape) != (B, T, S):
-        raise ValueError("epilogue operands do not fit")
+        raise ValueError("epilogue operands do not fit (shapes and types, "
+                         "or F frames not dividing T)")
     dev = skip.device
     g32 = g.float().reshape(1).contiguous()
     skip32 = skip.float().contiguous()
     lab = labels.to(torch.int32).contiguous()
     w1c, w2c = w1.contiguous(), w2.contiguous()
     sk, a1, probs = sk.contiguous(), a1.contiguous(), probs.contiguous()
-    _check(cd, S, Q, T // frames, skip32, g32, lab, w1c, w2c, sk, a1, probs)
+    _check(cd, S, Q, skip32, g32, lab, w1c, w2c, sk, a1, probs)
     n = B * T
     f32 = torch.float32
     dskip = torch.empty((B, T, S), dtype=cd, device=dev)

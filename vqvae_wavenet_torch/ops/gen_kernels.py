@@ -285,6 +285,30 @@ def select_bins(logits: torch.Tensor, mode: str, seed: int,
     return torch.argmax(logits, dim=-1)
 
 
+def frame_ratio(length: int, t_cond: int, ratio: Optional[int] = None) -> int:
+    """Samples per condition frame: ``ratio`` when the caller gives it (from
+    the real clip length, before any bucket padding), else the floor
+    length // t_cond (the TF1 reference's ratio)."""
+    r = length // t_cond if ratio is None else int(ratio)
+    if r < 1:
+        raise ValueError(f"{t_cond} condition frames cannot condition "
+                         f"{length} samples (ratio {r})")
+    return r
+
+
+def condition_frames(lc: torch.Tensor, length: int, ratio: int) -> torch.Tensor:
+    """The condition [B, T_cond, C] extended with copies of its last frame
+    to the ceil(length / ratio) frames that samples 0..length-1 read
+    (sample i reads frame i // ratio): where i // ratio passes the last
+    frame, the last frame is read.  The kernel and the plain twin both take
+    this route, so neither reads past the frames it is given."""
+    need = -(-length // ratio)
+    t_cond = lc.shape[1]
+    if need <= t_cond:
+        return lc
+    return torch.cat([lc, lc[:, -1:].expand(-1, need - t_cond, -1)], dim=1)
+
+
 # -------------------------------------------------------------- plain step
 
 def init_gen_state(w: GenWeights, batch: int, act_dtype: torch.dtype):
@@ -349,12 +373,15 @@ def generate_clip_plain(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
                         length: int, mode: str = "greedy", seed: int = 0,
                         gate_order: str = "tanh_first",
                         forced: Optional[torch.Tensor] = None,
-                        want_logits: bool = False):
+                        want_logits: bool = False,
+                        ratio: Optional[int] = None):
     """The plain twin of the kernel: ``length`` steps of ``gen_step`` plus
-    sampling.  lc: [B, T_cond, C]; forced: optional [B, length] float32
-    inputs (teacher forcing: input i is the ground-truth sample i-1).
-    Returns (bins int64 [B, length], logits float32 [B, length, Q] or None).
-    int8 weights are dequantized once and run through the bf16 step."""
+    sampling.  lc: [B, T_cond, C]; sample i reads frame i // ratio
+    (``frame_ratio``; past the last frame, the last: ``condition_frames``);
+    forced: optional [B, length] float32 inputs (teacher forcing: input i
+    is the ground-truth sample i-1).  Returns (bins int64 [B, length],
+    logits float32 [B, length, Q] or None).  int8 weights are dequantized
+    once and run through the bf16 step."""
     w = w.dequantized()
     dt = w.dtype
     # exact float32 copies: the step's products are float32 either way
@@ -363,7 +390,8 @@ def generate_clip_plain(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
                                   if isinstance(getattr(w, f.name),
                                                 torch.Tensor)})
     B, t_cond, _ = lc.shape
-    ratio = length // t_cond
+    ratio = frame_ratio(length, t_cond, ratio)
+    lc = condition_frames(lc, length, ratio)
     state = init_gen_state(w, B, dt)
     x_in = torch.zeros((B,), dtype=torch.float32, device=w.device)
     bins_out: List[torch.Tensor] = []
@@ -412,13 +440,14 @@ def generate_clip_cuda(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
                        length: int, mode: str = "greedy", seed: int = 0,
                        gate_order: str = "tanh_first",
                        forced: Optional[torch.Tensor] = None,
-                       want_logits: bool = False):
+                       want_logits: bool = False,
+                       ratio: Optional[int] = None):
     """Launch the persistent whole-clip kernel once (one block per SM):
     its float32, bfloat16 or int8-weight variant, by the weights' type.
     Same contract as ``generate_clip_plain``."""
     return _launch(w, lc, gcon, g_pp1, length=length, mode=mode, seed=seed,
                    gate_order=gate_order, forced=forced,
-                   want_logits=want_logits)[:2]
+                   want_logits=want_logits, ratio=ratio)[:2]
 
 
 def generate_clip_stamped(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *,
@@ -440,7 +469,8 @@ def _launch(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *, length: int,
             mode: str = "greedy", seed: int = 0,
             gate_order: str = "tanh_first",
             forced: Optional[torch.Tensor] = None, want_logits: bool = False,
-            stamp: Optional[Tuple[int, int]] = None):
+            stamp: Optional[Tuple[int, int]] = None,
+            ratio: Optional[int] = None):
     global launches, int8_launches
     L, K, R, D, S, Q, C, PK = w.dims
     dev = w.device
@@ -464,9 +494,11 @@ def _launch(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *, length: int,
         raise ValueError(f"generation kernel needs packed widths that are "
                          f"multiples of 8 (16 for int8 rows), got {odd}")
     B, t_cond, c_lc = lc.shape
-    if c_lc != C or length < 1 or length % t_cond:
+    if c_lc != C or length < 1:
         raise ValueError(f"lc {tuple(lc.shape)} does not fit C={C} and "
                          f"length={length}")
+    ratio = frame_ratio(length, t_cond, ratio)
+    lc = condition_frames(lc, length, ratio)
     if lc.device != dev:
         raise ValueError("lc is not on the weights' device")
     tensors = [w.w_a, w.b_a, w.w_sr, w.b_sr, w.w_pre, w.b_pre, w.w_ss,
@@ -532,8 +564,7 @@ def _launch(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *, length: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gen_wavenet(
-            _DTYPES[w.w_a.dtype], L, K, R, D, S, Q, C, PK, B, length,
-            length // t_cond,
+            _DTYPES[w.w_a.dtype], L, K, R, D, S, Q, C, PK, B, length, ratio,
             dil.data_ptr(), ring_off.data_ptr(), *ptrs,
             lc_k.data_ptr(), gcon.data_ptr(), g_pp1.data_ptr(),
             inputs.data_ptr(), int(forced is not None),

@@ -8,9 +8,11 @@ index), written by ``save_npz`` (or tools/export_torch_npz.py from an orbax
 checkpoint) and read by ``load_npz``.
 
 ``random_params_np`` builds a tree with the JAX shapes and init limits from
-a numpy seed (models/vqvae.py:46-74, encoders.py:38-46, 104-122,
+a numpy seed (models/vqvae.py:46-74, encoders.py:38-46, 104-221,
 wavenet.py:35-81, ops/conv.py:30-41, vq.py:35-49, models/magenta.py:72-117),
-so the port can run and train at full width without jax.  ``from_jax_train_state`` carries a whole
+so the port can run and train at full width without jax.  ``from_jax_tree``
+carries any encoder's tree (Encoder_64, Encoder_Magenta, Encoder_2019),
+``from_jax_prior`` a prior's.  ``from_jax_train_state`` carries a whole
 JAX train state (params, EMA shadows, optax Adam moments and count, model
 state, step) into the port's (training/train_loop.py).
 """
@@ -50,6 +52,13 @@ def from_jax_tree(params, state=None, device=None):
     s = {k: to_torch(state[k], device) for k in _STATE_KEYS
          if state is not None and state.get(k) is not None}
     return p, s
+
+
+def from_jax_prior(prior, device=None):
+    """A JAX prior's parameters (vqvae_wavenet_tpu/models/prior.py's tree
+    with numpy leaves) -> the port's: the same tree of torch tensors
+    (models/prior.py keeps JAX's structure and layouts)."""
+    return to_torch(prior, device)
 
 
 def from_jax_train_state(ts, device=None):
@@ -231,36 +240,71 @@ def _random_magenta_np(num_speakers: int, rng):
             "decoder": decoder}
 
 
-def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):
-    """A random (params, state) tree in the JAX shapes and init limits for
-    a ModelConfig with Encoder_64, or of the Magenta family (whose model
-    state is empty).  Leaves are float32 numpy arrays."""
-    rng = np.random.default_rng(seed)
-    if cfg.model_family == "magenta":
-        return _random_magenta_np(num_speakers or 109, rng), {}
-    if cfg.encoder != "64":
-        raise NotImplementedError("random_params_np covers Encoder_64 and "
-                                  "the Magenta family only")
-    glorot, uus = _uniform_inits(rng)
-
+def _encoder_np(name: str, latent_dim: int, glorot, uus):
+    """(params, state) of an encoder in the JAX shapes and init limits
+    (encoders.py:104-122, 157-179, 206-221): Encoder_64 glorot, 768
+    filters, k=5, batch norm at scale 1 / bias 0 / mean 0 / var 1;
+    Encoder_Magenta uniform unit scaling, 128 filters, k=5; Encoder_2019
+    glorot, 768 filters.  Biases zero; only Encoder_64 has state."""
     def zeros(*shape):
         return np.zeros(shape, np.float32)
 
-    # Encoder_64: 6 x conv k=5 f=768 (encoders.py:104-122)
+    if name == "Magenta":
+        f, k = 128, 5
+
+        def conv(ksize, cin, cout):
+            return {"kernel": uus((ksize, cin, cout)), "bias": zeros(cout)}
+
+        return {"preprocess": conv(k, 1, f),
+                "layers": [{"down": conv(1, f, f), "gate": conv(k, f, f),
+                            "filter": conv(k, f, f),
+                            "residual": conv(1, f, f)} for _ in range(6)],
+                "postprocess": conv(1, f, latent_dim)}, {}
+    if name == "2019":
+        f = 768
+
+        def conv(ksize, cin, cout):
+            return {"kernel": glorot((ksize, cin, cout)), "bias": zeros(cout)}
+
+        return {"pre1": conv(3, 13, f), "pre2": conv(3, f, f),
+                "strided": conv(4, f, f),
+                "res": [conv(3, f, f) for _ in range(2)],
+                "relu": [conv(3, f, f) for _ in range(4)],
+                "out": conv(1, f, latent_dim)}, {}
+    if name != "64":
+        raise NotImplementedError(f"encoder {name!r} not implemented")
+    # Encoder_64: 6 x conv k=5 f=768
     filters, c_in = 768, 1
     convs, bn, bn_state = [], [], []
     for _ in range(6):
         convs.append({"kernel": glorot((5, c_in, filters)),
                       "bias": zeros(filters)})
         c_in = filters
-    for c in [filters] * 6 + [cfg.latent_dim]:
+    for c in [filters] * 6 + [latent_dim]:
         bn.append({"scale": np.ones(c, np.float32), "bias": zeros(c)})
         bn_state.append({"mean": zeros(c), "var": np.ones(c, np.float32)})
-    params = {"encoder": {"convs": convs,
-                          "out": {"kernel": glorot((1, filters, cfg.latent_dim)),
-                                  "bias": zeros(cfg.latent_dim)},
-                          "bn": bn}}
-    state = {"encoder": {"bn": bn_state}}
+    return ({"convs": convs,
+             "out": {"kernel": glorot((1, filters, latent_dim)),
+                     "bias": zeros(latent_dim)},
+             "bn": bn}, {"bn": bn_state})
+
+
+def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):
+    """A random (params, state) tree in the JAX shapes and init limits for
+    a ModelConfig with any of the three encoders, or of the Magenta family
+    (whose model state is empty).  Leaves are float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    if cfg.model_family == "magenta":
+        return _random_magenta_np(num_speakers or 109, rng), {}
+    glorot, uus = _uniform_inits(rng)
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    enc_params, enc_state = _encoder_np(cfg.encoder, cfg.latent_dim, glorot,
+                                        uus)
+    params = {"encoder": enc_params}
+    state = {"encoder": enc_state}
     if cfg.use_vq:
         if getattr(cfg, "codebook_init", "uniform_scaling") == "normal":
             emb = rng.standard_normal((cfg.k, cfg.latent_dim)).astype(

@@ -8,7 +8,10 @@ which keeps the reference's train.py:12-37, plus -device):
 
 One step is vqvae_forward (with -params magenta_parameters.json, the
 Magenta family's magenta_forward) + autograd (the stack, loss-head and VQ
-kernels on the card) + the fused Adam/EMA update.  "train_dtype": "bf16"
+kernels on the card) + the fused Adam/EMA update.  The config's encoder
+may be "64", "Magenta" or "2019"; -length must be a multiple of its
+samples a latent frame (64, 64, 320: Encoder_2019 trains at e.g. -length
+6400), so that the frames divide the clip as the decoder needs.  "train_dtype": "bf16"
 in the params JSON trains in bf16 mixed precision in either family.  The
 stack's backward is the layer sweep, or the two-kernel form when
 vqvae_wavenet_torch.ops.train_kernels.BWD_FUSED_DK is "off".  Scalars go to
@@ -128,15 +131,16 @@ def main(argv=None):
     list with one dict per rank and the other keys rank 0's)."""
     args = parse_args(argv)
     _refuse_unported(args)
+    from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.generate import resolve_device
     device = resolve_device(args.device)
+    cfg = ModelConfig.from_json(args.parameter_path)
+    check_length(cfg, args.max_len)
     if args.time_shards == 1:
         return _train(args, device, None)
-    from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.parallel import run_ranks
     from vqvae_wavenet_torch.parallel.timeshard import check_supported
-    check_supported(ModelConfig.from_json(args.parameter_path),
-                    args.max_len, args.time_shards, args.decoder_halo)
+    check_supported(cfg, args.max_len, args.time_shards, args.decoder_halo)
     results = run_ranks(_sp_rank, args.time_shards, device.type, vars(args))
     return dict(results[0], launches=[r["launches"] for r in results])
 
@@ -260,6 +264,21 @@ def _train(args, device: torch.device, sh):
             writer.close()
     return {"losses": losses, "step_seconds": step_seconds, "path": path,
             "step": ts["step"], "launches": _launch_counts()}
+
+
+def check_length(cfg, length: int) -> None:
+    """Raise ValueError unless ``length`` is a multiple of the encoder's
+    samples a latent frame (the decoder's frames must divide the clip,
+    vqvae_wavenet_tpu/models/wavenet.py:164-183)."""
+    if cfg.model_family != "vqvae":
+        return
+    from vqvae_wavenet_torch.models.encoders import encoder_downsample_rate
+    rate = encoder_downsample_rate(cfg.encoder)
+    if length % rate:
+        raise ValueError(
+            f"-length {length} is not a multiple of {rate}, the samples a "
+            f"latent frame of encoder {cfg.encoder!r}: its frames would not "
+            f"divide the clip (Encoder_2019 trains at e.g. -length 6400)")
 
 
 def _next_batch(dataset, args, device, sh, lead: bool):
