@@ -78,11 +78,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              the bf16 checkpoint; the "off" step's loss and gradients
              against the default's on one fixed batch.
   15. encoders  Encoder_2019 and Encoder_Magenta: the loss head at the
-             2019 encoder's 320-row frames (B=8, T=6,400, F=20) against its
-             plain twin in f32 and bf16, bitwise repeats, device times
-             beside FR=64 in one run; vqvae_wavenet_torch.train six steps
-             each with the 2019 encoder (-length 6400) in f32 and bf16 and
-             the Magenta encoder (-length 6656) in bf16; generate from the
+             2019 encoder's 320-row frames (B=8, T=6,400, F=20) and at two
+             ragged shapes (B=3, T=6,080, F=19; B=2, T=6,400, F=64: 100
+             rows a frame) against its plain twin in f32 and bf16, bitwise
+             repeats, device times beside FR=64 in one run;
+             vqvae_wavenet_torch.train six steps each with the 2019
+             encoder (-length 6400) in f32 and bf16 and the Magenta
+             encoder (-length 6656) in bf16; generate from the
              2019 bf16 checkpoint on the 8,192-sample wav (ratio 315, the
              last 2 samples read the last frame) in bf16 and int8, greedy
              and sample; the generation kernel teacher-forced at ratio 315
@@ -2012,9 +2014,13 @@ def phase_encoders(card: str):
     (1) The loss head at Encoder_2019's frames (B=8, T=6,400, F=20: 320
     rows a frame, which its 128-row tiles cut, so the dlc2 join runs)
     against its plain twin in f32 and bf16 (``_epilogue_check``), both
-    entries bit for bit on a second run; device times by CUDA events of
-    both entries at FR=320 beside FR=64 (B=8, T=6,656, F=104, the shipped
-    frames), bf16, in the order 64, 320, 320, 64.
+    entries bit for bit on a second run; the same at two ragged shapes:
+    B=3, T=6,080, F=19 (320 rows a frame, T % 128 = 64: the last tile of
+    a batch row is half empty and cuts a frame) and B=2, T=6,400, F=64
+    (100 rows a frame: a tile holds a cut head, a whole frame and a cut
+    tail); device times by CUDA events of both entries at FR=320 beside
+    FR=64 (B=8, T=6,656, F=104, the shipped frames), bf16, in the order
+    64, 320, 320, 64.
     (2) vqvae_wavenet_torch.train six steps each: the 2019 encoder at
     -length 6400 in f32 and bf16, the Magenta encoder at -length 6656 in
     bf16; the VQ and stack kernels launched in every run, the loss head in
@@ -2030,12 +2036,13 @@ def phase_encoders(card: str):
     from vqvae_wavenet_torch.ops import gen_kernels as gk
     from vqvae_wavenet_torch.params import load_npz
     g = torch.Generator(device="cpu").manual_seed(9)
-    for dtype in ("f32", "bf16"):
-        case = _epilogue_check("encoders epilogue FR=320", 8, 6400, 20,
-                               dtype, g)
-        _epilogue_repeat("encoders epilogue FR=320", dtype, case)
-        del case
-        torch.cuda.empty_cache()
+    for B, T, F in ((8, 6400, 20), (3, 6080, 19), (2, 6400, 64)):
+        tag = f"encoders epilogue FR={T // F}"
+        for dtype in ("f32", "bf16"):
+            case = _epilogue_check(tag, B, T, F, dtype, g)
+            _epilogue_repeat(tag, dtype, case)
+            del case
+            torch.cuda.empty_cache()
     cases = {fr: _epilogue_check(f"encoders epilogue FR={fr}", 8, T, F,
                                  "bf16", g)
              for fr, T, F in ((64, 6656, 104), (320, 6400, 20))}

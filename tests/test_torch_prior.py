@@ -10,13 +10,17 @@ largest |reference| of the leaf (float32 on both sides, summation order
 only).  bf16: logits and loss within 2e-2, the repo's bf16 training
 tolerance (tests/test_torch_train_epilogue.py).  bf16 gradients are far
 from any f32 gradient in both frameworks at these widths (JAX's own bf16
-gradient lies 3-13% from its f32 gradient as one vector, single leaves up
-to 22%: eight gated layers of bf16 rounding, and the frameworks round at
-other points), so a per-leaf bound says nothing there; the port's bf16
-gradient, as one vector, must lie as close to JAX's f32 gradient as JAX's
-bf16 gradient does, within 1.5x (L2; the [sp-train] distance-to-f32 rule
-of chip_smoke.py, which holds 1.1x where both sides round alike), and
-within 15% of it.
+gradient leaf lies up to 17% from its f32 leaf, L2 relative: eight gated
+layers of bf16 rounding, and the frameworks round at other points), so a
+fixed 2e-2 bound says nothing there.  Each leaf is held on its own: the
+port's bf16 leaf must lie as close to JAX's f32 leaf as JAX's bf16 leaf
+does, within 1.5x plus 0.03 of the f32 leaf's norm (L2; the [sp-train]
+distance-to-f32 rule of chip_smoke.py, per leaf), and a leaf whose f32
+gradient is zero must be zero.  Readings at these seeds: without gc the
+port's distance is at most 1.03x JAX's; with gc up to 1.96x, at most
+0.022 of the leaf's norm above 1.5x (layers 4-7, whose gated units see
+the gc term's extra rounding), hence the 0.03.  Scaling one small leaf's
+gradient by 0.8 (post1's bias, or the last layer's bias) fails it.
 """
 import jax
 import jax.numpy as jnp
@@ -116,15 +120,16 @@ def test_logits_loss_grads_match_jax(gc, dtype):
             assert rel(g, r) < tol, (i, rel(g, r))
         return
 
-    def flat(leaves):
-        return np.concatenate([np.asarray(x, np.float64).ravel()
-                               for x in leaves])
-    g16, j16 = flat([g.numpy() for g in grads]), flat(ref)
-    j32 = flat(jax.tree_util.tree_leaves(jax.device_get(jg32)))
-    norm = np.linalg.norm(j32)
-    port, jaxd = (np.linalg.norm(g16 - j32) / norm,
-                  np.linalg.norm(j16 - j32) / norm)
-    assert port <= 1.5 * jaxd and port < 0.15, (port, jaxd)
+    ref32 = jax.tree_util.tree_leaves(jax.device_get(jg32))
+    for i, (g, j16, j32) in enumerate(zip(grads, ref, ref32)):
+        g, j16, j32 = (np.asarray(x, np.float64) for x in (g, j16, j32))
+        norm = np.linalg.norm(j32)
+        if norm == 0:
+            assert not g.any(), i
+            continue
+        port, jaxd = (np.linalg.norm(g - j32) / norm,
+                      np.linalg.norm(j16 - j32) / norm)
+        assert port <= 1.5 * jaxd + 0.03, (i, port, jaxd)
 
 
 def test_prior_is_causal():

@@ -42,14 +42,12 @@
 // bf16, FFMA in f32).  The row products (h1, h2, da1, dskip) are K-major:
 // a tile is BM rows of one batch row (blockIdx.z = b), so a tile never
 // straddles a batch row.  Frames of any FR rows dividing T: h1 finds a
-// row's frame t / FR by a shift when FR is a power of two (a template
-// flag: the general form cost its epilogue ~1.5% at FR=64), else by a
-// float reciprocal and an exact correction; da1's tile sums each frame
-// segment it holds (its rows of one frame, in row order), writes the sum
-// of a frame that lies whole in the tile straight to dlc2 and the sums of
-// the frames cut by the tile's edges (at most its first and last
-// segment) to a scratch, and a second pass adds each cut frame's segments
-// in tile order (dlc2_join).  When FR divides BM = 128, as Encoder_64's
+// row's frame t / FR by a float reciprocal and an exact correction, one
+// path for every FR; da1's tile sums each frame segment it holds (its
+// rows of one frame, in row order), writes the sum of a frame that lies
+// whole in the tile straight to dlc2 and the sums of the frames cut by
+// the tile's edges (at most its first and last segment) to a scratch, and
+// a second pass adds each cut frame's segments in tile order (dlc2_join).  When FR divides BM = 128, as Encoder_64's
 // 64-row frames do, no frame is cut, the second pass has no work and is
 // not launched, and every sum is the former per-tile sum bit for bit;
 // Encoder_2019's 320-row frames are all cut.  h2 takes the 256-column
@@ -66,8 +64,8 @@
 // bytes' pace); Dskip 110, Da1 84, Dw 42 each.  The row products take
 // about mainloop plus epilogue, as the stack's do (hopper_gemm.cuh).
 // At Encoder_2019's frames (chip_smoke.py [encoders], B=8 x 6400, FR=320,
-// bf16, same card): forward 0.253 ms, backward 0.357, beside 0.257 /
-// 0.360 at FR=64 in the same run.
+// bf16, same card): forward 0.252-0.254 ms, backward 0.356-0.357, beside
+// 0.258-0.263 / 0.360 at FR=64 in the same run.
 //
 // C interface (ctypes): pointers and the stream as void*, returns
 // cudaGetLastError() of the first failing launch (0 on success).
@@ -132,8 +130,8 @@ __global__ void relu_round(const float* __restrict__ skip, long long n8,
   st8(sk + 8 * i, v);
 }
 
-// h1 = sk . W1 + enc2, a1 = T(relu(h1)); POW2: FR = 2^fr_shift
-template <class Cf, bool POW2>
+// h1 = sk . W1 + enc2, a1 = T(relu(h1))
+template <class Cf>
 struct H1 {
   using Cfg = Cf;
   using T = typename Cf::T;
@@ -141,7 +139,7 @@ struct H1 {
   CUtensorMap w;        // W1^T [S][S]
   const float* enc2;    // [F, B, S]
   T* a1;                // [rows, S]
-  int T_, S, B, FR, fr_shift, kt;
+  int T_, S, B, FR, kt;
   float inv_fr;         // 1 / FR
 
   __device__ void k_range(int& it0, int& it1) const {
@@ -168,18 +166,11 @@ struct H1 {
     Pre p{};
     int b, t, n;
     if (at(r, c, b, t, n)) {
-      // t / FR: a shift for a power of two (the epilogue sets this
-      // kernel's pace, and the general form cost ~1.5% at FR=64); else
-      // without an integer division: the float quotient is off by at most
-      // one (t < 2^24), then corrected
-      int f;
-      if (POW2) {
-        f = t >> fr_shift;
-      } else {
-        f = __float2int_rz((float)t * inv_fr);
-        f -= f * FR > t;
-        f += (f + 1) * FR <= t;
-      }
+      // t / FR without an integer division: the float quotient is off by
+      // at most one (t < 2^24), then corrected
+      int f = __float2int_rz((float)t * inv_fr);
+      f -= f * FR > t;
+      f += (f + 1) * FR <= t;
       p.e = *reinterpret_cast<const float2*>(
           enc2 + ((long long)f * B + b) * S + n);
     }
@@ -531,18 +522,17 @@ template <class MC> struct DwSplits {
   }
 };
 
-// h1's launch, FR a power of two (POW2, fr_shift its log2) or not
-template <class KC, bool POW2, typename T>
+// h1's launch
+template <class KC, typename T>
 cudaError_t launch_h1(const T* sk, const T* w1t, const float* enc2, T* a1,
-                      int B, int T_, int S, int FR, int fr_shift,
-                      cudaStream_t s) {
-  H1<KC, POW2> h;
+                      int B, int T_, int S, int FR, cudaStream_t s) {
+  H1<KC> h;
   cudaError_t e = hg::encode_k<KC>(&h.sk, sk, hg::dense(S, T_, B, 1), KC::BM);
   if (e == cudaSuccess)
     e = hg::encode_k<KC>(&h.w, w1t, hg::dense(S, S, 1, 1), KC::BN);
   if (e != cudaSuccess) return e;
   h.enc2 = enc2; h.a1 = a1;
-  h.T_ = T_; h.S = S; h.B = B; h.FR = FR; h.fr_shift = fr_shift;
+  h.T_ = T_; h.S = S; h.B = B; h.FR = FR;
   h.inv_fr = 1.f / (float)FR;
   h.kt = tg::ceil_div(S, KC::BK);
   return hg::launch(h, dim3(tg::ceil_div(S, KC::BN), tg::ceil_div(T_, KC::BM),
@@ -561,13 +551,7 @@ int fwd(int B, int T_, int FR, int S, int Q, const float* skip, const T* w1t,
   relu_round<T><<<(unsigned)((n8 + 255) / 256), 256, 0, s>>>(skip, n8, sk);
   EPI_TRY(cudaGetLastError());
 
-  int shift = 0;
-  while ((1 << shift) < FR) ++shift;
-  const cudaError_t h1 =
-      (1 << shift) == FR
-          ? launch_h1<KC, true>(sk, w1t, enc2, a1, B, T_, S, FR, shift, s)
-          : launch_h1<KC, false>(sk, w1t, enc2, a1, B, T_, S, FR, 0, s);
-  EPI_TRY(h1);
+  EPI_TRY(launch_h1<KC>(sk, w1t, enc2, a1, B, T_, S, FR, s));
 
   Head<WC> o;
   EPI_TRY(hg::encode_k<WC>(&o.a1, a1, hg::dense(S, T_, B, 1), WC::BM));
