@@ -93,6 +93,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              20 training steps at -batch 8 -length 6656 in f32 and bf16
              (NLL, code perplexity, steps/s), then -sample 4 -seconds 1.0
              through the generation kernel (samples/s).
+  17. dp     data parallelism: 2 ranks on this card (gloo, staged through
+             host memory) at a global B=8 x 6656: the DP loss, summed
+             gradients and new batch-norm statistics against the
+             single-device step on the whole batch, f32 and bf16; the
+             prior's 2-rank step against its single-device step; four bf16
+             steps through the training CLI's own rank function; then
+             generate_sharded over [cuda:0, cuda:0] at B=4 (bf16 and int8
+             sample mode: each shard bit for bit its single-device call;
+             f32 greedy against the full-batch call) and the generation
+             CLI with -data_shards = the device count; with two or more
+             cards, the sharded call over every card timed warm beside one
+             card's, and DP training over NCCL at 2 ranks and at the card
+             count (steps/s).
+  18. profile  the training CLI in bf16 at B=8 x 6656 for 16 steps with
+             -profile: the trace of steps 10-14 read back into device ms a
+             step by port kernel, cuBLAS/cuDNN, elementwise and other
+             kernels, the optimizer's kernels and copies, the device's
+             idle share of the step, and the largest kernels outside the
+             port's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and
 prints no result.  Outputs go under build/chip_smoke/ (gitignored).
@@ -682,18 +701,25 @@ def _convert(card, tag, ckpt, params_json, audio, dtype, mode,
     return counts
 
 
+def _e2e_checkpoint() -> str:
+    """build/chip_smoke/weights-0.npz: a random full-width
+    model_parameters.json model (weights from seed 0)."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.params import random_params_np, save_npz
+    cfg = ModelConfig.from_json(os.path.join(REPO, "model_parameters.json"))
+    params, state = random_params_np(cfg, 109, seed=0)
+    ckpt = os.path.join(OUT, "weights-0.npz")
+    save_npz(ckpt, params, state)
+    return ckpt
+
+
 def phase_e2e(card: str):
     """The voice-conversion entry point at full width, through the VQ and
     generation kernels (bf16, int8 and f32 weights); returns the launch
     counts of the main-path runs."""
-    from vqvae_wavenet_torch.params import random_params_np, save_npz
-    from vqvae_wavenet_torch.config import ModelConfig
 
-    cfg = ModelConfig.from_json(os.path.join(REPO, "model_parameters.json"))
-    params, state = random_params_np(cfg, 109, seed=0)
     audio = _e2e_wav()
-    ckpt = os.path.join(OUT, "weights-0.npz")
-    save_npz(ckpt, params, state)
+    ckpt = _e2e_checkpoint()
     launches = {}
     for dtype in ("bf16", "int8", "f32"):
         for mode in ("greedy", "sample"):
@@ -2207,9 +2233,450 @@ def phase_prior(card: str):
     return launches
 
 
+
+def _prior_case(device):
+    """The prior of the shipped config (k=512, gc 64) with its init, and
+    random codes [8, 104] and speaker vectors [8, 1, 64] from SP_SEED."""
+    from vqvae_wavenet_torch.models.prior import init_prior_params_np
+    from vqvae_wavenet_torch.params import to_torch
+    rng = np.random.default_rng(SP_SEED)
+    params = to_torch(init_prior_params_np(512, gc_channels=64), device)
+    codes = torch.from_numpy(rng.integers(0, 512, (8, 104))).to(device)
+    h = torch.from_numpy(rng.standard_normal((8, 1, 64)).astype(
+        np.float32)).to(device)
+    return params, codes, h
+
+
+def _dp_rank(sh, B: int, dtypes, cli_args: dict):
+    """One rank of [dp] (its contiguous B/N rows): per train_dtype the DP
+    loss, the summed gradients (rank 0) and the new batch-norm running
+    statistics of _sp_case's batch and weights, and the warm host ms of
+    one more call; the prior's DP loss and gradients; then the training
+    CLI's own rank function (train._rank) for a few steps, its kernels'
+    counters set to 0 just before and read just after."""
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.ops import (epilogue_kernels, train_kernels,
+                                         vq_kernels)
+    from vqvae_wavenet_torch.ops.conv import set_full_f32
+    from vqvae_wavenet_torch.parallel.mesh import rank_rows
+    from vqvae_wavenet_torch.prior import prior_loss_and_grads
+    from vqvae_wavenet_torch.training.optimizer import tree_leaves
+    from vqvae_wavenet_torch.training.train_loop import dp_loss_and_grads
+    set_full_f32()
+    out = {"backend": sh.backend}
+    for dtype in dtypes:
+        cfg, p, s, x, y = _sp_case(B, dtype, sh.device)
+        batch = {"x": rank_rows(x, sh), "y": rank_rows(y, sh)}
+        loss, aux, grads = dp_loss_and_grads(p, s, cfg, batch, sh)
+        out[dtype] = {
+            "loss": float(loss),
+            "grads": ([g.float().cpu().numpy() for g in grads]
+                      if sh.rank == 0 else None),
+            "bn": [t.cpu().numpy()
+                   for t in tree_leaves(aux["state"]["encoder"])],
+            "ms": _host_ms(lambda: dp_loss_and_grads(p, s, cfg, batch, sh),
+                           sh.device)}
+        del grads, aux
+    params, codes, h = _prior_case(sh.device)
+    loss, grads = prior_loss_and_grads(params, rank_rows(codes, sh),
+                                       rank_rows(h, sh), sh=sh)
+    out["prior"] = {"loss": float(loss), "grads": (
+        [g.cpu().numpy() for g in grads] if sh.rank == 0 else None)}
+    vq_kernels.launches = 0
+    train_kernels.fwd_launches = train_kernels.bwd_launches = 0
+    epilogue_kernels.fwd_launches = epilogue_kernels.bwd_launches = 0
+    res = train_cli._rank(sh, cli_args, "data")
+    out["train"] = {k: res[k] for k in ("losses", "step_seconds", "path",
+                                        "launches")}
+    return out
+
+
+def _check_bn(tag, dtype, got, ref, old) -> float:
+    """The new batch-norm running statistics' change from ``old``: within
+    TRAIN_TOL[dtype] of the leaf's largest change, plus 1e-6 of the
+    largest change of any leaf.  Returns the largest share of the bound."""
+    dref = [r.cpu().double().numpy() - o.cpu().double().numpy()
+            for r, o in zip(ref, old)]
+    dgot = [np.asarray(g, np.float64) - o.cpu().double().numpy()
+            for g, o in zip(got, old)]
+    top = max(np.abs(d).max() for d in dref)
+    worst = max(np.abs(g - r).max() / (TRAIN_TOL[dtype] * np.abs(r).max()
+                                       + 1e-6 * top)
+                for g, r in zip(dgot, dref))
+    log(f"[{tag}] {dtype}: batch-norm running statistics after one step, "
+        f"{len(dref)} leaves: largest share of the bound {worst:.3g}")
+    if worst >= 1:
+        raise AssertionError(f"[{tag}] {dtype}: the DP batch-norm statistics "
+                             f"disagree with the single device")
+    return worst
+
+
+def _dp_generation(card: str) -> dict:
+    """generate_sharded over [cuda:0, cuda:0] at B=4 x 2,048 samples of the
+    shipped decoder (random weights, a random 128-channel condition of 32
+    frames): bf16 and int8 in sample mode, each shard bit for bit the
+    single-device call on its streams with its own generator; f32 greedy
+    against the full-batch call by [gen]'s rule (identical bins, or a
+    first divergence at a near tie).  Then vqvae_wavenet_torch.generate
+    with -data_shards = the device count.  With two or more cards, the
+    sharded call over every card (B = the card count) timed cold and warm
+    beside one card's call at the same B.  Returns the launches of the
+    sharded calls and the CLI run."""
+    from vqvae_wavenet_torch import generate as gen_cli
+    from vqvae_wavenet_torch.generation.fast import generate
+    from vqvae_wavenet_torch.ops import gen_kernels, vq_kernels
+    from vqvae_wavenet_torch.parallel.genshard import (generate_sharded,
+                                                       shard_generators)
+    cfg, dec = _gen_model(seed=3)
+    g = torch.Generator(device="cpu").manual_seed(21)
+    lc = torch.randn((4, 32, 128), generator=g).cuda()
+    devices = [torch.device("cuda", 0)] * 2
+    launches = {"gen_wavenet": 0, "gen_wavenet_int8": 0}
+    length = 2048
+    for dtype in (torch.bfloat16, torch.int8):
+        gen_kernels.launches = gen_kernels.int8_launches = 0
+        t0 = time.perf_counter()
+        got = generate_sharded(dec, cfg.wavenet, lc, length=length,
+                               devices=devices, mode="sample", dtype=dtype,
+                               generator=torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _add(launches, {"gen_wavenet": gen_kernels.launches,
+                        "gen_wavenet_int8": gen_kernels.int8_launches})
+        gens = shard_generators(torch.Generator().manual_seed(5), 2)
+        same = [torch.equal(got[2 * i:2 * i + 2], generate(
+            dec, cfg.wavenet, lc[2 * i:2 * i + 2], length=length,
+            mode="sample", dtype=dtype, generator=gens[i]))
+            for i in range(2)]
+        log(f"[dp] generate_sharded {dtype}, 2 shards on one card, B=4 x "
+            f"{length}, sample: each shard bitwise its single-device call "
+            f"{same}; {secs:.3f} s (host clock)  ({card})")
+        if not all(same) or not torch.isfinite(got).all():
+            raise AssertionError(f"[dp] sharded generation ({dtype}) differs "
+                                 f"from its shards' single-device calls")
+    got = generate_sharded(dec, cfg.wavenet, lc, length=length,
+                           devices=devices, mode="greedy")
+    ref = generate(dec, cfg.wavenet, lc, length=length, mode="greedy")
+    diff = (got != ref).any(dim=0).nonzero()
+    if len(diff):
+        from vqvae_wavenet_torch.ops import gen_kernels as gk
+        first = int(diff[0])
+        row = int((got[:, first] != ref[:, first]).nonzero()[0])
+        w32 = gk.pack_gen_params(dec, cfg.wavenet, torch.float32, "cuda")
+        gcon, g_pp1 = gk.condition_terms(dec, w32, 1)
+        _, lp = gk.generate_clip_plain(w32, lc[row:row + 1], gcon, g_pp1,
+                                       length=first + 1, want_logits=True)
+        top2 = torch.topk(lp[0, first], 2).values
+        margin = float(top2[0] - top2[1])
+        log(f"[dp] generate_sharded f32 greedy: first divergence from the "
+            f"full batch at step {first} (stream {row}), top-two margin "
+            f"{margin:.3g}")
+        if margin > GREEDY_TIE:
+            raise AssertionError("[dp] sharded greedy f32 diverges away from "
+                                 "a near tie")
+    else:
+        log(f"[dp] generate_sharded f32 greedy, 2 shards: waveform "
+            f"identical to the full-batch call")
+    n = torch.cuda.device_count()
+    if n >= 2:      # shards on different cards run at once
+        every = [torch.device("cuda", i) for i in range(n)]
+        lcn = torch.randn((n, 32, 128), generator=g).cuda()
+        gen_kernels.launches = 0
+
+        def sharded():
+            generate_sharded(dec, cfg.wavenet, lcn, length=length,
+                             devices=every, mode="sample",
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(7))
+        times = [_host_ms(sharded, "cuda") for _ in range(2)]
+        _add(launches, {"gen_wavenet": gen_kernels.launches})
+        one = _host_ms(lambda: generate(
+            dec, cfg.wavenet, lcn, length=length, mode="sample",
+            dtype=torch.bfloat16,
+            generator=torch.Generator().manual_seed(7)), "cuda")
+        log(f"[dp] generate_sharded over {n} cards, B={n} x {length} bf16 "
+            f"sample: {times[0]:.1f} ms cold (each card's first launch), "
+            f"{times[1]:.1f} ms warm, against {one:.1f} ms for B={n} on one "
+            f"card (host clock)  ({card})")
+    speakers = (["p225", "p226"] * n)[:max(2, n)]
+    vq_kernels.launches = 0
+    gen_kernels.launches = gen_kernels.int8_launches = 0
+    res = gen_cli.main(["-restore", _e2e_checkpoint(), "-audio", _e2e_wav(),
+                        "-speakers", *speakers, "-mode", "sample",
+                        "-params", os.path.join(REPO, "model_parameters.json"),
+                        "-data", os.path.join(REPO, "data"), "-device", "cuda",
+                        "-data_shards", str(n)])
+    counts = {"vq_argmin": vq_kernels.launches,
+              "gen_wavenet": gen_kernels.launches}
+    if res["audio"].shape != (len(speakers), 8192) or not np.isfinite(
+            res["audio"]).all() or counts["gen_wavenet"] < n:
+        raise AssertionError(f"[dp] generate -data_shards {n} failed: "
+                             f"{res['audio'].shape}, {counts}")
+    log(f"[dp] generate -data_shards {n}, {len(speakers)} speakers: "
+        f"{res['seconds']:.3f} s for {len(speakers)}x8192 samples (host "
+        f"clock); launches {counts}  ({card})")
+    _add(launches, counts)
+    return launches
+
+
+def phase_dp(card: str):
+    """Data parallelism on the card.
+    (a) 2 ranks (on a one-card machine both on the card, over gloo, every
+        exchange staged through host memory) at a global B=8 x 6656, _sp_case's weights and batch, f32
+        and bf16: the loss (f32 rtol 2e-4, bf16 2e-2) and the summed
+        gradients (_check_sp_grads) against the single-device
+        loss_and_grads on the whole batch, and the new batch-norm running
+        statistics (_check_bn); the prior's 2-rank loss (rtol 2e-4) and
+        gradients (f32 rule) against its single-device step; then four
+        bf16 steps through train._rank (the training CLI's rank function)
+        on the synthetic corpus: finite losses, rank 0's checkpoint, every
+        rank launched the VQ, stack and loss-head kernels.
+    (b) Sharded generation (_dp_generation).
+    (c) With two or more cards: vqvae_wavenet_torch.train -batch 8 (a rank
+        a card, NCCL) six steps in bf16, steps/s.
+    Returns the main-path launches of (a)-(c), summed over the ranks."""
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.parallel import run_ranks
+    from vqvae_wavenet_torch.prior import prior_loss_and_grads
+    from vqvae_wavenet_torch.training.optimizer import tree_leaves
+    from vqvae_wavenet_torch.training.train_loop import loss_and_grads
+    data = _train_corpus()
+    dtypes = ("f32", "bf16")
+    ref = {}
+    for dtype in dtypes:
+        cfg, p, s, x, y = _sp_case(8, dtype, "cuda")
+        loss, aux, grads = loss_and_grads(p, s, cfg, {"x": x, "y": y})
+        ref[dtype] = (float(loss), [g.float().cpu() for g in grads],
+                      tree_leaves(aux["state"]["encoder"]),
+                      tree_leaves(s["encoder"]))
+        del p, grads, aux
+    params, codes, h = _prior_case("cuda")
+    p_loss, p_grads = prior_loss_and_grads(params, codes, h)
+    p_grads = [g.cpu() for g in p_grads]
+    torch.cuda.empty_cache()
+    cli = vars(train_cli.parse_args([
+        "-dataset", "VCTK", "-length", "6656", "-batch", "8", "-step", "4",
+        "-save", os.path.join(OUT, "dp_train", "weights"), "-params",
+        _train_config("bf16"), "-data", data, "-device", "cuda",
+        "-log_every", "1", "-interval", "1000", "-ckpt_interval", "1000"]))
+    t0 = time.perf_counter()
+    res = run_ranks(_dp_rank, 2, "cuda", 8, dtypes, cli, timeout=600)
+    secs = time.perf_counter() - t0
+    for dtype in dtypes:
+        losses = [r[dtype]["loss"] for r in res]
+        rel = abs(losses[0] - ref[dtype][0]) / abs(ref[dtype][0])
+        log(f"[dp] 2 ranks B=8 {dtype}: loss {losses[0]:.6f} on every rank "
+            f"{len(set(losses)) == 1}, single device {ref[dtype][0]:.6f} "
+            f"(relative {rel:.3g}); warm, rank 0: loss and gradients "
+            f"{res[0][dtype]['ms']:.1f} ms ({res[0]['backend']}, host "
+            f"clock)  ({card})")
+        if len(set(losses)) != 1 or not rel <= (2e-4 if dtype == "f32"
+                                                 else 2e-2):
+            raise AssertionError(f"[dp] {dtype}: loss disagrees")
+        _check_sp_grads("dp 2 ranks", dtype, res[0][dtype]["grads"],
+                        ref[dtype][1], ref["f32"][1])
+        for r in res:
+            _check_bn("dp 2 ranks", dtype, r[dtype]["bn"], ref[dtype][2],
+                      ref[dtype][3])
+    rel = abs(res[0]["prior"]["loss"] - float(p_loss)) / abs(float(p_loss))
+    log(f"[dp] prior 2 ranks: nll {res[0]['prior']['loss']:.6f}, single "
+        f"device {float(p_loss):.6f} (relative {rel:.3g})")
+    if not rel <= 2e-4:
+        raise AssertionError("[dp] the prior's DP loss disagrees")
+    _check_sp_grads("dp prior 2 ranks", "f32", res[0]["prior"]["grads"],
+                    p_grads)
+    launches: dict = {}
+    for r in res:
+        t = r["train"]
+        if not np.isfinite(t["losses"]).all() or min(
+                t["launches"][k] for k in (
+                    "vq_argmin", "train_stack_fwd", "train_stack_bwd",
+                    "train_epilogue_fwd", "train_epilogue_bwd")) < 1:
+            raise AssertionError(f"[dp] a rank's training run failed or "
+                                 f"missed a kernel: {t}")
+        _add(launches, {k: v for k, v in t["launches"].items() if v})
+    steady = res[0]["train"]["step_seconds"][2:]
+    layout = ("both ranks on one card, gloo staged through host memory"
+              if res[0]["backend"] == "gloo" else "a card per rank, NCCL")
+    log(f"[dp] train._rank, 2 ranks ({layout}) bf16: losses "
+        + " ".join(f"{v:.4f}" for v in res[0]["train"]["losses"])
+        + f"; {len(steady) / sum(steady):.3f} steps/s over steps 3-4 (host "
+        f"clock); {secs:.1f} s for the spawned run; launches per rank "
+        f"{[r['train']['launches'] for r in res]}  ({card})")
+    if not os.path.exists(res[0]["train"]["path"] + ".npz"):
+        raise AssertionError("[dp] rank 0 wrote no checkpoint")
+    del res, ref
+    torch.cuda.empty_cache()
+
+    _add(launches, _dp_generation(card))
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("[dp] NCCL (a card per rank): not run, this machine has one card")
+        return launches
+    cli = dict(cli, num_steps=6, save_path=os.path.join(OUT, "dp_nccl",
+                                                        "weights"))
+    for world in sorted({2, n}):
+        if world < n:      # fewer ranks than cards: the CLI's rank function
+            runs = run_ranks(train_cli._rank, world, "cuda", cli, "data",
+                             timeout=600)
+            res = dict(runs[0], launches=[r["launches"] for r in runs])
+        else:              # the CLI itself: gcd(8, n) ranks, a card each
+            res = train_cli.main([
+                "-dataset", "VCTK", "-length", "6656", "-batch", "8",
+                "-step", "6", "-save", cli["save_path"], "-params",
+                cli["parameter_path"], "-data", data, "-device", "cuda",
+                "-log_every", "1", "-interval", "1000", "-ckpt_interval",
+                "1000"])
+        print()
+        steady = res["step_seconds"][2:]
+        ranks = (len(res["launches"]) if isinstance(res["launches"], list)
+                 else 1)
+        log(f"[dp] NCCL, {ranks} ranks (a card each), global B=8 bf16: "
+            f"losses " + " ".join(f"{v:.4f}" for v in res["losses"])
+            + f"; {len(steady) / sum(steady):.3f} steps/s over steps 3-6 "
+            f"(host clock, synchronised)  ({card})")
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError("[dp] non-finite NCCL training loss")
+        for r in (res["launches"] if ranks > 1 else [res["launches"]]):
+            _add(launches, {k: v for k, v in r.items() if v})
+    return launches
+
+
+# the port's kernel wrappers: each launches in a profiler range of its name
+PORT_RANGES = ("vq_argmin", "gen_wavenet", "gen_wavenet_int8",
+               "train_stack_fwd", "train_stack_bwd", "train_stack_fwd_sp",
+               "train_stack_bwd_sp", "train_stack_bwd_chain",
+               "train_stack_bwd_dk", "train_epilogue_fwd",
+               "train_epilogue_bwd")
+LIBRARY_KERNEL = re.compile(r"gemm|cublas|cutlass|xmma|cudnn|convolve|"
+                            r"winograd|fft|fprop|dgrad|wgrad", re.I)
+
+
+def _trace_breakdown(path: str):
+    """Device time by group in a -profile trace (Chrome JSON of
+    torch.profiler).  A device event (kernel, copy, set) is matched to the
+    runtime call that launched it (args.correlation), and that call to the
+    innermost profiler ranges around it on its host thread: a port
+    kernel's wrapper range names it, the "optimizer" range holds the
+    update; the rest go by kernel name: cuBLAS/cuDNN (gemm, conv, ... in
+    the name), copies and sets, elementwise and other.  Returns (host ms
+    of each traced step, device busy ms of each (the union of the device
+    events that start in it), {group: ms}, {kernel name: (ms, count)}
+    outside the port's kernels)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ranges: dict = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            ranges.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+    steps = sorted((a, b) for k in ranges for a, b, n in ranges[k]
+                   if n == "train_step")
+    groups: dict = {}
+    names: dict = {}
+    spans = []
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        call = launch.get(e.get("args", {}).get("correlation"))
+        inside = [] if call is None else [
+            n for a, b, n in ranges.get((call["pid"], call["tid"]), [])
+            if a <= call["ts"] <= b]
+        port = [n for n in inside if n in PORT_RANGES]
+        if port:
+            group = port[0]
+        elif "optimizer" in inside:
+            group = "optimizer"
+        elif cat != "kernel":
+            group = "copies and sets"
+        elif LIBRARY_KERNEL.search(e["name"]):
+            group = "cuBLAS/cuDNN"
+        else:
+            group = "elementwise and other"
+        groups[group] = groups.get(group, 0.0) + e["dur"] / 1e3
+        if not port:
+            ms, c = names.get(e["name"], (0.0, 0))
+            names[e["name"]] = (ms + e["dur"] / 1e3, c + 1)
+    busy, end = [0.0] * len(steps), -1.0
+    for a, b in sorted(spans):     # the union, by the step it starts in
+        a = max(a, end)
+        for i, (s0, s1) in enumerate(steps):
+            if b > a and s0 <= a <= s1:
+                busy[i] += (b - a) / 1e3
+        end = max(end, b)
+    return [(b - a) / 1e3 for a, b in steps], busy, groups, names
+
+
+def phase_profile(card: str):
+    """vqvae_wavenet_torch.train -profile: the shipped config in bf16 at
+    -batch 8 -length 6656 for 16 steps (counters set to 0 before, read
+    after), steps 10-14 traced; the trace read back by _trace_breakdown
+    into device ms a traced step by group and the idle share of the step
+    (1 - device busy / host step time), and the ten largest kernels
+    outside the port's; the trace must hold the stack, loss-head and VQ
+    kernels.  The untraced steps' host time is printed beside the traced
+    ones' (the tracer's own cost).  Returns the run's launches."""
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.ops import (epilogue_kernels, train_kernels,
+                                         vq_kernels)
+    data = _train_corpus()
+    vq_kernels.launches = 0
+    train_kernels.fwd_launches = train_kernels.bwd_launches = 0
+    epilogue_kernels.fwd_launches = epilogue_kernels.bwd_launches = 0
+    res = train_cli.main([
+        "-dataset", "VCTK", "-length", "6656", "-batch", "8", "-step", "16",
+        "-save", os.path.join(OUT, "profile_train", "weights"), "-params",
+        _train_config("bf16"), "-data", data, "-device", "cuda",
+        "-log_every", "1", "-interval", "1000", "-ckpt_interval", "1000",
+        "-profile", os.path.join(OUT, "profile")])
+    print()
+    counts: dict = {}
+    for r in (res["launches"] if isinstance(res["launches"], list)
+              else [res["launches"]]):     # a list when data-parallel
+        _add(counts, r)
+    t0 = time.perf_counter()
+    hosts, busys, groups, names = _trace_breakdown(res["trace"])
+    secs = time.perf_counter() - t0
+    n, host, busy = len(hosts), sum(hosts), sum(busys)
+    if n != 5 or not host > 0:
+        raise AssertionError(f"[profile] expected 5 traced steps, found {n}")
+    need = ("train_stack_fwd", "train_stack_bwd", "train_epilogue_fwd",
+            "train_epilogue_bwd", "vq_argmin")
+    missing = [k for k in need if groups.get(k, 0.0) <= 0]
+    if missing:
+        raise AssertionError(f"[profile] the trace holds no device time for "
+                             f"{missing}: {groups}")
+    untraced = [t for i, t in enumerate(res["step_seconds"], 1)
+                if i > 2 and not 10 <= i <= 14]
+    per = {k: round(v / n, 3) for k, v in sorted(
+        groups.items(), key=lambda kv: -kv[1])}
+    log(f"[profile] bf16 B=8 x 6656, steps 10-14 traced: host "
+        f"{host / n:.2f} ms a step (untraced steps 3-9, 15-16: "
+        f"{1e3 * sum(untraced) / len(untraced):.2f} ms), device busy "
+        f"{busy / n:.2f} ms a step, idle {1 - busy / host:.1%} (by step: "
+        + ", ".join(f"{h:.2f} ms host / {b:.2f} busy"
+                    for h, b in zip(hosts, busys))
+        + f"); device ms a step by group {json.dumps(per)}; trace read in "
+        f"{secs:.1f} s  ({card})")
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:10]
+    log(f"[profile] device events a traced step: "
+        f"{sum(c for _, c in names.values()) / n:.1f} outside the port's "
+        f"kernels; the largest outside them, ms a step (calls): "
+        + "; ".join(f"{k[:70]} {v[0] / n:.3f} ({v[1] // n})"
+                    for k, v in top))
+    return {k: counts[k] for k in need}
+
+
 PHASES = ("vq", "gen", "gen-int8", "e2e", "magenta", "train-stack",
           "train-epilogue", "train-e2e", "sp-stack", "sp-train",
-          "train-bwd2", "magenta-train", "encoders", "prior")
+          "train-bwd2", "magenta-train", "encoders", "prior", "dp",
+          "profile")
 
 
 def main(argv=None) -> int:
@@ -2237,7 +2704,9 @@ def main(argv=None) -> int:
                 "train-bwd2": lambda: phase_train_bwd2(card),
                 "magenta-train": lambda: phase_magenta_train(card),
                 "encoders": lambda: phase_encoders(card),
-                "prior": lambda: phase_prior(card)}
+                "prior": lambda: phase_prior(card),
+                "dp": lambda: phase_dp(card),
+                "profile": lambda: phase_profile(card)}
         for name in only:
             runs[name]()
         log(f"[only] {' '.join(only)}: passed")
@@ -2255,6 +2724,8 @@ def main(argv=None) -> int:
     extra: dict = {}
     _add(extra, phase_encoders(card))
     _add(extra, phase_prior(card))
+    _add(extra, phase_dp(card))
+    _add(extra, phase_profile(card))
     launches["vq_argmin"] += extra.pop("vq_argmin", 0)
     launches["gen_wavenet"] += extra.pop("gen_wavenet", 0)
     magenta["gen_wavenet_int8"] += extra.pop("gen_wavenet_int8", 0)

@@ -257,8 +257,10 @@ def test_cli_int8_full_preset_without_jax(tmp_path):
 
 
 def test_cli_refuses_data_shards(tmp_path):
+    """More shards than devices (the CPU is one) raise before any file is
+    read (tests/test_torch_genshard.py runs sharded generation)."""
     from vqvae_wavenet_torch import generate
-    with pytest.raises(NotImplementedError, match="data_shards"):
+    with pytest.raises(ValueError, match="data_shards"):
         generate.main(["-restore", str(tmp_path / "w-1.npz"), "-audio", "x",
                        "-speakers", "p225", "-params", MAGENTA_JSON,
                        "-data_shards", "2", "-device", "cpu"])

@@ -186,11 +186,25 @@ def test_cuda_device_without_gpu_raises(corpus, tmp_path):
 @pytest.mark.parametrize("flag", [["-time_shards", "2", "-decoder_halo",
                                    "recompute"],
                                   ["-decoder_halo", "layer"],
-                                  ["-coordinator", "localhost:1234"],
-                                  ["-num_processes", "4"],
-                                  ["-process_id", "1"],
-                                  ["-loader", "native"], ["-profile", "x"]])
+                                  ["-loader", "native"],
+                                  ["-time_shards", "2", "-coordinator",
+                                   "localhost:1234", "-num_processes", "2",
+                                   "-process_id", "0"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     from vqvae_wavenet_torch import train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.main(train_args(corpus, tmp_path, "-step", "1", *flag))
+
+
+@pytest.mark.parametrize("flag", [["-coordinator", "localhost:1234"],
+                                  ["-num_processes", "4"],
+                                  ["-process_id", "1"],
+                                  ["-coordinator", "localhost:1234",
+                                   "-num_processes", "2", "-process_id",
+                                   "2"]])
+def test_incomplete_multihost_flags_raise(corpus, tmp_path, flag):
+    """The multi-host flags go together, with a process id below the
+    process count (tests/test_torch_dp.py runs two hosts)."""
+    from vqvae_wavenet_torch import train
+    with pytest.raises(ValueError, match="process"):
         train.main(train_args(corpus, tmp_path, "-step", "1", *flag))

@@ -3,7 +3,7 @@
     python -m vqvae_wavenet_torch.generate -restore saved_model/weights-110640.npz \
         -audio data/VCTK-Corpus/wav48/p225/p225_001.wav \
         -speakers p225 p226 None -mode sample [-params model_parameters.json] \
-        [-dtype bf16|f32|int8] [-device cuda|cpu]
+        [-dtype bf16|f32|int8] [-device cuda|cpu] [-data_shards N]
 
 ``-restore`` names the port's ``.npz``: a training checkpoint of the
 port's train.py, or an export by tools/export_torch_npz.py of an orbax
@@ -18,7 +18,9 @@ frame i // ratio, ratio = length // frames (the 2019 encoder's 320-sample
 frames need not divide the length: past the last frame, the last is
 read); the local condition -- never the wav -- is zero-padded to a
 1024/8192-sample bucket;
-the whole clip is generated in one kernel launch on CUDA; one 16 kHz wav
+the whole clip is generated in one kernel launch on CUDA (with
+``-data_shards N`` the speakers are split over cuda:0 .. cuda:N-1, one
+launch each: parallel/genshard.py); one 16 kHz wav
 per speaker is written beside the checkpoint, with the codebook and
 speaker embeddings as .npy files.  ``-dtype int8`` quantizes the decoder
 weights per row (the TPU kernel's int8 mode) on either device.
@@ -58,8 +60,9 @@ def parse_args(argv=None):
                              "bf16 activations); sampling is always f32")
     parser.add_argument("-data_shards", default=1, type=int,
                         dest="data_shards",
-                        help="shard the speaker batch over devices (not "
-                             "ported: only 1)")
+                        help="shard the speaker batch over N devices (N "
+                             "dividing the speakers, at most the device "
+                             "count)")
     parser.add_argument("-device", default="cuda", dest="device",
                         help="torch device (default cuda)")
     return parser.parse_args(argv)
@@ -96,15 +99,17 @@ def speaker_one_hots(speakers, data_path):
     return one_hot
 
 
-def _vqvae_generate(params, state, cfg, x, y, padded, generator, mode, dtype):
+def _vqvae_generate(params, state, cfg, x, y, padded, generator, mode, dtype,
+                    devices=None):
     """Encoder -> VQ -> speaker concat, then generation of ``padded``
-    samples.  Sample i reads frame i // ratio with the floor ratio of the
-    real length (length // frames; the TF1 reference's), passed down
-    explicitly: the condition is first extended with copies of its last
-    frame to cover the real length (samples past the last frame read it),
-    then zero-padded to the bucket, which only the cut tail reads."""
-    from vqvae_wavenet_torch.generation.fast import generate
+    samples, the streams sharded over ``devices`` (default: x's).  Sample
+    i reads frame i // ratio with the floor ratio of the real length
+    (length // frames; the TF1 reference's), passed down explicitly: the
+    condition is first extended with copies of its last frame to cover the
+    real length (samples past the last frame read it), then zero-padded to
+    the bucket, which only the cut tail reads."""
     from vqvae_wavenet_torch.models.vqvae import vqvae_encode
+    from vqvae_wavenet_torch.parallel.genshard import generate_sharded
     from vqvae_wavenet_torch.ops.gen_kernels import (condition_frames,
                                                      frame_ratio)
     length = x.shape[1]
@@ -114,9 +119,10 @@ def _vqvae_generate(params, state, cfg, x, y, padded, generator, mode, dtype):
     need = -(-padded // ratio)
     if need > lc.shape[1]:
         lc = torch.nn.functional.pad(lc, (0, 0, 0, need - lc.shape[1]))
-    return generate(params["decoder"], cfg.wavenet, lc, length=padded,
-                    generator=generator, mode=mode, dtype=dtype, verbose=True,
-                    ratio=ratio)
+    return generate_sharded(params["decoder"], cfg.wavenet, lc,
+                            length=padded, devices=devices or [x.device],
+                            generator=generator, mode=mode, dtype=dtype,
+                            verbose=True, ratio=ratio)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -125,6 +131,19 @@ def resolve_device(name: str) -> torch.device:
         raise RuntimeError("-device cuda requested but no CUDA device is "
                            "available (use -device cpu)")
     return device
+
+
+def shard_devices(n: int, device: torch.device):
+    """The devices of -data_shards n: cuda:0 .. cuda:n-1 (or the one
+    device); raises ValueError past the device count (genshard.py:40-43)."""
+    from vqvae_wavenet_torch.parallel.mesh import device_count
+    count = device_count(device.type)
+    if not 1 <= n <= count:
+        raise ValueError(f"-data_shards {n}: {count} {device.type} "
+                         f"device(s) attached")
+    if n == 1 or device.type != "cuda":
+        return [device] * n
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def main(argv=None):
@@ -136,10 +155,8 @@ def main(argv=None):
     from vqvae_wavenet_torch.ops.conv import set_full_f32
     from vqvae_wavenet_torch.params import load_npz
 
-    if args.data_shards > 1:
-        raise NotImplementedError("-data_shards > 1 (sharded generation) is "
-                                  "not ported to torch yet")
     device = resolve_device(args.device)
+    devices = shard_devices(args.data_shards, device)
     if args.dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     else:
@@ -188,11 +205,12 @@ def main(argv=None):
             # encodes the exact wav and zero-pads the latent frames itself
             audio = magenta_generate(params, x, torch.from_numpy(y).to(device),
                                      length=padded, generator=generator,
-                                     mode=args.mode, dtype=dtype, verbose=True)
+                                     mode=args.mode, dtype=dtype, verbose=True,
+                                     devices=devices)
         else:
             audio = _vqvae_generate(params, state, cfg, x,
                                     torch.from_numpy(y).to(device), padded,
-                                    generator, args.mode, dtype)
+                                    generator, args.mode, dtype, devices)
     audio = audio[:, :length].cpu().numpy()
     dt = time.perf_counter() - t0
     print(f"[generate] {batch_size}x{padded} samples in {dt:.2f}s "

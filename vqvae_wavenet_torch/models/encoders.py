@@ -18,7 +18,8 @@
     320 samples a frame (160-sample hop x stride 2).
 
 Neither Encoder_Magenta nor Encoder_2019 has model state; both return
-the state they are given.  All three run in the JAX package through XLA
+the state they are given.  Under data or sequence parallelism Encoder_64's
+batch norms take their statistics over every rank (``sh``).  All three run in the JAX package through XLA
 (no Pallas kernel), so their convs are ``F.conv1d`` here.
 """
 from __future__ import annotations
@@ -28,18 +29,27 @@ import torch
 from vqvae_wavenet_torch.ops.conv import causal_conv1d, conv1d, shift_right
 from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
 from vqvae_wavenet_torch.ops.signal import mfcc
+from vqvae_wavenet_torch.parallel.comm import pmean
 
 EPS = 1e-3
 MOMENTUM = 0.99
 
 
-def batch_norm(params, state, x: torch.Tensor, *, train: bool = False):
+def batch_norm(params, state, x: torch.Tensor, *, train: bool = False,
+               sh=None):
     """Keras BatchNorm over (B, T) (encoders.py:58-84).  Returns (out in
-    x's dtype, new running statistics)."""
+    x's dtype, new running statistics).  With ``sh`` (parallel.Shards: the
+    batch or the time axis split over ranks) training takes the mean and
+    the mean square over every rank (``comm.pmean``, whose gradient
+    averages over the ranks): sync-BN, the single-device statistics of the
+    whole batch."""
     xf = x.float()
     if train:
         mean = xf.mean(dim=(0, 1))
-        var = (xf * xf).mean(dim=(0, 1)) - mean * mean
+        mean_sq = (xf * xf).mean(dim=(0, 1))
+        if sh is not None:
+            mean, mean_sq = pmean(mean, sh), pmean(mean_sq, sh)
+        var = mean_sq - mean * mean
         new_state = {
             "mean": (MOMENTUM * state["mean"]
                      + (1 - MOMENTUM) * mean.detach()),
@@ -66,15 +76,16 @@ def group_norm(params, x: torch.Tensor, num_groups: int = 8) -> torch.Tensor:
 
 
 def encoder_64_forward(params, state, x: torch.Tensor, norm: str = "batch",
-                       train: bool = False):
+                       train: bool = False, sh=None):
     """x: [B, T, 1] raw float wav -> (z_e [B, T/64, latent_dim], new
-    state {"bn": [...]})."""
+    state {"bn": [...]}); ``sh``: the batch norms' statistics over the
+    ranks of a data-parallel run."""
     new_bn = []
 
     def normalize(i, net):
         if norm == "batch":
             net, s = batch_norm(params["bn"][i], state["bn"][i], net,
-                                train=train)
+                                train=train, sh=sh)
         else:
             net, s = group_norm(params["bn"][i], net), state["bn"][i]
         new_bn.append(s)
@@ -94,7 +105,8 @@ MAGENTA_DILATIONS = (1, 2, 4, 8, 16, 16)
 
 
 def encoder_magenta_forward(params, state, x: torch.Tensor,
-                            norm: str = "batch", train: bool = False):
+                            norm: str = "batch", train: bool = False,
+                            sh=None):
     """x: [B, T, 1] -> (z_e [B, T/64, latent_dim], state) in x's dtype
     (encoders.py:181-201: causal convs throughout, the reference's 'VALID'
     convs still left-pad)."""
@@ -117,7 +129,7 @@ def encoder_magenta_forward(params, state, x: torch.Tensor,
 
 
 def encoder_2019_forward(params, state, x: torch.Tensor,
-                         norm: str = "batch", train: bool = False):
+                         norm: str = "batch", train: bool = False, sh=None):
     """x: [B, T, 1] -> (z_e [B, ceil(ceil(T/160)/2), latent_dim], state),
     float32 (encoders.py:224-247)."""
     def conv(net, p, stride=1):
@@ -150,8 +162,10 @@ def _entry(name: str):
 
 
 def encoder_forward(name: str, params, state, x: torch.Tensor,
-                    norm: str = "batch", train: bool = False):
-    return _entry(name)[0](params, state, x, norm=norm, train=train)
+                    norm: str = "batch", train: bool = False, sh=None):
+    """Encoder ``name``; ``sh`` syncs Encoder_64's batch norms over the
+    ranks (the other two have no batch statistics and ignore it)."""
+    return _entry(name)[0](params, state, x, norm=norm, train=train, sh=sh)
 
 
 def encoder_downsample_rate(name: str) -> int:

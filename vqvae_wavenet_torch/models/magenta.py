@@ -111,15 +111,18 @@ def regularization_loss(params) -> torch.Tensor:
 
 
 def magenta_forward(params, x: torch.Tensor, gc_one_hot: torch.Tensor,
-                    train_dtype: str = "f32"):
+                    train_dtype: str = "f32", sh=None):
     """The training forward (magenta.py:150-205).  x [B, T, 1] raw
     waveform, gc_one_hot [B, 1, num_speakers].  The encoder and the VQ run
     in float32; under train_dtype 'bf16' the decoder's parameters, its
     input, z_q and the speaker vector are cast to bfloat16 (master weights
-    stay float32; labels and losses float32).  Returns (loss, aux)."""
+    stay float32; labels and losses float32).  Returns (loss, aux).  With
+    ``sh`` (a data-parallel rank's slice) the VQ statistics span every
+    rank; the losses, the regularization included, are this rank's, whose
+    mean over the ranks is the whole batch's."""
     cfg = magenta_wavenet_config()
     z_e = magenta_encode(params["encoder"], x)
-    q = vq_mod.quantize(params["vq"], z_e, mode="st")
+    q = vq_mod.quantize(params["vq"], z_e, mode="st", sh=sh)
     e_k, z_q = q["e_k"], q["z_q"]
     vq_loss, commitment = vq_mod.vq_losses(z_e, e_k, 0.25, mode="st")
     gc = params["speaker_emb"][torch.argmax(gc_one_hot, dim=-1)]  # [B, 1, 64]
@@ -146,16 +149,17 @@ def magenta_generate(params, x_cond: torch.Tensor, gc_one_hot: torch.Tensor,
                      *, length: Optional[int] = None,
                      generator: Optional[torch.Generator] = None,
                      mode: str = "sample", dtype: torch.dtype = torch.float32,
-                     verbose: bool = False) -> torch.Tensor:
+                     verbose: bool = False, devices=None) -> torch.Tensor:
     """Encode the conditioning wav once, then generate with the decoder
     conditioned per layer on the codes (local) and the speaker (global).
 
     x_cond: [B, T, 1]; gc_one_hot: [B, 1, num_speakers]; ``length`` (a
     multiple of the frame ratio) may exceed T: the latent frames are
     zero-padded to it, and samples t < T never read the padded frames.
-    ``dtype``: float32 | bfloat16 | int8 (generation/fast.py).  Returns the
-    float waveform [B, length]."""
-    from vqvae_wavenet_torch.generation.fast import generate
+    ``dtype``: float32 | bfloat16 | int8 (generation/fast.py).  ``devices``
+    shards the streams over them (parallel/genshard.py, magenta.py:247-253;
+    default: x_cond's device).  Returns the float waveform [B, length]."""
+    from vqvae_wavenet_torch.parallel.genshard import generate_sharded
     cfg = magenta_wavenet_config()
     length = length or x_cond.shape[1]
     z_e = magenta_encode(params["encoder"], x_cond)
@@ -169,6 +173,8 @@ def magenta_generate(params, x_cond: torch.Tensor, gc_one_hot: torch.Tensor,
         encoding = F.pad(encoding,
                          (0, 0, 0, (length - x_cond.shape[1]) // ratio))
     gc = params["speaker_emb"][torch.argmax(gc_one_hot, dim=-1)]  # [B, 1, 64]
-    return generate(params["decoder"], cfg, encoding, length=length,
-                    generator=generator, mode=mode, gate_order="sigmoid_first",
-                    dtype=dtype, global_condition=gc, verbose=verbose)
+    return generate_sharded(params["decoder"], cfg, encoding, length=length,
+                            devices=devices or [x_cond.device],
+                            generator=generator, mode=mode,
+                            gate_order="sigmoid_first", dtype=dtype,
+                            global_condition=gc, verbose=verbose)

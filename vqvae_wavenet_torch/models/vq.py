@@ -3,20 +3,25 @@ nearest-code search (the CUDA kernel on the card; gradients never flow
 through it), lookup, straight-through z_q = z_e + (e_k - z_e).detach(),
 perplexity and the closed-form mean distance; the losses of the three
 modes (st, joint, ema) and the EMA codebook update (Magenta/sonnet.py:
-224-241, Laplace-smoothed cluster sizes).
+224-241, Laplace-smoothed cluster sizes).  Under data or sequence
+parallelism the statistics span every rank (``sh``).
 """
 from __future__ import annotations
 
 import torch
 
 from vqvae_wavenet_torch.ops.vq_kernels import vq_nearest
+from vqvae_wavenet_torch.parallel.comm import all_reduce_
 
 
-def quantize(params, z_e: torch.Tensor, *, mode: str = "st"):
+def quantize(params, z_e: torch.Tensor, *, mode: str = "st", sh=None):
     """Discretize z_e [..., d] against the codebook [k, d].
 
     Returns dict with z_q, e_k, q_z_x (int64 code indices), perplexity and
-    distances_mean."""
+    distances_mean.  With ``sh`` (parallel.Shards: z_e is this rank's part
+    of equal parts) the perplexity counts the codes of every rank and
+    distances_mean is the mean over the ranks -- linear in the parts'
+    means, so it is the whole batch's (vq.py:71-77)."""
     embedding = params["embedding"]
     k, d = embedding.shape
     flat = z_e.reshape(-1, d)
@@ -34,7 +39,11 @@ def quantize(params, z_e: torch.Tensor, *, mode: str = "st"):
     else:
         raise ValueError(f"unknown vq mode {mode}")
     counts = torch.bincount(q_z_x.reshape(-1), minlength=k).float()
-    avg_probs = counts / max(q_z_x.numel(), 1)
+    if sh is not None:
+        all_reduce_(counts, sh)
+        distances_mean = all_reduce_(distances_mean.detach().reshape(1),
+                                     sh)[0] / sh.world
+    avg_probs = counts / counts.sum().clamp_min(1.0)
     perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
     return {"z_q": z_q, "e_k": e_k, "q_z_x": q_z_x, "perplexity": perplexity,
             "distances_mean": distances_mean}
@@ -59,14 +68,18 @@ def vq_losses(z_e: torch.Tensor, e_k: torch.Tensor, beta: float, *,
 
 def ema_codebook_update(params, state, z_e: torch.Tensor,
                         q_z_x: torch.Tensor, *, decay: float = 0.99,
-                        epsilon: float = 1e-5):
+                        epsilon: float = 1e-5, sh=None):
     """The EMA codebook step (vq.py:111-156): returns ({"embedding"},
-    {"ema_cluster_size", "ema_means"})."""
+    {"ema_cluster_size", "ema_means"}).  With ``sh`` the cluster sizes and
+    code-wise sums are summed over the ranks first (vq.py:111-125)."""
     k, d = params["embedding"].shape
     flat = z_e.detach().reshape(-1, d).float()
     onehot = torch.nn.functional.one_hot(q_z_x.reshape(-1).long(), k).float()
     cluster_size = onehot.sum(dim=0)
     dw = onehot.T @ flat
+    if sh is not None:
+        all_reduce_(cluster_size, sh)
+        all_reduce_(dw, sh)
     new_cluster_size = (decay * state["ema_cluster_size"]
                         + (1 - decay) * cluster_size)
     new_means = decay * state["ema_means"] + (1 - decay) * dw

@@ -69,11 +69,15 @@ def _cast(tree, dtype):
 
 
 def vqvae_forward(params, state, cfg, x: torch.Tensor,
-                  y: Optional[torch.Tensor], *, train: bool = True):
+                  y: Optional[torch.Tensor], *, train: bool = True,
+                  sh=None):
     """The training forward.  x: [B, T, 1] raw waveform; y: one-hot
     [B, 1, num_speakers] or None.  Returns (loss, aux): aux carries the
     individual losses, the metrics, the new model state (BN running
-    statistics; the VQ EMA state passes through) and z_e, z_q, q_z_x."""
+    statistics; the VQ EMA state passes through) and z_e, z_q, q_z_x.
+    ``sh`` (parallel.Shards): x is this rank's slice of a data-parallel
+    batch; the batch norms and the VQ statistics span every rank
+    (vqvae.py:123-147 with axis_name), the losses stay this rank's."""
     if train and (cfg.time_jitter or cfg.condition_upsample):
         raise NotImplementedError(
             "time_jitter and condition_upsample are not ported to training "
@@ -86,15 +90,15 @@ def vqvae_forward(params, state, cfg, x: torch.Tensor,
         z_e, enc_state = enc.encoder_forward(
             cfg.encoder, _cast(params["encoder"], torch.bfloat16),
             enc_state0, x.to(torch.bfloat16), norm=cfg.encoder_norm,
-            train=train)
+            train=train, sh=sh)
         z_e = z_e.float()
     else:
         z_e, enc_state = enc.encoder_forward(
             cfg.encoder, params["encoder"], enc_state0, x,
-            norm=cfg.encoder_norm, train=train)
+            norm=cfg.encoder_norm, train=train, sh=sh)
     aux = {"z_e": z_e, "state": {"encoder": enc_state}}
     if cfg.use_vq:
-        q = vq_mod.quantize(params["vq"], z_e, mode=cfg.vq_mode)
+        q = vq_mod.quantize(params["vq"], z_e, mode=cfg.vq_mode, sh=sh)
         z_q, e_k = q["z_q"], q["e_k"]
         aux.update(q_z_x=q["q_z_x"], perplexity=q["perplexity"], z_q=z_q,
                    e_k=e_k, distances_mean=q["distances_mean"])

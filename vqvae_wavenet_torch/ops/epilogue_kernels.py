@@ -32,6 +32,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from vqvae_wavenet_torch.ops import _build
 
@@ -159,7 +160,7 @@ def epilogue_forward_cuda(skip, w1, w2, b2, enc2, labels):
     part = torch.empty((lib.train_epilogue_fwd_part_floats(B, T),),
                        dtype=torch.float32, device=dev)
     total = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), record_function("train_epilogue_fwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_epilogue_fwd(
             _DTYPES[cd], B, T, T // F, S, Q, skip32.data_ptr(),
@@ -203,7 +204,7 @@ def epilogue_backward_cuda(g, skip, a1, probs, labels, w1, w2, frames: int,
     lib = _lib()
     part = torch.empty((lib.train_epilogue_bwd_part_floats(B, T, S, Q),),
                        dtype=f32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), record_function("train_epilogue_bwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_epilogue_bwd(
             _DTYPES[cd], B, T, T // frames, S, Q, g32.data_ptr(),

@@ -56,6 +56,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 import torch.nn.functional as F
 
 from vqvae_wavenet_torch.ops import _build
@@ -561,7 +562,8 @@ def _launch(w: GenWeights, lc: torch.Tensor, gcon, g_pp1, *, length: int,
                              dtype=torch.int64, device=dev)
     else:
         st_lo, st_n = 0, 0
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), record_function(
+            "gen_wavenet_int8" if q8 else "gen_wavenet"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gen_wavenet(
             _DTYPES[w.w_a.dtype], L, K, R, D, S, Q, C, PK, B, length, ratio,

@@ -58,6 +58,7 @@ import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from vqvae_wavenet_torch.ops import _build
 
@@ -361,7 +362,8 @@ def stack_forward_cuda(kernel, skipw, resw, res_b, lc_encb, x0,
             else None)
     dil = (ctypes.c_int * L)(*[int(d) for d in dils])
     lib = _fwd_lib()
-    with torch.cuda.device(dev):
+    name = "train_stack_fwd_sp" if start or with_xout else "train_stack_fwd"
+    with torch.cuda.device(dev), record_function(name):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_stack_fwd(
             _DTYPES[cd], L, K, R, D, S, B, T, T // F, start,
@@ -436,7 +438,8 @@ def stack_backward_cuda(dskip, act, xs, kernel, skipw, resw,
     part = torch.empty((lib.train_stack_bwd_part_floats(K, R, D, S, B, T),),
                        dtype=torch.float32, device=dev)
     dil = (ctypes.c_int * L)(*[int(d) for d in dils])
-    with torch.cuda.device(dev):
+    name = "train_stack_bwd_sp" if start or seed else "train_stack_bwd"
+    with torch.cuda.device(dev), record_function(name):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_stack_bwd(
             _DTYPES[cd], L, K, R, D, S, B, T, T // frames, start,
@@ -473,7 +476,7 @@ def stack_bwd_chain_cuda(dskip, act, xs, kernel, skipw, resw,
         (lib.train_stack_bwd_chain_part_floats(R, D, S, B, T),),
         dtype=torch.float32, device=dev)
     dil = (ctypes.c_int * L)(*[int(d) for d in dils])
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), record_function("train_stack_bwd_chain"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_stack_bwd_chain(
             _DTYPES[cd], L, K, R, D, S, B, T, T // frames,
@@ -508,7 +511,7 @@ def stack_dk_cuda(dpre_all, xs, dils: Sequence[int], K: int):
     part = torch.empty(
         (lib.train_stack_bwd_dk_part_floats(L, K, R, D2 // 2, B, T),),
         dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), record_function("train_stack_bwd_dk"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.train_stack_bwd_dk(
             _DTYPES[cd], L, K, R, D2 // 2, B, T, dil.data_ptr(),

@@ -11,6 +11,7 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from vqvae_wavenet_torch.ops import _build
 
@@ -78,7 +79,7 @@ def vq_nearest_cuda(z_flat: torch.Tensor,
     d4 = -(-d // 4) * 4
     z_flat, embedding = _aligned(z_flat, d4), _aligned(embedding, d4)
     lib = _lib()
-    with torch.cuda.device(z_flat.device):
+    with torch.cuda.device(z_flat.device), record_function("vq_argmin"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vq_argmin(z_flat.data_ptr(), embedding.data_ptr(), n, k, d4,
                             out.data_ptr(), stream)

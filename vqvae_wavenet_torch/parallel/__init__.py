@@ -1,17 +1,21 @@
-"""Rank layout and process launch for the port's sequence parallelism (SP,
-``parallel/timeshard.py``): N ranks, one process each, the time axis of
-every batch split into N contiguous shards.
+"""Rank layout and process launch for the port's parallel training: N
+ranks, one process each, every batch split into N contiguous shards along
+one axis -- time under sequence parallelism (SP, ``parallel/timeshard.py``)
+or the batch under data parallelism (DP, ``parallel/mesh.py``).
 
-Rank r runs on ``cuda:(r % device_count)`` (or the CPU).  The process
-group uses NCCL when every rank has a GPU of its own, and gloo otherwise:
-when ranks share a GPU (NCCL refuses two ranks on one device) and on the
-CPU.  Under gloo a CUDA tensor goes through host memory for every exchange
-(``Shards.staged``), so times taken with ranks sharing one GPU describe
-that layout, not SP scaling.
+The ranks may span several hosts (processes started on each host, joined
+at one ``tcp://HOST:PORT``): host h holds global ranks h * L .. h * L + L - 1
+of L * hosts.  A rank with local index l runs on ``cuda:(l %
+device_count)`` (or the CPU).  The process group uses NCCL when every rank
+of a host has a GPU of its own, and gloo otherwise: when ranks share a GPU
+(NCCL refuses two ranks on one device) and on the CPU.  Under gloo a CUDA
+tensor goes through host memory for every exchange (``Shards.staged``), so
+times taken with ranks sharing one GPU describe that layout, not scaling.
 
-``run_ranks`` spawns the ranks with the ``spawn`` start method (no CUDA
-state crosses into a child), gives each a ``Shards`` and returns what each
-rank's function returned, in rank order; a rank that raises makes it raise.
+``run_ranks`` spawns this host's ranks with the ``spawn`` start method (no
+CUDA state crosses into a child), gives each a ``Shards`` and returns what
+each rank's function returned, in rank order; a rank that raises makes it
+raise.
 """
 from __future__ import annotations
 
@@ -28,12 +32,27 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class Shards:
-    """This rank's place: ``rank`` of ``world`` time shards on ``device``,
-    talking over ``backend``."""
+    """This rank's place: ``rank`` of ``world`` shards (of the time axis
+    under SP, of the batch under DP) on ``device``, talking over
+    ``backend``; the ranks span ``hosts`` hosts, ``world // hosts`` on
+    each, host h holding ranks h * local_world .. (h + 1) * local_world - 1."""
     rank: int
     world: int
     device: torch.device
     backend: str
+    hosts: int = 1
+
+    @property
+    def local_world(self) -> int:
+        return self.world // self.hosts
+
+    @property
+    def host(self) -> int:
+        return self.rank // self.local_world
+
+    @property
+    def local_rank(self) -> int:
+        return self.rank % self.local_world
 
     @property
     def staged(self) -> bool:
@@ -47,10 +66,10 @@ def rank_device(rank: int, device_type: str) -> torch.device:
     return torch.device(device_type)
 
 
-def pick_backend(world: int, device_type: str) -> str:
-    """NCCL when each of the ``world`` ranks has a GPU of its own, else
-    gloo."""
-    if device_type == "cuda" and world <= torch.cuda.device_count():
+def pick_backend(local_world: int, device_type: str) -> str:
+    """NCCL when each of a host's ``local_world`` ranks has a GPU of its
+    own, else gloo."""
+    if device_type == "cuda" and local_world <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
 
@@ -62,17 +81,21 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def init_rank(rank: int, world: int, port: int, device_type: str) -> Shards:
-    """Join the process group at tcp://127.0.0.1:<port> as ``rank``."""
-    device = rank_device(rank, device_type)
-    backend = pick_backend(world, device_type)
+def init_rank(rank: int, world: int, init_method: str, device_type: str,
+              hosts: int = 1) -> Shards:
+    """Join the process group at ``init_method`` (tcp://HOST:PORT) as
+    global ``rank`` of ``world``, ``world // hosts`` ranks a host."""
+    local_world = world // hosts
+    device = rank_device(rank % local_world, device_type)
+    backend = pick_backend(local_world, device_type)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    else:       # the ranks share the host's cores: no oversubscription
-        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // world))
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+    elif local_world > 1:   # the ranks share the host's cores
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                                  // local_world))
+    dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank)
-    sh = Shards(rank, world, device, backend)
+    sh = Shards(rank, world, device, backend, hosts)
     # a first collective on every rank sets up the communicator before any
     # point-to-point exchange (NCCL wants all ranks in its first call)
     from vqvae_wavenet_torch.parallel.comm import all_reduce_
@@ -80,19 +103,33 @@ def init_rank(rank: int, world: int, port: int, device_type: str) -> Shards:
     return sh
 
 
-def _rank_entry(rank: int, fn, world: int, port: int, device_type: str,
-                args: tuple, results) -> None:
-    sh = init_rank(rank, world, port, device_type)
+def run_in_group(fn: Callable[..., Any], rank: int, world: int,
+                 init_method: str, device_type: str, *args, hosts: int = 1):
+    """Join the process group in this process, run ``fn(shards, *args)``
+    and leave the group (a host's only rank needs no spawned child)."""
+    sh = init_rank(rank, world, init_method, device_type, hosts)
     try:
-        results.put((rank, fn(sh, *args)))
+        return fn(sh, *args)
     finally:
         dist.destroy_process_group()
 
 
+def _rank_entry(local: int, fn, world: int, init_method: str,
+                device_type: str, hosts: int, host: int, args: tuple,
+                results) -> None:
+    rank = host * (world // hosts) + local
+    results.put((local, run_in_group(fn, rank, world, init_method,
+                                     device_type, *args, hosts=hosts)))
+
+
 def run_ranks(fn: Callable[..., Any], world: int, device_type: str, *args,
-              timeout: Optional[float] = None) -> List[Any]:
-    """Run ``fn(shards, *args)`` on ``world`` spawned ranks and return their
-    results in rank order.  ``fn`` must be importable by name (a module
+              timeout: Optional[float] = None, hosts: int = 1, host: int = 0,
+              init_method: Optional[str] = None) -> List[Any]:
+    """Run ``fn(shards, *args)`` on ``world`` spawned ranks of this host and
+    return their results in rank order.  With ``hosts`` > 1 this is host
+    ``host`` of a group of ``world * hosts`` ranks that meet at
+    ``init_method`` (every host calls run_ranks); alone, the ranks meet on
+    a free loopback port.  ``fn`` must be importable by name (a module
     level function) and return picklable values (numbers, numpy arrays, not
     tensors).  All CUDA use in the caller must come before this call or
     stay in the caller alone: the children start fresh.  After ``timeout``
@@ -100,9 +137,11 @@ def run_ranks(fn: Callable[..., Any], world: int, device_type: str, *args,
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
+    if init_method is None:
+        init_method = f"tcp://127.0.0.1:{free_port()}"
     procs = mp.start_processes(
-        _rank_entry, args=(fn, world, free_port(), device_type, args,
-                           results),
+        _rank_entry, args=(fn, world * hosts, init_method, device_type,
+                           hosts, host, args, results),
         nprocs=world, join=False, start_method="spawn")
     deadline = None if timeout is None else time.monotonic() + timeout
     got = {}

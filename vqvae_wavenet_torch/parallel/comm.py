@@ -16,6 +16,8 @@ value), so every exchange built from it is differentiable:
   pmean(x)                  mean over the ranks; its gradient is the mean
                             of the cotangents (the sum of the per-rank
                             shares of a loss, see timeshard.py)
+  sum_grads(grads)          the gradients summed over the ranks in f32, in
+                            one flat buffer (SP and DP steps alike)
 
 Tensors are [B, T_l, C] with time on axis 1.  Under gloo a CUDA tensor is
 staged through host memory (gloo moves CUDA tensors only for collectives,
@@ -142,3 +144,14 @@ class _AllReduceSum(torch.autograd.Function):
 def pmean(x: torch.Tensor, sh: Shards) -> torch.Tensor:
     """The mean of x over the ranks, differentiable."""
     return _AllReduceSum.apply(x, sh) / sh.world
+
+
+def sum_grads(grads: List[torch.Tensor], sh: Shards) -> List[torch.Tensor]:
+    """Each tensor summed over the ranks: one all-reduce of a float32 flat
+    buffer holding them all; returned in their shapes and types."""
+    flat = all_reduce_(torch.cat([g.reshape(-1).float() for g in grads]), sh)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
+        i += g.numel()
+    return out

@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae_wavenet_torch.models import vq as vq_mod
-from vqvae_wavenet_torch.models.encoders import EPS, MOMENTUM
+from vqvae_wavenet_torch.models.encoders import batch_norm
 from vqvae_wavenet_torch.models.vqvae import _cast, build_local_condition
 from vqvae_wavenet_torch.models.wavenet import wavenet_heads
 from vqvae_wavenet_torch.ops.conv import conv1d
@@ -56,7 +56,7 @@ from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
 from vqvae_wavenet_torch.ops.train_kernels import fused_residual_stack
 from vqvae_wavenet_torch.parallel import Shards
 from vqvae_wavenet_torch.parallel.comm import (
-    all_reduce_, exchange_both, left_halo, pmean, sharded_shift_right)
+    all_reduce_, exchange_both, left_halo, sharded_shift_right, sum_grads)
 from vqvae_wavenet_torch.training.optimizer import tree_leaves, tree_unflatten
 from vqvae_wavenet_torch.training.train_loop import _detach
 
@@ -123,24 +123,6 @@ def check_supported(cfg, length: int, world: int,
     return fused_sp_groups(cfg.wavenet, RATIO, length // world)[0]
 
 
-def _sync_batch_norm(params, state, x, sh: Shards, *, train: bool):
-    """Batch norm over (B, T) with the statistics averaged over the ranks,
-    f32 whatever x's type (timeshard.py:137-156)."""
-    xf = x.float()
-    if train:
-        mean = pmean(xf.mean(dim=(0, 1)), sh)
-        mean_sq = pmean((xf * xf).mean(dim=(0, 1)), sh)
-        var = mean_sq - mean * mean
-        new_state = {
-            "mean": MOMENTUM * state["mean"] + (1 - MOMENTUM) * mean.detach(),
-            "var": MOMENTUM * state["var"] + (1 - MOMENTUM) * var.detach()}
-    else:
-        mean, var, new_state = state["mean"], state["var"], state
-    inv = torch.rsqrt(var + EPS) * params["scale"].float()
-    out = (xf - mean) * inv + params["bias"].float()
-    return out.to(x.dtype), new_state
-
-
 def time_sharded_encoder_64(params, state, x_l, sh: Shards, *,
                             train: bool = True):
     """Encoder_64 on a time shard (timeshard.py:176-218): x_l [B, T_l, 1]
@@ -152,14 +134,14 @@ def time_sharded_encoder_64(params, state, x_l, sh: Shards, *,
     for i, conv in enumerate(params["convs"]):
         net = conv1d(exchange_both(net, 1, 3, sh), conv["kernel"],
                      conv["bias"], stride=2, padding="VALID")
-        net, s = _sync_batch_norm(params["bn"][i], state["bn"][i],
-                                  torch.relu(net), sh, train=train)
+        net, s = batch_norm(params["bn"][i], state["bn"][i],
+                            torch.relu(net), train=train, sh=sh)
         new_bn.append(s)
     net = conv1d(net, params["out"]["kernel"], params["out"]["bias"],
                  padding="VALID")
     i = len(params["convs"])
-    net, s = _sync_batch_norm(params["bn"][i], state["bn"][i], net, sh,
-                              train=train)
+    net, s = batch_norm(params["bn"][i], state["bn"][i], net, train=train,
+                        sh=sh)
     new_bn.append(s)
     return net, {"bn": new_bn}
 
@@ -231,15 +213,11 @@ def time_sharded_loss(params, state, cfg, x_l, y, sh: Shards, *,
         aux["state"]["vq"] = state["vq"]
     scalars = {}
     if cfg.use_vq:
-        q = vq_mod.quantize(params["vq"], z_e, mode=cfg.vq_mode)
+        # the perplexity and distances_mean of every rank's frames
+        q = vq_mod.quantize(params["vq"], z_e, mode=cfg.vq_mode, sh=sh)
         z_q, e_k = q["z_q"], q["e_k"]
-        k = params["vq"]["embedding"].shape[0]
-        counts = all_reduce_(torch.bincount(q["q_z_x"].reshape(-1),
-                                            minlength=k).float(), sh)
-        avg = counts / counts.sum()
-        aux["perplexity"] = torch.exp(-torch.sum(avg * torch.log(avg + 1e-10)))
-        # linear in the shard's means, so the mean over ranks is exact
-        scalars["distances_mean"] = q["distances_mean"]
+        aux["perplexity"] = q["perplexity"]
+        aux["distances_mean"] = q["distances_mean"]
     else:
         z_q = e_k = z_e
     lc = build_local_condition(params, cfg, z_q, y)
@@ -286,10 +264,4 @@ def sp_loss_and_grads(params, model_state, cfg, batch, sh: Shards, *,
         grads = torch.autograd.grad(share, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
-    # one sum over the ranks for every leaf at once
-    flat = all_reduce_(torch.cat([g.reshape(-1).float() for g in grads]), sh)
-    out, i = [], 0
-    for g in grads:
-        out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
-        i += g.numel()
-    return aux["loss"], _detach(aux), out
+    return aux["loss"], _detach(aux), sum_grads(grads, sh)

@@ -36,8 +36,13 @@ the generation kernel on CUDA in bf16 (its plain twin in f32 on the CPU,
 as the port's generate.py defaults); codes and decoder draw from numpy
 seed 0 (the JAX prior.py's fixed keys); it writes
 prior_<speaker>.wav (a repeated speaker gets _<index>) beside the prior.
-Only VCTK is ported (other datasets raise); multi-device data parallelism
-of the prior is not ported (ROADMAP.md queue A, DP).
+Only VCTK is ported (other datasets raise).  On a host with several GPUs
+training is data-parallel as the JAX prior's step over the 'data' axis
+(prior.py:239-253): gcd(-batch, GPU count) spawned ranks, each encoding and
+taking the NLL of its contiguous slice of the batch (read by rank 0 and
+broadcast), the gradients summed over the ranks before one identical
+update, the NLL, code perplexity and usage over the whole batch; rank 0
+alone prints and writes.
 """
 from __future__ import annotations
 
@@ -112,62 +117,139 @@ def main(argv=None):
     """Train the prior, or with -sample N sample from it.  Training returns
     {"nll", "code_perplexity" (at the printed steps), "step_seconds",
     "path", "step", "launches"} (per-step wall seconds end in a device
-    synchronise on CUDA); sampling returns {"audio", "paths", "codes",
-    "seconds", "gen_seconds", "samples", "launches"}."""
+    synchronise on CUDA; with several data ranks "launches" is a list with
+    one dict per rank and the rest rank 0's); sampling returns {"audio",
+    "paths", "codes", "seconds", "gen_seconds", "samples", "launches"}."""
     args = parse_args(argv)
-    from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.generate import resolve_device
-    from vqvae_wavenet_torch.models.prior import init_prior_params_np
-    from vqvae_wavenet_torch.ops.conv import set_full_f32
-    from vqvae_wavenet_torch.params import load_npz, to_torch
+    from vqvae_wavenet_torch.parallel import run_ranks
+    from vqvae_wavenet_torch.parallel.mesh import data_ranks
 
     if args.dataset != "VCTK":
         raise NotImplementedError(f"dataset {args.dataset}: the port's prior "
                                   f"reads VCTK only (ROADMAP.md queue A)")
     device = resolve_device(args.device)
-    set_full_f32()
+    cfg = _vqvae_config(args)
+    if args.sample > 0:
+        return _sample(args, cfg, _load_vqvae(args, device)[0],
+                       VCTK_SPEAKERS, device)
+    ranks = data_ranks(args.batch_size, device.type)
+    if ranks == 1:
+        return _train(args, device, None)
+    results = run_ranks(_rank, ranks, device.type, vars(args))
+    return dict(results[0], launches=[r["launches"] for r in results])
+
+
+def _rank(sh, args: dict):
+    """One data-parallel rank of prior training (spawned by run_ranks)."""
+    return _train(argparse.Namespace(**args), sh.device, sh)
+
+
+def _vqvae_config(args):
+    from vqvae_wavenet_torch.config import ModelConfig
     cfg = ModelConfig.from_json(args.parameter_path)
     if not cfg.use_vq or cfg.model_family != "vqvae":
         raise ValueError("a prior needs a VQ-VAE model (use_vq=true)")
-    vq_params, model_state = load_npz(args.restore_path, device)
-    if args.sample > 0:
-        num_speakers = VCTK_SPEAKERS
-        dataset = None
-    else:
-        from vqvae_wavenet_torch.data import DATASETS
-        dataset = DATASETS[args.dataset](
-            batch_size=args.batch_size, max_len=args.max_len,
-            relative_path=args.data_path, seed=0)
-        num_speakers = dataset.num_speakers
-    gc_dim = (cfg.speaker_embedding if cfg.speaker_embedding > 0
-              else num_speakers)
-    prior_init = to_torch(init_prior_params_np(cfg.k, gc_channels=gc_dim),
-                          device)
-    if args.sample > 0:
-        return _sample(args, cfg, vq_params, num_speakers, device)
-    return _train(args, cfg, vq_params, model_state, prior_init, dataset,
-                  device)
+    return cfg
 
 
-def _train(args, cfg, vq_params, model_state, prior_init, dataset, device):
+def _load_vqvae(args, device):
+    """The VQ-VAE's (params, model state) on ``device``, f32 math."""
+    from vqvae_wavenet_torch.ops.conv import set_full_f32
+    from vqvae_wavenet_torch.params import load_npz
+    set_full_f32()
+    return load_npz(args.restore_path, device)
+
+
+def prior_loss_and_grads(params, codes: torch.Tensor, h, *,
+                         bf16: bool = False, sh=None):
+    """(the mean code NLL, its gradients in tree_leaves(params) order,
+    zeros where the loss does not reach a parameter) of the prior on
+    ``codes`` [B, T_lat] with speaker vectors ``h``; under
+    ``bf16`` the parameters and h are cast to bfloat16 for the forward.
+    With ``sh`` (a data-parallel rank's codes, equal parts): each rank
+    backpropagates its share (local NLL / N), the gradients are summed over
+    the ranks in float32 and the NLL is the mean over the ranks -- the
+    single-device step on the whole batch (prior.py:239-253)."""
+    from vqvae_wavenet_torch.models.prior import prior_loss
+    from vqvae_wavenet_torch.models.vqvae import _cast
+    from vqvae_wavenet_torch.parallel.comm import all_reduce_, sum_grads
+    from vqvae_wavenet_torch.training.optimizer import (tree_leaves,
+                                                        tree_unflatten)
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    p = tree_unflatten(params, leaves)
+    with torch.enable_grad():
+        if bf16:
+            p = _cast(p, torch.bfloat16)
+            h = None if h is None else h.to(torch.bfloat16)
+        loss = prior_loss(p, codes, h)
+        grads = torch.autograd.grad(loss if sh is None else loss / sh.world,
+                                    leaves, allow_unused=True)
+    loss = loss.detach()
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    if sh is not None:
+        grads = sum_grads(grads, sh)
+        loss = all_reduce_(loss.reshape(1), sh)[0] / sh.world
+    return loss, grads
+
+
+def code_stats(codes: torch.Tensor, k: int, sh=None):
+    """(perplexity, usage) of the batch's empirical code distribution (the
+    prior's analogue of the VQ perplexity, prior.py:230-236), over every
+    rank's codes with ``sh``."""
+    from vqvae_wavenet_torch.parallel.comm import all_reduce_
+    counts = torch.bincount(codes.reshape(-1), minlength=k).float()
+    if sh is not None:
+        all_reduce_(counts, sh)
+    p = counts / counts.sum().clamp_min(1.0)
+    return (torch.exp(-torch.sum(p * torch.log(p + 1e-10))),
+            (p > 0).float().mean())
+
+
+def _train(args, device, sh):
+    """Prior training on one device (sh None) or as data-parallel rank
+    sh.rank: this rank's contiguous slice of every batch, which rank 0
+    reads and broadcasts; rank 0 alone prints and writes."""
+    from vqvae_wavenet_torch.data import DATASETS
     from vqvae_wavenet_torch.models import encoders as enc
     from vqvae_wavenet_torch.models import vq as vq_mod
-    from vqvae_wavenet_torch.models.prior import prior_loss
-    from vqvae_wavenet_torch.models.vqvae import _cast, speaker_vector
+    from vqvae_wavenet_torch.models.prior import init_prior_params_np
+    from vqvae_wavenet_torch.models.vqvae import speaker_vector
+    from vqvae_wavenet_torch.params import to_torch
+    from vqvae_wavenet_torch.parallel.mesh import (host_batch, rank_rows,
+                                                   replicate_)
     from vqvae_wavenet_torch.training.checkpoint import (
         restore_checkpoint, save_checkpoint)
     from vqvae_wavenet_torch.training.metrics import MetricWriter
-    from vqvae_wavenet_torch.training.optimizer import (
-        fused_adam_ema_step, tree_leaves, tree_unflatten)
+    from vqvae_wavenet_torch.training.optimizer import fused_adam_ema_step
     from vqvae_wavenet_torch.training.train_loop import (init_train_state,
                                                          to_device)
 
-    if args.prior_restore is not None:
+    lead = sh is None or sh.rank == 0
+    cfg = _vqvae_config(args)
+    vq_params, model_state = _load_vqvae(args, device)
+    dataset = DATASETS[args.dataset](
+        batch_size=args.batch_size, max_len=args.max_len,
+        relative_path=args.data_path, seed=0)
+    shapes = {"x": (args.batch_size, args.max_len, 1),
+              "y": (args.batch_size, 1, dataset.num_speakers)}
+    gc_dim = (cfg.speaker_embedding if cfg.speaker_embedding > 0
+              else dataset.num_speakers)
+    if args.prior_restore is not None and lead:
         ts = to_device(restore_checkpoint(args.prior_restore), device)
     else:
-        ts = init_train_state(prior_init, {})
+        ts = init_train_state(to_torch(init_prior_params_np(
+            cfg.k, gc_channels=gc_dim), device), {})
+    if args.prior_restore is not None and sh is not None:
+        ts = replicate_(ts, sh)
     gs = ts["step"]
-    print(f"[prior restore] last prior step: {gs}")
+    if lead:
+        print(f"[prior restore] last prior step: {gs}")
+        if sh is not None:
+            print(f"[dp] {sh.world} data ranks of "
+                  f"{args.batch_size // sh.world} clips, backend "
+                  f"{sh.backend}")
     lr = float(np.float32(args.lr))
     bf16 = args.train_dtype == "bf16"
 
@@ -179,68 +261,61 @@ def _train(args, cfg, vq_params, model_state, prior_init, dataset, device):
         q = vq_mod.quantize(vq_params["vq"], z_e, mode=cfg.vq_mode)
         return q["q_z_x"], speaker_vector(vq_params, cfg, y)
 
-    def loss_and_grads(params, codes, h):
-        leaves = [t.detach().requires_grad_(True)
-                  for t in tree_leaves(params)]
-        p = tree_unflatten(params, leaves)
-        with torch.enable_grad():
-            if bf16:
-                p = _cast(p, torch.bfloat16)
-                h = None if h is None else h.to(torch.bfloat16)
-            loss = prior_loss(p, codes, h)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), list(grads)
-
-    os.makedirs(args.save_path, exist_ok=True)
-    writer = MetricWriter(args.save_path)
+    writer = None
+    if lead:
+        os.makedirs(args.save_path, exist_ok=True)
+        writer = MetricWriter(args.save_path)
     log_every = args.log_every or 1
     nll, perplexity, step_seconds = [], [], []
     t_win, last_print = time.perf_counter(), 0
-    dataset.start()
+    path = None
+    if sh is None or sh.local_rank == 0:
+        dataset.start()
     try:
         for step in range(1, 1 + args.num_steps):
             t0 = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in dataset.next().items()}
+            batch = host_batch(dataset.next, shapes, device, sh)
+            if sh is not None:
+                batch = {k: rank_rows(v, sh) for k, v in batch.items()}
+            # the frozen encoder runs in inference mode: no statistics
             codes, h = encode_codes(batch["x"], batch["y"])
-            loss, grads = loss_and_grads(ts["params"], codes, h)
+            loss, grads = prior_loss_and_grads(ts["params"], codes, h,
+                                               bf16=bf16, sh=sh)
             params, ema, opt_state = fused_adam_ema_step(
                 ts["params"], ts["ema_params"], ts["opt_state"], grads,
                 lambda count: lr, ema_decay=args.ema_decay)
             ts = dict(ts, params=params, ema_params=ema, opt_state=opt_state,
                       step=ts["step"] + 1)
-            # code usage of the batch (the prior's analogue of the VQ
-            # perplexity): empirical distribution -> perplexity, fraction
-            p = torch.bincount(codes.reshape(-1), minlength=cfg.k).float() \
-                / codes.numel()
-            metrics = {"nll": loss,
-                       "code_perplexity": torch.exp(
-                           -torch.sum(p * torch.log(p + 1e-10))),
-                       "code_usage": (p > 0).float().mean()}
+            ppl, usage = code_stats(codes, cfg.k, sh)
+            metrics = {"nll": loss, "code_perplexity": ppl,
+                       "code_usage": usage}
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             step_seconds.append(time.perf_counter() - t0)
-            if (gs + step) % args.interval == 0:
+            if lead and (gs + step) % args.interval == 0:
                 writer.scalars(gs + step, {f"prior/{k}": v
                                            for k, v in metrics.items()})
                 writer.flush()
             if step % log_every == 0 or step == args.num_steps:
                 nll.append(float(loss))
-                perplexity.append(float(metrics["code_perplexity"]))
+                perplexity.append(float(ppl))
                 now = time.perf_counter()
                 t = (now - t_win) / (step - last_print)
                 t_win, last_print = now, step
-                print(f"\r[prior step {gs + step}] [nll {nll[-1]:.5f}] "
-                      f"[perplexity {float(metrics['code_perplexity']):.1f}]"
-                      f" [batch {t:.3f}s]", end="")
-                sys.stdout.flush()
-            if step % args.ckpt_interval == 0:
+                if lead:
+                    print(f"\r[prior step {gs + step}] [nll {nll[-1]:.5f}] "
+                          f"[perplexity {perplexity[-1]:.1f}] "
+                          f"[batch {t:.3f}s]", end="")
+                    sys.stdout.flush()
+            if lead and step % args.ckpt_interval == 0:
                 save_checkpoint(args.save_path, ts)
-        path = save_checkpoint(args.save_path, ts)
+        if lead:
+            path = save_checkpoint(args.save_path, ts)
+            print(f"\nsaved prior to {path}")
     finally:
         dataset.stop()
-        writer.close()
-    print(f"\nsaved prior to {path}")
+        if writer is not None:
+            writer.close()
     return {"nll": nll, "code_perplexity": perplexity,
             "step_seconds": step_seconds, "path": path, "step": ts["step"],
             "launches": _launch_counts()}

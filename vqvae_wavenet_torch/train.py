@@ -4,7 +4,8 @@ which keeps the reference's train.py:12-37, plus -device):
     python -m vqvae_wavenet_torch.train -dataset VCTK -length 6656 -batch 8 \
         -step 100000 -save saved_model/weights [-restore saved_model/weights-N] \
         [-interval 200] [-params model_parameters.json] [-device cuda|cpu] \
-        [-time_shards N [-decoder_halo auto|fused]]
+        [-time_shards N [-decoder_halo auto|fused]] [-profile DIR] \
+        [-coordinator HOST:PORT -num_processes P -process_id h]
 
 One step is vqvae_forward (with -params magenta_parameters.json, the
 Magenta family's magenta_forward) + autograd (the stack, loss-head and VQ
@@ -21,17 +22,36 @@ steps and at the end (training/checkpoint.py; the port's generate.py
 restores it).  The initial weights and the crop sampler draw from numpy
 seed 0.
 
--time_shards N trains sequence-parallel (parallel/timeshard.py): N ranks
-are spawned, rank r on cuda:(r % device_count) (or the CPU), each with its
-time slice of every batch, which rank 0 reads and broadcasts; the stack
-kernels run per dilation cycle on halo-extended shards (their SP variants)
-and the gradients are summed over the ranks before the update.  Rank 0
-alone prints, writes metrics.jsonl and the checkpoints, which are the
-single-device format.  -decoder_halo auto is 'fused' on every device
-('layer' and 'recompute' are not ported); SP of the Magenta family is not
-ported and raises.  -coordinator, -num_processes,
--process_id, -loader native and -profile belong to parts that are not
-ported yet and raise.
+On a host with several GPUs the step is data-parallel, as JAX's
+train.py:113-125 shards the batch: gcd(-batch, GPU count) ranks are
+spawned, rank l on cuda:l with rows l*B/N .. (l+1)*B/N - 1 of every batch,
+which the host's first rank reads and broadcasts; the batch norms, the VQ
+statistics (and the EMA codebook's) and the loss means span every rank,
+and the gradients are summed over the ranks before one identical update on
+each (training/train_loop.py::dp_loss_and_grads).  -coordinator HOST:PORT
+-num_processes P -process_id h (given together, one process a host) join
+P hosts into one group at tcp://HOST:PORT, global rank = h * local ranks +
+local rank; -batch is per process (the global batch is -batch * P), and
+host h draws its crops from numpy seed h.  Rank 0 alone prints, writes
+metrics.jsonl and the checkpoints, which are the single-device format; a
+restored state is rank 0's, broadcast.
+
+-time_shards N trains sequence-parallel (parallel/timeshard.py) instead:
+N ranks are spawned, rank r on cuda:(r % device_count) (or the CPU), each
+with its time slice of every batch, which rank 0 reads and broadcasts; the
+stack kernels run per dilation cycle on halo-extended shards (their SP
+variants) and the gradients are summed over the ranks before the update.
+The batch is not split then (data = 1: the data x time mesh of JAX's
+train.py:139-152 is not ported, nor SP across hosts).  -decoder_halo auto
+is 'fused' on every device ('layer' and 'recompute' are not ported); SP of
+the Magenta family is not ported and raises.  -loader native is not
+ported and raises.
+
+-profile DIR traces steps 10-14 with torch.profiler (host and, on CUDA,
+device activity; rank 0 only) and writes DIR/trace.json (Chrome trace);
+every step runs in a "train_step" range, its gradients in
+"loss_and_grads", its update in "optimizer", and each CUDA kernel's launch
+in a range named after its counter (ops/*_kernels.py).
 """
 from __future__ import annotations
 
@@ -72,16 +92,16 @@ def parse_args(argv=None):
     parser.add_argument("-ckpt_interval", default=2000, type=int,
                         help="steps between checkpoints")
     parser.add_argument("-profile", default=None, metavar="DIR",
-                        help="not ported (ROADMAP.md queue A)")
+                        help="trace steps 10-14 with torch.profiler into "
+                             "DIR/trace.json")
     parser.add_argument("-coordinator", default=None, metavar="HOST:PORT",
-                        help="multi-host training: not ported (ROADMAP.md "
-                             "queue A, DP)")
+                        help="multi-host training: the address every host's "
+                             "process meets at")
     parser.add_argument("-num_processes", default=None, type=int,
-                        help="multi-host training: not ported (ROADMAP.md "
-                             "queue A, DP)")
+                        help="multi-host training: the number of hosts "
+                             "(one process each)")
     parser.add_argument("-process_id", default=None, type=int,
-                        help="multi-host training: not ported (ROADMAP.md "
-                             "queue A, DP)")
+                        help="multi-host training: this host's index")
     parser.add_argument("-log_every", default=1, type=int, metavar="N",
                         help="print the progress line every N steps")
     parser.add_argument("-loader", default="auto",
@@ -94,7 +114,8 @@ def parse_args(argv=None):
     parser.add_argument("-time_shards", default=1, type=int, metavar="N",
                         help="sequence parallelism: split the time axis of "
                              "every batch over N spawned ranks (-length/N a "
-                             "multiple of 64)")
+                             "multiple of 64); the batch is then not split "
+                             "(the data x time mesh is not ported)")
     parser.add_argument("-decoder_halo", default="auto",
                         choices=["auto", "fused", "layer", "recompute"],
                         help="SP decoder scheme: 'fused' (= 'auto') runs "
@@ -111,43 +132,69 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(f"-decoder_halo {args.decoder_halo} is not "
                                   f"ported (only 'fused'): ROADMAP.md queue "
                                   f"A, SP")
-    if args.coordinator is not None or args.num_processes not in (None, 1) \
-            or args.process_id not in (None, 0):
-        raise NotImplementedError("-coordinator, -num_processes and "
-                                  "-process_id (multi-host training) are not "
-                                  "ported yet: ROADMAP.md queue A, DP")
     if args.loader == "native":
         raise NotImplementedError("-loader native (the C++ loader) is not "
                                   "ported yet: ROADMAP.md queue A")
-    if args.profile is not None:
-        raise NotImplementedError("-profile is not ported yet: ROADMAP.md "
-                                  "queue A")
+
+
+def _hosts(args):
+    """(hosts, this host's index, the group's address or None) from the
+    multi-host flags, which go together."""
+    given = (args.coordinator, args.num_processes, args.process_id)
+    if given == (None, None, None):
+        return 1, 0, None
+    if None in given:
+        raise ValueError("-coordinator HOST:PORT, -num_processes P and "
+                         "-process_id h go together (multi-host training)")
+    if not 0 <= args.process_id < args.num_processes:
+        raise ValueError(f"-process_id {args.process_id} is not one of "
+                         f"{args.num_processes} processes")
+    return args.num_processes, args.process_id, f"tcp://{args.coordinator}"
 
 
 def main(argv=None):
-    """Train; returns {"losses", "step_seconds", "path", "step",
+    """Train; returns {"losses", "step_seconds", "path", "step", "trace",
     "launches"} (the per-step wall seconds end in a device synchronise on
-    CUDA; "launches" holds the kernels' launch counts, under -time_shards a
-    list with one dict per rank and the other keys rank 0's)."""
+    CUDA; "trace" is the -profile trace's path or None; "launches" holds
+    the kernels' launch counts, with several ranks a list with one dict
+    per rank of this host and the other keys this host's first rank's)."""
     args = parse_args(argv)
     _refuse_unported(args)
+    hosts, host, init = _hosts(args)
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.generate import resolve_device
+    from vqvae_wavenet_torch.parallel import run_in_group, run_ranks
+    from vqvae_wavenet_torch.parallel.mesh import data_ranks
     device = resolve_device(args.device)
     cfg = ModelConfig.from_json(args.parameter_path)
     check_length(cfg, args.max_len)
-    if args.time_shards == 1:
-        return _train(args, device, None)
-    from vqvae_wavenet_torch.parallel import run_ranks
-    from vqvae_wavenet_torch.parallel.timeshard import check_supported
-    check_supported(cfg, args.max_len, args.time_shards, args.decoder_halo)
-    results = run_ranks(_sp_rank, args.time_shards, device.type, vars(args))
+    if args.time_shards > 1:
+        if hosts > 1:
+            raise NotImplementedError(
+                "-time_shards across hosts (the data x time mesh of "
+                "train.py:139-152) is not ported: ROADMAP.md queue A, SP")
+        from vqvae_wavenet_torch.parallel.timeshard import check_supported
+        check_supported(cfg, args.max_len, args.time_shards,
+                        args.decoder_halo)
+        results = run_ranks(_rank, args.time_shards, device.type, vars(args),
+                            "time")
+    else:
+        local = data_ranks(args.batch_size, device.type)
+        if local * hosts == 1:
+            return _train(args, device, None)
+        if local == 1:      # this host's one rank: no child to spawn
+            results = [run_in_group(_rank, host, hosts, init, device.type,
+                                    vars(args), "data", hosts=hosts)]
+        else:
+            results = run_ranks(_rank, local, device.type, vars(args), "data",
+                                hosts=hosts, host=host, init_method=init)
     return dict(results[0], launches=[r["launches"] for r in results])
 
 
-def _sp_rank(sh, args: dict):
-    """One rank of a -time_shards run (spawned by run_ranks)."""
-    return _train(argparse.Namespace(**args), sh.device, sh)
+def _rank(sh, args: dict, axis: str):
+    """One rank of a parallel run (spawned by run_ranks, or this host's
+    only one): ``axis`` "time" under -time_shards, else "data"."""
+    return _train(argparse.Namespace(**args), sh.device, sh, axis)
 
 
 def _launch_counts() -> dict:
@@ -164,44 +211,55 @@ def _launch_counts() -> dict:
             "train_epilogue_bwd": epilogue_kernels.bwd_launches}
 
 
-def _train(args, device: torch.device, sh):
+PROFILE_STEPS = (10, 15)     # -profile traces steps 10-14 (train.py:210-219)
+
+
+def _train(args, device: torch.device, sh, axis: str = "data"):
     """The training loop on one device (sh None) or as rank sh.rank of a
-    sequence-parallel run."""
+    data-parallel (``axis`` "data") or sequence-parallel ("time") run."""
+    from torch.profiler import record_function
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.data import DATASETS
     from vqvae_wavenet_torch.ops.conv import set_full_f32
     from vqvae_wavenet_torch.params import random_params_np, to_torch
+    from vqvae_wavenet_torch.parallel.mesh import (host_batch, rank_rows,
+                                                   replicate_)
     from vqvae_wavenet_torch.training.checkpoint import (
         restore_checkpoint, save_checkpoint)
     from vqvae_wavenet_torch.training.metrics import MetricWriter, display_time
     from vqvae_wavenet_torch.training.train_loop import (
-        init_train_state, to_device, train_step)
+        dp_loss_and_grads, init_train_state, to_device, train_step)
 
     set_full_f32()
     lead = sh is None or sh.rank == 0
     if args.dataset not in DATASETS:
         raise NotImplementedError(f"dataset {args.dataset} not implemented")
+    # each host's first rank reads that host's batches, from its own seed
     dataset = DATASETS[args.dataset](
         batch_size=args.batch_size, max_len=args.max_len,
-        relative_path=args.data_path, seed=SEED,
+        relative_path=args.data_path, seed=SEED + (sh.host if sh else 0),
         trim_silence=args.trim_silence)
-    if lead:
+    if sh is None or sh.local_rank == 0:
         dataset.start()
+    shapes = {"x": (args.batch_size, args.max_len, 1),
+              "y": (args.batch_size, 1, dataset.num_speakers)}
     cfg = ModelConfig.from_json(args.parameter_path)
     if cfg.verbose and lead:
         print("wavenet receptive_field:", cfg.wavenet.receptive_field)
-    if args.restore_path is not None:
+    if args.restore_path is not None and lead:
         ts = to_device(restore_checkpoint(args.restore_path), device)
     else:
         params, state = random_params_np(cfg, dataset.num_speakers,
                                          seed=SEED)
         ts = init_train_state(to_torch(params, device),
                               to_torch(state, device))
+    if args.restore_path is not None and sh is not None:
+        ts = replicate_(ts, sh)
     gs = ts["step"]
     if sh is None:
         def step_fn(ts, batch):
             return train_step(ts, batch, cfg)
-    else:
+    elif axis == "time":
         from vqvae_wavenet_torch.parallel.timeshard import sp_loss_and_grads
         t_l = args.max_len // sh.world
         grads_fn = functools.partial(sp_loss_and_grads, sh=sh,
@@ -211,13 +269,24 @@ def _train(args, device: torch.device, sh):
             x_l = batch["x"][:, sh.rank * t_l:(sh.rank + 1) * t_l]
             return train_step(ts, {"x": x_l.contiguous(), "y": batch["y"]},
                               cfg, grads_fn=grads_fn)
+    else:
+        grads_fn = functools.partial(dp_loss_and_grads, sh=sh)
+
+        def step_fn(ts, batch):
+            return train_step(ts, {k: rank_rows(v, sh)
+                                   for k, v in batch.items()},
+                              cfg, grads_fn=grads_fn, sh=sh)
     if lead:
         print(f"[restore] last global step: {gs}")
-        if sh is not None:
+        staged = (", ranks share a GPU: exchanges staged through host "
+                  "memory" if sh is not None and sh.staged else "")
+        if sh is not None and axis == "time":
             print(f"[sp] {sh.world} time shards of {args.max_len // sh.world}"
-                  f" samples, backend {sh.backend}"
-                  + (", ranks share a GPU: halos and gradients staged "
-                     "through host memory" if sh.staged else ""))
+                  f" samples, backend {sh.backend}{staged}")
+        elif sh is not None:
+            print(f"[dp] {sh.world} data ranks ({sh.hosts} host(s)) of "
+                  f"{args.batch_size // sh.local_world} clips, backend "
+                  f"{sh.backend}{staged}")
 
     save_dir = os.path.dirname(args.save_path) or "."
     writer = None
@@ -226,14 +295,20 @@ def _train(args, device: torch.device, sh):
         writer = MetricWriter(save_dir)
     losses, step_seconds = [], []
     t_win, last_print = time.perf_counter(), 0
-    path = None
+    path = trace = prof = None
     try:
         for step in range(1, 1 + args.num_steps):
+            if args.profile and lead and step == PROFILE_STEPS[0]:
+                prof = _start_profile(device)
+            elif prof is not None and step == PROFILE_STEPS[1]:
+                trace = _stop_profile(prof, args.profile, device, step - 1)
+                prof = None
             t0 = time.perf_counter()
-            batch = _next_batch(dataset, args, device, sh, lead)
-            ts, metrics = step_fn(ts, batch)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with record_function("train_step"):
+                batch = host_batch(dataset.next, shapes, device, sh)
+                ts, metrics = step_fn(ts, batch)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
             step_seconds.append(time.perf_counter() - t0)
             if lead and (gs + step) % args.interval == 0:
                 writer.scalars(gs + step, metrics)
@@ -255,15 +330,44 @@ def _train(args, device: torch.device, sh):
                     sys.stdout.flush()
             if lead and step % args.ckpt_interval == 0:
                 save_checkpoint(save_dir, ts)
+        if prof is not None:
+            trace = _stop_profile(prof, args.profile, device, args.num_steps)
+            prof = None
         if lead:
             path = save_checkpoint(save_dir, ts)
             print(f"\nsaved {path}")
     finally:
+        if prof is not None:
+            prof.stop()
         dataset.stop()
         if writer is not None:
             writer.close()
     return {"losses": losses, "step_seconds": step_seconds, "path": path,
-            "step": ts["step"], "launches": _launch_counts()}
+            "step": ts["step"], "trace": trace, "launches": _launch_counts()}
+
+
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, out_dir: str, device: torch.device, last: int) -> str:
+    """Stop the trace after the device has finished and write it as
+    out_dir/trace.json; returns its path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"\n[profile] steps {PROFILE_STEPS[0]}-{last} traced to {path}")
+    return path
 
 
 def check_length(cfg, length: int) -> None:
@@ -279,24 +383,6 @@ def check_length(cfg, length: int) -> None:
             f"-length {length} is not a multiple of {rate}, the samples a "
             f"latent frame of encoder {cfg.encoder!r}: its frames would not "
             f"divide the clip (Encoder_2019 trains at e.g. -length 6400)")
-
-
-def _next_batch(dataset, args, device, sh, lead: bool):
-    """The next batch on ``device``: read here, or under SP read by rank 0
-    and broadcast to every rank."""
-    if lead:
-        batch = {k: torch.from_numpy(v).to(device) for k, v in
-                 dataset.next().items()}
-    else:
-        batch = {"x": torch.empty((args.batch_size, args.max_len, 1),
-                                  device=device),
-                 "y": torch.empty((args.batch_size, 1, dataset.num_speakers),
-                                  device=device)}
-    if sh is not None:
-        from vqvae_wavenet_torch.parallel.comm import broadcast_
-        for k in sorted(batch):
-            broadcast_(batch[k], sh)
-    return batch
 
 
 if __name__ == "__main__":

@@ -23,10 +23,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from vqvae_wavenet_torch.models import vq as vq_mod
 from vqvae_wavenet_torch.models.magenta import magenta_forward
 from vqvae_wavenet_torch.models.vqvae import vqvae_forward
+from vqvae_wavenet_torch.parallel.comm import all_reduce_, sum_grads
 from vqvae_wavenet_torch.training.optimizer import (
     ema_update, fused_adam_ema_step, piecewise_constant_schedule,
     tree_leaves, tree_unflatten)
@@ -61,43 +63,85 @@ def _detach(tree):
     return tree.detach()
 
 
+def _forward(params, model_state, cfg, batch, sh=None):
+    if cfg.model_family == "magenta":
+        return magenta_forward(params, batch["x"], batch["y"],
+                               train_dtype=cfg.train_dtype, sh=sh)
+    return vqvae_forward(params, model_state, cfg, batch["x"],
+                         batch.get("y"), train=True, sh=sh)
+
+
 def loss_and_grads(params, model_state, cfg, batch):
     """(loss, aux, grads): grads is a list in tree_leaves(params) order,
     None where the loss does not reach a parameter."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     p = tree_unflatten(params, leaves)
     with torch.enable_grad():
-        if cfg.model_family == "magenta":
-            loss, aux = magenta_forward(p, batch["x"], batch["y"],
-                                        train_dtype=cfg.train_dtype)
-        else:
-            loss, aux = vqvae_forward(p, model_state, cfg, batch["x"],
-                                      batch.get("y"), train=True)
+        loss, aux = _forward(p, model_state, cfg, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), _detach(aux), list(grads)
 
 
+# the batch means averaged over data-parallel ranks (the rest of the
+# metrics are global already, or do not depend on the batch)
+_RANK_MEANS = ("loss", "reconstruction_loss", "vq_loss", "commitment_loss")
+
+
+def dp_loss_and_grads(params, model_state, cfg, batch, sh):
+    """loss_and_grads under data parallelism (DP): batch is this rank's
+    contiguous slice of the global batch (parallel/mesh.py), every slice
+    of one size.  Each rank backpropagates its SHARE of the global loss,
+    its local loss / N; the batch norms' statistics and the VQ statistics
+    span every rank (``sh``), and the gradients are summed over the ranks
+    in float32 in one flat buffer: the gradient of the mean of the local
+    losses, which is the single-device loss on the global batch
+    (train_loop.py:143-176 with a mesh: one program over the 'data' axis).
+    Returns (the global loss, aux with the batch means averaged over the
+    ranks, grads), the same on every rank; ``train_step(..., grads_fn=
+    functools.partial(dp_loss_and_grads, sh=sh), sh=sh)`` is the DP step."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    p = tree_unflatten(params, leaves)
+    with torch.enable_grad():
+        loss, aux = _forward(p, model_state, cfg, batch, sh)
+        grads = torch.autograd.grad(loss / sh.world, leaves,
+                                    allow_unused=True)
+    grads = sum_grads([torch.zeros_like(t) if g is None else g
+                       for t, g in zip(leaves, grads)], sh)
+    aux = dict(_detach(aux), loss=loss.detach())
+    names = [n for n in _RANK_MEANS if n in aux]
+    means = all_reduce_(torch.stack([aux[n].float() for n in names]),
+                        sh) / sh.world
+    aux.update({n: means[i] for i, n in enumerate(names)})
+    return aux["loss"], aux, grads
+
+
 def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
-               grads_fn=loss_and_grads):
+               grads_fn=loss_and_grads, sh=None):
     """One optimizer step.  batch = {"x": [B, T, 1], "y": [B, 1, S] or
     None} on the parameters' device.  Returns (new train state, metrics);
     the metrics are 0-d tensors (no host sync here) except the ints.
     ``grads_fn(params, model_state, cfg, batch)`` gives (loss, aux, grads):
-    ``loss_and_grads`` here, the sequence-parallel one under -time_shards
-    (parallel/timeshard.py)."""
+    ``loss_and_grads`` here, ``dp_loss_and_grads`` under data parallelism,
+    the sequence-parallel one under -time_shards (parallel/timeshard.py).
+    ``sh``: a data-parallel rank's place, over whose ranks the EMA
+    codebook's statistics are summed.  The gradients and the update run in
+    the profiler ranges "loss_and_grads" and "optimizer"."""
     schedule = piecewise_constant_schedule(cfg.learning_rate_schedule)
-    loss, aux, grads = grads_fn(ts["params"], ts["model_state"], cfg, batch)
-    params, ema_params, opt_state = fused_adam_ema_step(
-        ts["params"], ts["ema_params"], ts["opt_state"], grads, schedule,
-        b1=0.5 if cfg.model_family == "magenta" else 0.9,
-        ema_decay=ema_decay)
+    with record_function("loss_and_grads"):
+        loss, aux, grads = grads_fn(ts["params"], ts["model_state"], cfg,
+                                    batch)
+    with record_function("optimizer"):
+        params, ema_params, opt_state = fused_adam_ema_step(
+            ts["params"], ts["ema_params"], ts["opt_state"], grads,
+            schedule, b1=0.5 if cfg.model_family == "magenta" else 0.9,
+            ema_decay=ema_decay)
     model_state = aux.get("state", ts["model_state"])
     if cfg.use_vq and cfg.vq_mode == "ema":
-        with torch.no_grad():
+        with torch.no_grad(), record_function("optimizer"):
             new_vq, new_vq_state = vq_mod.ema_codebook_update(
                 {"embedding": params["vq"]["embedding"]},
                 ts["model_state"]["vq"], aux["z_e"], aux["q_z_x"],
-                decay=cfg.ema_decay)
+                decay=cfg.ema_decay, sh=sh)
             ema_params = dict(ema_params, vq=ema_update(
                 ts["ema_params"]["vq"], new_vq, ema_decay))
         params = dict(params, vq=new_vq)
