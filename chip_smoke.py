@@ -54,7 +54,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              offset, stream output, dX seed) against their plain twins on
              one dilation cycle of the 2-rank shape (B=8, T_ext=5,376 =
              3,328 + a 2,048-row halo, 84 frames), start 0 and 2,048, f32
-             and bf16; times beside the plain kernels' on the same shape;
+             and bf16, and at the Magenta cycle with a global condition and
+             sigmoid_first (T_ext 4,352) and Encoder_2019's shard (T_ext
+             5,440, 64 mod 128, 320-row frames); times beside the plain
+             kernels' on the first shape;
   12. sp-train  sequence-parallel training: the 2-rank SP loss and
              gradients (spawned ranks, run_ranks) against the single-device
              port's loss_and_grads on one fixed batch and weights at B=8 x
@@ -106,7 +109,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              cards, the sharded call over every card timed warm beside one
              card's, and DP training over NCCL at 2 ranks and at the card
              count (steps/s).
-  18. profile  the training CLI in bf16 at B=8 x 6656 for 16 steps with
+  18. sp-mesh  the rest of sequence parallelism against the single-device
+             step at B=8: the data 2 x time 2 mesh (4 ranks), the 'layer'
+             and 'recompute' decoder halos, the Magenta family's preset,
+             Encoder_Magenta, Encoder_2019 (bf16, f32 encoder), group norm
+             and the EMA codebook on 2 ranks, every rank's kernel launches;
+             then the training CLI with -time_shards 2 on the Magenta preset
+             (and generate from its checkpoint) and with -decoder_halo
+             layer; with four cards the mesh runs over NCCL and the CLI
+             on every card (steps/s).
+  19. profile  the training CLI in bf16 at B=8 x 6656 for 16 steps with
              -profile: the trace of steps 10-14 read back into device ms a
              step by port kernel, cuBLAS/cuDNN, elementwise and other
              kernels, the optimizer's kernels and copies, the device's
@@ -169,6 +181,14 @@ VQ_TIE_REL = 1e-5
 GREEDY_TIE = 1e-4
 TRAIN_TOL = {"f32": 1e-3, "bf16": 2e-2}
 SP_SEED = 7
+# the SP phases' cases: name -> (model_parameters.json overrides, or None
+# for the Magenta family's magenta_parameters.json; samples a clip)
+MESH_CASES = {"shipped": ({}, 6656),
+              "magenta_enc": ({"encoder": "Magenta"}, 6656),
+              "2019": ({"encoder": "2019"}, 6400),
+              "group": ({"encoder_norm": "group"}, 6656),
+              "ema": ({"vq_mode": "ema"}, 6656),
+              "magenta": (None, 6656)}
 
 
 def log(msg: str) -> None:
@@ -1534,14 +1554,21 @@ def phase_train_e2e(card: str):
 
 def _magenta_config(dtype: str) -> str:
     """build/chip_smoke/magenta_<dtype>.json: magenta_parameters.json with
-    "train_dtype": dtype."""
+    "train_dtype": dtype (written once; ranks read the parent's file)."""
     path = os.path.join(OUT, f"magenta_{dtype}.json")
-    with open(os.path.join(REPO, "magenta_parameters.json")) as f:
-        mp = json.load(f)
-    os.makedirs(OUT, exist_ok=True)
-    with open(path, "w") as f:
-        json.dump(dict(mp, train_dtype=dtype), f)
+    if not os.path.exists(path):
+        with open(os.path.join(REPO, "magenta_parameters.json")) as f:
+            mp = json.load(f)
+        _write_json(path, dict(mp, train_dtype=dtype))
     return path
+
+
+def _write_json(path: str, obj) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
 
 
 def _magenta_fixed_batch_check(card: str):
@@ -1671,54 +1698,84 @@ def phase_magenta_train(card: str):
     return launches
 
 
+def _sp_variant_check(tag, dtype, w, x0, dskip, dxout, dils, F, start,
+                      gate="tanh_first"):
+    """The SP variants at ``start`` with the stream output and the dX
+    seed against their plain twins (tolerances as in [train-stack]); rows
+    before the start must be exactly zero in skip, act, xout and dx0.
+    Returns (forward error, backward error)."""
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    kw = dict(dils=dils, gate_order=gate, start=start, with_xout=True)
+    fk = tk.stack_forward_cuda(*w, x0, **kw)
+    fp = tk.stack_forward_plain(*w, x0, **kw)
+    for name, a in zip(("skip_sum", "act", "xs", "xout"), fk):
+        head = a[:, :, :start] if a.dim() == 4 else a[:, :start]
+        if name == "xs":
+            head = head[1:]               # xs[0] = x0 as given
+        if head.numel() and not bool((head == 0).all()):
+            raise AssertionError(f"{tag} {dtype}: {name} rows before start "
+                                 f"{start} not zero")
+    f_err = _check_leaves(f"{tag} fwd start={start}", dtype, {
+        "skip_sum": (fk[0][:, start:], fp[0][:, start:]),
+        "xout": (fk[3][:, start:], fp[3][:, start:]),
+        "act[0]": (fk[1][0], fp[1][0])})
+    del fp
+    bargs = (dskip, fk[1], fk[2], w[0], w[1], w[2])
+    bkw = dict(gate_order=gate, start=start, dxout=dxout)
+    gk = tk.stack_backward_cuda(*bargs, dils, F, **bkw)
+    gp = tk.stack_backward_plain(*bargs, dils, F, **bkw)
+    if start and not bool((gk[5][:, :start] == 0).all()):
+        raise AssertionError(f"{tag} {dtype}: dx0 rows before start {start} "
+                             f"not zero")
+    b_err = _check_leaves(f"{tag} bwd start={start}", dtype, dict(
+        zip(("dk", "dsk", "drs", "drb", "dlc", "dx0"), zip(gk, gp))))
+    return f_err, b_err
+
+
+def _dxout(x0, seed: int):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(x0.shape, generator=g) * 1e-3).to("cuda", x0.dtype)
+
+
 def phase_sp_stack(card: str):
-    """The stack kernels' SP variants against their plain twins on one
-    dilation cycle (layers 0-9, dilations 1-512) of the 2-rank shape:
-    B=8, T_ext = 3,328 + 2,048 = 5,376 rows, 84 frames; start 0 (rank 1)
-    and 2,048 (rank 0), the stream output and a random dxout; f32 and bf16,
-    tanh_first.  Tolerances as in [train-stack].  Rows before the start
-    must be exactly zero in skip, act, xout and dx0.  Times (bf16 and f32,
-    start 0: every row is needed) beside the plain kernels' on the same
-    shape.  Returns the JSON fields of both (bf16)."""
+    """The stack kernels' SP variants against their plain twins
+    (_sp_variant_check) on one dilation cycle (layers 0-9, dilations
+    1-512) of the 2-rank shape: B=8, T_ext = 3,328 + 2,048 = 5,376 rows,
+    84 frames; start 0 (rank 1) and 2,048 (rank 0), the stream output and
+    a random dxout; f32 and bf16, tanh_first.  Then the shapes of the
+    other SP paths, f32 and bf16: one cycle of the Magenta preset (K=2,
+    R=D=256, S=512, a global condition folded into every layer,
+    sigmoid_first) on its 2-rank shard, T_ext = 3,328 + 1,024 = 4,352, 68
+    frames, start 0 and 1,024; and the shipped cycle on Encoder_2019's
+    2-rank shard, T_ext = 3,200 + 2,240 = 5,440 rows (T_ext % 128 = 64),
+    17 frames of 320 rows, start 0 and 2,240.  Times (bf16 and f32, start
+    0: every row is needed) beside the plain kernels' on the first shape.
+    Returns the JSON fields of both (bf16)."""
     from vqvae_wavenet_torch.ops import train_kernels as tk
     B, T, F, lg = 8, 5376, 84, 10
     out = {}
     for dtype in ("f32", "bf16"):
+        for tag, (T2, F2, start2, gate, params_json) in (
+                ("sp-stack magenta", (4352, 68, 1024, "sigmoid_first",
+                                      "magenta_parameters.json")),
+                ("sp-stack 2019", (5440, 17, 2240, "tanh_first",
+                                   "model_parameters.json"))):
+            cfg, w, x0, dskip = _stack_inputs(
+                B, T2, F2, dtype, gate == "sigmoid_first", seed=13,
+                params_json=params_json)
+            w = [t[:lg].contiguous() for t in w]
+            dils = tuple(cfg.wavenet.dilation_rates[:lg])
+            for start in (0, start2):
+                _sp_variant_check(tag, dtype, w, x0, dskip, _dxout(x0, 14),
+                                  dils, F2, start, gate)
+            del w, x0, dskip
         cfg, w, x0, dskip = _stack_inputs(B, T, F, dtype, False, seed=11)
         w = [t[:lg].contiguous() for t in w]
         dils = tuple(cfg.wavenet.dilation_rates[:lg])
-        g = torch.Generator(device="cpu").manual_seed(12)
-        dxout = (torch.randn(x0.shape, generator=g) * 1e-3).to("cuda",
-                                                                x0.dtype)
-        errs = {}
-        for start in (0, 2048):
-            kw = dict(dils=dils, start=start, with_xout=True)
-            fk = tk.stack_forward_cuda(*w, x0, **kw)
-            fp = tk.stack_forward_plain(*w, x0, **kw)
-            names = ("skip_sum", "act", "xs", "xout")
-            for name, a in zip(names, fk):
-                head = a[:, :, :start] if a.dim() == 4 else a[:, :start]
-                if name == "xs":
-                    head = head[1:]               # xs[0] = x0 as given
-                if head.numel() and not bool((head == 0).all()):
-                    raise AssertionError(f"sp-stack {dtype}: {name} rows "
-                                         f"before start {start} not zero")
-            f_err = _check_leaves(f"sp-stack fwd start={start}", dtype, {
-                "skip_sum": (fk[0][:, start:], fp[0][:, start:]),
-                "xout": (fk[3][:, start:], fp[3][:, start:]),
-                "act[0]": (fk[1][0], fp[1][0])})
-            del fp
-            bargs = (dskip, fk[1], fk[2], w[0], w[1], w[2])
-            bkw = dict(start=start, dxout=dxout)
-            gk = tk.stack_backward_cuda(*bargs, dils, F, **bkw)
-            gp = tk.stack_backward_plain(*bargs, dils, F, **bkw)
-            if start and not bool((gk[5][:, :start] == 0).all()):
-                raise AssertionError(f"sp-stack {dtype}: dx0 rows before "
-                                     f"start {start} not zero")
-            b_err = _check_leaves(f"sp-stack bwd start={start}", dtype, dict(
-                zip(("dk", "dsk", "drs", "drb", "dlc", "dx0"), zip(gk, gp))))
-            errs[start] = (f_err, b_err)
-            del fk, gk, gp
+        dxout = _dxout(x0, 12)
+        errs = {start: _sp_variant_check("sp-stack", dtype, w, x0, dskip,
+                                         dxout, dils, F, start)
+                for start in (0, 2048)}
         # times at start 0 (rank 1's group: every row is needed), the SP
         # variant and the plain kernel on the same shape, in turns
         kw = dict(dils=dils, start=0, with_xout=True)
@@ -1759,23 +1816,22 @@ def phase_sp_stack(card: str):
     return out
 
 
-def _train_config(dtype: str, encoder: str = "64") -> str:
+def _train_config(dtype: str, encoder: str = "64", **extra) -> str:
     """build/chip_smoke/model_<dtype>.json (model_<encoder>_<dtype>.json
-    for another encoder): model_parameters.json with "train_dtype": dtype,
-    "encoder": encoder and an absolute wavenet_parameters path (written
-    once; the ranks read the file the parent wrote)."""
+    for another encoder, with _<key>-<value> for each ``extra`` key):
+    model_parameters.json with "train_dtype": dtype, "encoder": encoder,
+    ``extra`` and an absolute wavenet_parameters path (written once; the
+    ranks read the file the parent wrote)."""
     name = f"model_{dtype}" if encoder == "64" else f"model_{encoder}_{dtype}"
+    name += "".join(f"_{k}-{v}" for k, v in sorted(extra.items()))
     path = os.path.join(OUT, f"{name}.json")
     if not os.path.exists(path):
         with open(os.path.join(REPO, "model_parameters.json")) as f:
             mp = json.load(f)
         mp["wavenet_parameters"] = os.path.join(REPO,
                                                 "wavenet_parameters.json")
-        os.makedirs(OUT, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "w") as f:
-            json.dump(dict(mp, train_dtype=dtype, encoder=encoder), f)
-        os.replace(tmp, path)
+        _write_json(path, dict(mp, train_dtype=dtype, encoder=encoder,
+                               **extra))
     return path
 
 
@@ -1791,14 +1847,17 @@ def _fixed_batch(B: int, device):
             torch.from_numpy(y).to(device))
 
 
-def _sp_case(B: int, dtype: str, device):
-    """The [sp-train] inputs, the same in every process: the shipped config
-    (train_dtype ``dtype``) with random weights from SP_SEED and every bias
-    raised by 0.05 (so that a wrong causal pad at a shard boundary shows),
-    a batch of B random 6,656-sample clips and speakers."""
+def _sp_case(B: int, dtype: str, device, name: str = "shipped"):
+    """The SP phases' inputs, the same in every process: the config of
+    MESH_CASES[name] (the shipped one by default; train_dtype ``dtype``)
+    with random weights from SP_SEED and every bias raised by 0.05 (so
+    that a wrong causal pad at a shard boundary shows), a batch of B random
+    clips of the case's length and speakers."""
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.params import random_params_np, to_torch
-    cfg = ModelConfig.from_json(_train_config(dtype))
+    extra, T = MESH_CASES[name]
+    cfg = ModelConfig.from_json(_magenta_config(dtype) if extra is None
+                                else _train_config(dtype, **extra))
     params, state = random_params_np(cfg, 109, seed=SP_SEED)
 
     def bump(tree, name=""):
@@ -1807,8 +1866,9 @@ def _sp_case(B: int, dtype: str, device):
         if isinstance(tree, list):
             return [bump(v) for v in tree]
         return tree + np.float32(0.05) if "bias" in name else tree
+    x, y = _fixed_batch(B, device)
     return (cfg, to_torch(bump(params), device), to_torch(state, device),
-            *_fixed_batch(B, device))
+            x[:, :T].contiguous(), y)
 
 
 def _host_ms(fn, device) -> float:
@@ -1927,7 +1987,7 @@ def phase_sp_train(card: str):
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
         res = run_ranks(_sp_grads_rank, world, "cuda", B, dtypes,
-                        timeout=600)
+                        timeout=600, n_time=world)
         secs = time.perf_counter() - t0
         for dtype in dtypes:
             losses = [r[dtype][0] for r in res]
@@ -2285,16 +2345,18 @@ def _dp_rank(sh, B: int, dtypes, cli_args: dict):
     vq_kernels.launches = 0
     train_kernels.fwd_launches = train_kernels.bwd_launches = 0
     epilogue_kernels.fwd_launches = epilogue_kernels.bwd_launches = 0
-    res = train_cli._rank(sh, cli_args, "data")
+    res = train_cli._rank(sh, cli_args)
     out["train"] = {k: res[k] for k in ("losses", "step_seconds", "path",
                                         "launches")}
     return out
 
 
-def _check_bn(tag, dtype, got, ref, old) -> float:
-    """The new batch-norm running statistics' change from ``old``: within
-    TRAIN_TOL[dtype] of the leaf's largest change, plus 1e-6 of the
-    largest change of any leaf.  Returns the largest share of the bound."""
+def _check_bn(tag, dtype, got, ref, old,
+              what: str = "batch-norm running statistics") -> float:
+    """The new batch-norm running statistics' (or another state's) change
+    from ``old``: within TRAIN_TOL[dtype] of the leaf's largest change,
+    plus 1e-6 of the largest change of any leaf.  Returns the largest
+    share of the bound."""
     dref = [r.cpu().double().numpy() - o.cpu().double().numpy()
             for r, o in zip(ref, old)]
     dgot = [np.asarray(g, np.float64) - o.cpu().double().numpy()
@@ -2303,11 +2365,11 @@ def _check_bn(tag, dtype, got, ref, old) -> float:
     worst = max(np.abs(g - r).max() / (TRAIN_TOL[dtype] * np.abs(r).max()
                                        + 1e-6 * top)
                 for g, r in zip(dgot, dref))
-    log(f"[{tag}] {dtype}: batch-norm running statistics after one step, "
-        f"{len(dref)} leaves: largest share of the bound {worst:.3g}")
+    log(f"[{tag}] {dtype}: {what} after one step, {len(dref)} leaves: "
+        f"largest share of the bound {worst:.3g}")
     if worst >= 1:
-        raise AssertionError(f"[{tag}] {dtype}: the DP batch-norm statistics "
-                             f"disagree with the single device")
+        raise AssertionError(f"[{tag}] {dtype}: the {what} disagree with "
+                             f"the single device")
     return worst
 
 
@@ -2518,7 +2580,7 @@ def phase_dp(card: str):
                                                         "weights"))
     for world in sorted({2, n}):
         if world < n:      # fewer ranks than cards: the CLI's rank function
-            runs = run_ranks(train_cli._rank, world, "cuda", cli, "data",
+            runs = run_ranks(train_cli._rank, world, "cuda", cli,
                              timeout=600)
             res = dict(runs[0], launches=[r["launches"] for r in runs])
         else:              # the CLI itself: gcd(8, n) ranks, a card each
@@ -2540,6 +2602,251 @@ def phase_dp(card: str):
             raise AssertionError("[dp] non-finite NCCL training loss")
         for r in (res["launches"] if ranks > 1 else [res["launches"]]):
             _add(launches, {k: v for k, v in r.items() if v})
+    return launches
+
+
+def _zero_counts() -> None:
+    from vqvae_wavenet_torch.ops import (epilogue_kernels, train_kernels,
+                                         vq_kernels)
+    vq_kernels.launches = 0
+    for k in ("fwd", "bwd", "fwd_sp", "bwd_sp", "chain", "dk"):
+        setattr(train_kernels, f"{k}_launches", 0)
+    epilogue_kernels.fwd_launches = epilogue_kernels.bwd_launches = 0
+
+
+def _mesh_rank(sh, B: int, runs):
+    """One rank of [sp-mesh]: for each (case, dtype, decoder halo) of
+    ``runs`` the SP loss and gradients of _sp_case's batch and weights on
+    this rank's rows and time slice (rank 0 returns the gradients and the
+    new model state), the kernels' launches of that call (counters set to
+    0 just before, read just after), and the warm host ms of one more
+    call; under vq_mode 'ema' also one train_step's new codebook and EMA
+    state."""
+    import functools
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.ops.conv import set_full_f32
+    from vqvae_wavenet_torch.parallel.mesh import rank_rows
+    from vqvae_wavenet_torch.parallel.timeshard import sp_loss_and_grads
+    from vqvae_wavenet_torch.training.optimizer import tree_leaves
+    from vqvae_wavenet_torch.training.train_loop import (init_train_state,
+                                                         train_step)
+    set_full_f32()
+    out = {"backend": sh.backend}
+    for name, dtype, halo in runs:
+        cfg, p, s, x, y = _sp_case(B, dtype, sh.device, name)
+        t_l = x.shape[1] // sh.n_time
+        batch = {"x": rank_rows(x, sh)[:, sh.time_rank * t_l:
+                                      (sh.time_rank + 1) * t_l].contiguous(),
+                 "y": rank_rows(y, sh)}
+        fn = functools.partial(sp_loss_and_grads, sh=sh, decoder_halo=halo)
+        _zero_counts()
+        loss, aux, grads = fn(p, s, cfg, batch)
+        counts = train_cli._launch_counts()
+        r = {"loss": float(loss), "launches": counts,
+             "grads": ([g.float().cpu().numpy() for g in grads]
+                       if sh.rank == 0 else None),
+             "state": [t.cpu().numpy() for t in
+                       tree_leaves(aux.get("state", {}).get("encoder", {}))],
+             "ms": _host_ms(lambda: fn(p, s, cfg, batch), sh.device)}
+        del grads, aux
+        if cfg.use_vq and cfg.vq_mode == "ema":
+            ts, _ = train_step(init_train_state(p, s), batch, cfg,
+                               grads_fn=fn, sh=sh)
+            r["ema"] = [t.cpu().numpy() for t in tree_leaves(
+                [ts["params"]["vq"], ts["model_state"]["vq"]])]
+        out[(name, dtype, halo)] = r
+    return out
+
+
+def _mesh_reference(name, dtype, B):
+    """The single-device step of the case on the whole batch: (loss, grads
+    on the CPU, the new encoder state and the old, and under 'ema' the new
+    codebook and EMA state and the old)."""
+    from vqvae_wavenet_torch.training.optimizer import tree_leaves
+    from vqvae_wavenet_torch.training.train_loop import (
+        init_train_state, loss_and_grads, train_step)
+    cfg, p, s, x, y = _sp_case(B, dtype, "cuda", name)
+    batch = {"x": x, "y": y}
+    loss, aux, grads = loss_and_grads(p, s, cfg, batch)
+    ref = {"loss": float(loss), "grads": [
+        (torch.zeros_like(t) if g is None else g).float().cpu()
+        for t, g in zip(tree_leaves(p), grads)],
+        "state": [t.cpu() for t in tree_leaves(aux.get("state", {}).get(
+            "encoder", {}))],
+        "old": [t.cpu() for t in tree_leaves(s.get("encoder", {}))]}
+    if cfg.use_vq and cfg.vq_mode == "ema":
+        ts, _ = train_step(init_train_state(p, s), batch, cfg)
+        ref["ema"] = [t.cpu() for t in tree_leaves(
+            [ts["params"]["vq"], ts["model_state"]["vq"]])]
+        ref["ema_old"] = [t.cpu() for t in tree_leaves([p["vq"], s["vq"]])]
+    del p, s, grads, aux
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _mesh_check(tag, runs, res, refs, card) -> None:
+    """Every run of every rank against the single device: the loss (f32
+    rtol 2e-4, bf16 2e-2, equal on every rank), the gradients
+    (_check_sp_grads; bf16 also against the f32 reference of the case),
+    the new batch-norm statistics (_check_bn), the EMA codebook and state
+    (_check_bn's rule); every rank launched the VQ and stack kernels, and
+    the SP variants ran on some rank."""
+    for run in runs:
+        name, dtype, halo = run
+        ref = refs[(name, dtype)]
+        got = [r[run] for r in res]
+        losses = [g["loss"] for g in got]
+        rel = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+        log(f"[{tag}] {name} {dtype} halo {halo}: loss {losses[0]:.6f} on "
+            f"every rank {len(set(losses)) == 1}, single device "
+            f"{ref['loss']:.6f} (relative {rel:.3g}); warm loss and "
+            f"gradients, rank 0: {got[0]['ms']:.1f} ms ({res[0]['backend']}"
+            f", host clock); launches per rank "
+            f"{[{k: v for k, v in g['launches'].items() if v} for g in got]}"
+            f"  ({card})")
+        if len(set(losses)) != 1 or not rel <= (2e-4 if dtype == "f32"
+                                                 else 2e-2):
+            raise AssertionError(f"[{tag}] {name} {dtype} {halo}: the loss "
+                                 f"disagrees with the single device")
+        _check_sp_grads(f"{tag} {name} {halo}", dtype, got[0]["grads"],
+                        ref["grads"], refs[(name, "f32")]["grads"]
+                        if (name, "f32") in refs else None)
+        if any(bool((a != b).any()) for a, b in zip(ref["state"],
+                                                    ref["old"])):
+            for g in got:
+                _check_bn(f"{tag} {name} {halo}", dtype, g["state"],
+                          ref["state"], ref["old"])
+        if "ema" in ref:
+            for g in got:
+                _check_bn(f"{tag} {name}", dtype, g["ema"], ref["ema"],
+                          ref["ema_old"], "codebook and its EMA state")
+        for g in got:
+            c = g["launches"]
+            if min(c["vq_argmin"], c["train_stack_fwd"]
+                   + c["train_stack_fwd_sp"], c["train_stack_bwd"]
+                   + c["train_stack_bwd_sp"]) < 1:
+                raise AssertionError(f"[{tag}] {name} {halo}: a rank "
+                                     f"launched no VQ or stack kernel: {c}")
+        if min(sum(g["launches"][k] for g in got)
+               for k in ("train_stack_fwd_sp", "train_stack_bwd_sp")) < 1:
+            raise AssertionError(f"[{tag}] {name} {halo}: no SP variant "
+                                 f"was launched")
+
+
+def phase_sp_mesh(card: str):
+    """The rest of sequence parallelism (SP) on the card: every rank's
+    loss, summed gradients, new batch-norm statistics (and EMA codebook)
+    against the single-device step on the whole batch (_mesh_check), with
+    the kernels' launches of every rank.  On one card the ranks share it
+    over gloo, every exchange staged through host memory; with as many
+    cards as ranks they run over NCCL, a card each.
+    (a) The data 2 x time 2 mesh: 4 ranks at a global B=8 x 6,656, the
+        shipped config in f32 and bf16.
+    (b) A time row of 2 ranks, B=8: the shipped config with the 'layer'
+        and 'recompute' decoder halos (and 'fused' beside them, timed),
+        f32 and bf16; the Magenta family's preset (50 layers, gc,
+        sigmoid_first) in bf16 and f32; Encoder_Magenta (f32),
+        Encoder_2019 at 6,400 samples in bf16 (its encoder f32),
+        encoder_norm 'group' (f32) and vq_mode 'ema' (f32, one train_step:
+        the codebook and its EMA state).
+    (c) The CLI: -time_shards 2 -params magenta_parameters.json (bf16, six
+        steps, B=8 x 6,656), then generate from rank 0's checkpoint;
+        -time_shards 2 -decoder_halo layer (the shipped config, bf16, four
+        steps); with four or more cards -time_shards 2 on every card: the
+        data 2 x time 2 mesh over NCCL, steps/s.
+    Returns the launches of (c)'s runs (every rank) and generation."""
+    from scipy.io import wavfile
+    from vqvae_wavenet_torch import generate as gen_cli
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.ops import gen_kernels
+    from vqvae_wavenet_torch.parallel import run_ranks
+    from vqvae_wavenet_torch.parallel.mesh import mesh_shape
+    B = 8
+    mesh_runs = [("shipped", d, "fused") for d in ("f32", "bf16")]
+    row_runs = ([("shipped", d, h) for h in ("layer", "recompute", "fused")
+                 for d in ("f32", "bf16")]
+                + [("magenta", d, "fused") for d in ("bf16", "f32")]
+                + [("magenta_enc", "f32", "fused"),
+                   ("2019", "bf16", "fused"), ("2019", "f32", None),
+                   ("group", "f32", "fused"), ("ema", "f32", "fused")])
+    refs = {}
+    for name, dtype, _ in mesh_runs + row_runs:
+        if (name, dtype) not in refs:
+            refs[(name, dtype)] = _mesh_reference(name, dtype, B)
+    row_runs = [r for r in row_runs if r[2] is not None]  # f32 2019: ref only
+    for tag, world, runs in (("sp-mesh data 2 x time 2", 4, mesh_runs),
+                             ("sp-mesh time 2", 2, row_runs)):
+        t0 = time.perf_counter()
+        res = run_ranks(_mesh_rank, world, "cuda", B, runs, timeout=900,
+                        n_time=2)
+        log(f"[{tag}] {len(runs)} runs on {world} ranks "
+            f"({res[0]['backend']}): {time.perf_counter() - t0:.1f} s for "
+            f"the spawned run")
+        _mesh_check(tag, runs, res, refs, card)
+        del res
+    del refs
+
+    data = _train_corpus()
+    launches: dict = {}
+    cli = [("magenta bf16", _magenta_config("bf16"), 6, []),
+           ("layer bf16", _train_config("bf16"), 4,
+            ["-decoder_halo", "layer"])]
+    n = torch.cuda.device_count()
+    if n >= 4:
+        cli.append((f"shipped bf16 on {n} cards", _train_config("bf16"), 6,
+                    []))
+    ckpt = None
+    for tag, params_json, steps, flags in cli:
+        save = os.path.join(OUT, "sp_mesh_" + tag.split()[0])
+        res = train_cli.main([
+            "-dataset", "VCTK", "-length", "6656", "-batch", "8", "-step",
+            str(steps), "-save", os.path.join(save, "weights"), "-params",
+            params_json, "-data", data, "-device", "cuda", "-log_every", "1",
+            "-interval", "1000", "-ckpt_interval", "1000", "-time_shards",
+            "2", *flags])
+        print()
+        steady = res["step_seconds"][2:]
+        log(f"[sp-mesh] CLI -time_shards 2 {' '.join(flags)} {tag}: mesh "
+            f"{mesh_shape(8, 2, 1, 'cuda')} (data, ranks), losses "
+            + " ".join(f"{v:.4f}" for v in res["losses"])
+            + f"; {len(steady) / sum(steady):.3f} steps/s over steps "
+            f"3-{steps} (host clock, synchronised; first step "
+            f"{res['step_seconds'][0]:.2f} s); launches per rank "
+            f"{[{k: v for k, v in r.items() if v} for r in res['launches']]}"
+            f"  ({card})")
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"[sp-mesh] {tag}: non-finite loss")
+        if len(res["launches"]) != mesh_shape(8, 2, 1, "cuda")[1]:
+            raise AssertionError(f"[sp-mesh] {tag}: {len(res['launches'])} "
+                                 f"ranks")
+        for r in res["launches"]:
+            if min(r["vq_argmin"], r["train_stack_fwd_sp"]
+                   + r["train_stack_fwd"]) < 1:
+                raise AssertionError(f"[sp-mesh] {tag}: a rank missed a "
+                                     f"kernel: {r}")
+            _add(launches, {k: v for k, v in r.items() if v})
+        if tag.startswith("magenta"):
+            ckpt = res["path"] + ".npz"
+    audio = os.path.join(OUT, "sp_input.wav")
+    t = np.arange(2048) / 16000.0
+    wavfile.write(audio, 16000, (0.3 * np.sin(2 * np.pi * 200.0 * t)
+                                 * 32767).astype(np.int16))
+    _zero_counts()
+    g0 = gen_kernels.launches
+    res = gen_cli.main(["-restore", ckpt, "-audio", audio, "-speakers",
+                        "p226", "-mode", "greedy", "-params",
+                        _magenta_config("bf16"), "-data", data, "-device",
+                        "cuda"])
+    if res["audio"].shape != (1, 2048) or not np.isfinite(
+            res["audio"]).all():
+        raise AssertionError("[sp-mesh] generation from the SP Magenta "
+                             "checkpoint failed")
+    launches["gen_wavenet"] = gen_kernels.launches - g0
+    launches["vq_argmin"] = launches.get("vq_argmin", 0) + \
+        train_cli._launch_counts()["vq_argmin"]
+    log(f"[sp-mesh] generated {res['audio'].shape[1]} samples from the SP "
+        f"Magenta checkpoint in {res['seconds']:.2f} s; main-path launches "
+        f"{launches}")
     return launches
 
 
@@ -2676,7 +2983,7 @@ def phase_profile(card: str):
 PHASES = ("vq", "gen", "gen-int8", "e2e", "magenta", "train-stack",
           "train-epilogue", "train-e2e", "sp-stack", "sp-train",
           "train-bwd2", "magenta-train", "encoders", "prior", "dp",
-          "profile")
+          "sp-mesh", "profile")
 
 
 def main(argv=None) -> int:
@@ -2706,6 +3013,7 @@ def main(argv=None) -> int:
                 "encoders": lambda: phase_encoders(card),
                 "prior": lambda: phase_prior(card),
                 "dp": lambda: phase_dp(card),
+                "sp-mesh": lambda: phase_sp_mesh(card),
                 "profile": lambda: phase_profile(card)}
         for name in only:
             runs[name]()
@@ -2725,6 +3033,7 @@ def main(argv=None) -> int:
     _add(extra, phase_encoders(card))
     _add(extra, phase_prior(card))
     _add(extra, phase_dp(card))
+    _add(extra, phase_sp_mesh(card))
     _add(extra, phase_profile(card))
     launches["vq_argmin"] += extra.pop("vq_argmin", 0)
     launches["gen_wavenet"] += extra.pop("gen_wavenet", 0)

@@ -26,9 +26,9 @@ global batch (parallel/mesh.py), the kernels' plain twins.
     same losses and host 0 alone writes; ``-profile DIR`` writes a Chrome
     trace of steps 10-14 with the step, gradient and optimizer ranges.
   * Four ranks seen as two hosts of two: each host's first rank alone
-    reads its host's batch, which reaches every rank of that host
-    (``host_batch``); a restored train state is rank 0's everywhere
-    (``replicate_``).
+    reads its host's batch, and every rank gets the global batch, the
+    hosts' batches in host order (``global_batch``); a restored train
+    state is rank 0's everywhere (``replicate_``).
   * No rank and no CLI process imports jax or the JAX package.
 The ranks import this module, which therefore imports jax only inside
 functions.
@@ -405,17 +405,17 @@ def test_dp_ranks_agree_and_import_no_jax(two_ranks):
 
 
 def layout_rank(sh):
-    """Four ranks seen as two hosts of two (host_batch's broadcast from
+    """Four ranks seen as two hosts of two (global_batch's broadcast from
     each host's first rank), and replicate_ from rank 0."""
     import dataclasses
-    from vqvae_wavenet_torch.parallel.mesh import host_batch, replicate_
+    from vqvae_wavenet_torch.parallel.mesh import global_batch, replicate_
     two_hosts = dataclasses.replace(sh, hosts=2)
     reads = []
 
     def read():
         reads.append(sh.rank)
         return {"x": np.full((2, 3), two_hosts.host + 1.0, np.float32)}
-    x = host_batch(read, {"x": (2, 3)}, sh.device, two_hosts)["x"]
+    x = global_batch(read, {"x": (2, 3)}, sh.device, two_hosts)["x"]
     ts = init_train_state({"w": torch.full((3,), sh.rank + 1.0)}, {})
     ts = dict(ts, step=7 if sh.rank == 0 else 3)
     ts["opt_state"]["count"] = 5 if sh.rank == 0 else 1
@@ -426,11 +426,12 @@ def layout_rank(sh):
 
 
 def test_host_batch_and_replicate_over_ranks():
-    """Each host's first rank alone reads, and every rank of the host gets
-    that batch; a restored state is rank 0's on every rank."""
+    """Each host's first rank alone reads, and every rank gets the hosts'
+    batches in host order; a restored state is rank 0's on every rank."""
     res = run_ranks(layout_rank, 4, "cpu", timeout=RANK_TIMEOUT)
     for r, out in enumerate(res):
-        np.testing.assert_array_equal(out["x"], np.full((2, 3), r // 2 + 1.0))
+        np.testing.assert_array_equal(out["x"], np.repeat([1.0, 2.0], 6)
+                                      .reshape(4, 3))
         assert out["reads"] == ([r] if r % 2 == 0 else [])
         np.testing.assert_array_equal(out["w"], np.ones(3))
         np.testing.assert_array_equal(out["mu"], np.zeros(3))
@@ -438,9 +439,10 @@ def test_host_batch_and_replicate_over_ranks():
 
 
 def test_rank_layout_follows_jax():
-    """gcd(batch, devices) ranks a host (train.py:117-122); rank l of a
-    host takes rows l * B/L .. of its host's batch, so the global batch is
-    the hosts' batches in host order."""
+    """gcd(batch, devices) ranks a host (train.py:117-122); rank r takes
+    rows r * B/N .. of the global batch (the hosts' batches in host
+    order), so rank l of host h takes rows l * B/L .. of its host's
+    batch."""
     assert data_ranks(8, "cpu") == 1
     x = torch.arange(8)
     sh = [Shards(r, 4, torch.device("cpu"), "gloo", hosts=2)
@@ -448,8 +450,11 @@ def test_rank_layout_follows_jax():
     assert [(s.host, s.local_rank) for s in sh] == [(0, 0), (0, 1), (1, 0),
                                                     (1, 1)]
     host_batches = {0: x[:4], 1: x[4:]}
-    got = torch.cat([rank_rows(host_batches[s.host], s) for s in sh])
-    assert torch.equal(got, x)
+    for s in sh:
+        b = 4 // s.local_world
+        assert torch.equal(rank_rows(x, s), host_batches[s.host][
+            s.local_rank * b:(s.local_rank + 1) * b])
+    assert torch.equal(torch.cat([rank_rows(x, s) for s in sh]), x)
 
 
 # ------------------------------------------------------------------ the CLI

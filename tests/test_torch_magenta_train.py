@@ -266,12 +266,17 @@ def test_cli_trains_and_generate_reads_raw_params(tiny_magenta, corpus,
     assert np.isfinite(out["audio"]).all()
 
 
-def test_cli_refuses_time_shards(corpus, tmp_path):
+def test_cli_time_shards_trains(corpus, tmp_path):
+    """-time_shards 2 trains the family's full preset (the spawned ranks
+    read the module's own constants) for a step on 256-sample shards."""
     from vqvae_wavenet_torch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, "
-                                                  "item 7"):
-        train.main(train_args(corpus, tmp_path, "-step", "1",
-                              "-time_shards", "2"))
+    args = train_args(corpus, tmp_path, "-step", "1", "-time_shards", "2")
+    args[args.index("-length") + 1] = "512"
+    args[args.index("-batch") + 1] = "1"
+    res = train.main(args)
+    assert res["step"] == 1 and np.isfinite(res["losses"]).all()
+    assert len(res["launches"]) == 2
+    assert (tmp_path / "weights-1.npz").exists()
 
 
 def test_export_train_state_round_trip(shallow, corpus, tmp_path):

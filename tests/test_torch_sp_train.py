@@ -130,7 +130,7 @@ def sp_rank(sh, params, state, x, y, dils, dtypes):
         cfg = port_cfg(dils, train_dtype=dtype)
         p, s = from_jax_tree(params, state)
         loss, aux, grads = sp_loss_and_grads(p, s, cfg, batch, sh)
-        ts, _ = train_step(init_train_state(p, s), batch, cfg,
+        ts, _ = train_step(init_train_state(p, s), batch, cfg, sh=sh,
                            grads_fn=lambda *a: sp_loss_and_grads(*a, sh))
         out[dtype] = {
             "loss": float(loss), "recon": float(aux["reconstruction_loss"]),
@@ -179,7 +179,7 @@ def two_ranks():
     dils = WN["dilation_rates"]
     cfg, params, state, x, y = jax_case(dils, 1, 512, seed=0)
     res = run_ranks(sp_rank, 2, "cpu", params, state, x, y, dils,
-                    ("f32", "bf16"), timeout=RANK_TIMEOUT)
+                    ("f32", "bf16"), timeout=RANK_TIMEOUT, n_time=2)
     return cfg, params, state, x, y, res
 
 
@@ -222,7 +222,7 @@ def test_ranks_agree_and_import_no_jax(two_ranks):
 def test_four_ranks_multihop_match_single_device():
     params, state, x, y = port_case(MULTIHOP, 1, 256, seed=1)
     res = run_ranks(sp_rank, 4, "cpu", params, state, x, y, MULTIHOP,
-                    ("f32",), timeout=RANK_TIMEOUT)
+                    ("f32",), timeout=RANK_TIMEOUT, n_time=4)
     loss, grads = single_device(params, state, x, y, MULTIHOP, "f32")
     for r in res:
         assert r["f32"]["loss"] == pytest.approx(loss, rel=2e-4)
@@ -250,13 +250,23 @@ def test_halo_sizes_and_cycle_plans_match_jax():
 
 
 @pytest.mark.parametrize("kw,length,world,halo,error", [
-    (dict(vq_mode="ema"), 512, 2, "fused", NotImplementedError),
-    (dict(encoder_norm="group"), 512, 2, "fused", NotImplementedError),
-    ({}, 512, 2, "layer", NotImplementedError),
-    ({}, 384, 4, "fused", ValueError)])        # 96-sample shards
+    ({}, 384, 4, "fused", ValueError),          # 96-sample shards
+    (dict(time_jitter=True), 512, 2, "fused", NotImplementedError),
+    (dict(condition_upsample=True), 512, 2, "fused", NotImplementedError)])
 def test_unported_sp_options_raise(kw, length, world, halo, error):
-    with pytest.raises(error):
+    with pytest.raises(error, match="ROADMAP.md queue A, item 7"
+                       if error is NotImplementedError else "shards"):
         check_supported(port_cfg(**kw), length, world, halo)
+
+
+@pytest.mark.parametrize("kw,halo,plan", [
+    (dict(vq_mode="ema"), "fused", [(0, 2, 256), (2, 4, 256)]),
+    (dict(encoder_norm="group"), "fused", [(0, 2, 256), (2, 4, 256)]),
+    ({}, "layer", [(l, l + 1, 64) for l in range(4)])])
+def test_sp_options_have_a_plan(kw, halo, plan):
+    """The options SP once refused: check_supported returns their decoder
+    plan (JAX's q = 256 for 256-sample shards; a frame a layer)."""
+    assert check_supported(port_cfg(**kw), 512, 2, halo) == plan
 
 
 # ------------------------------------------------------------------ the CLI

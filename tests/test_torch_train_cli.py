@@ -183,17 +183,72 @@ def test_cuda_device_without_gpu_raises(corpus, tmp_path):
         train.main(args)
 
 
-@pytest.mark.parametrize("flag", [["-time_shards", "2", "-decoder_halo",
-                                   "recompute"],
-                                  ["-decoder_halo", "layer"],
-                                  ["-loader", "native"],
-                                  ["-time_shards", "2", "-coordinator",
-                                   "localhost:1234", "-num_processes", "2",
-                                   "-process_id", "0"]])
+@pytest.mark.parametrize("flag", [["-loader", "native"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     from vqvae_wavenet_torch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, "
+                                                  "item 7"):
         train.main(train_args(corpus, tmp_path, "-step", "1", *flag))
+
+
+@pytest.mark.parametrize("flag,devices,ranks,line", [
+    (["-decoder_halo", "recompute"], 1, 2,
+     "1 data row(s) of 2 clips, decoder halo recompute"),
+    (["-decoder_halo", "layer"], 1, 2,
+     "1 data row(s) of 2 clips, decoder halo layer"),
+    ([], 4, 4, "2 data row(s) of 1 clips, decoder halo auto")])
+def test_time_shards_options_train(corpus, tmp_path, capfd, monkeypatch,
+                                   flag, devices, ranks, line):
+    """-time_shards 2 trains a step with each decoder halo, and on a host
+    of four devices (the count patched) as a data 2 x time 2 mesh."""
+    from vqvae_wavenet_torch import train
+    from vqvae_wavenet_torch.parallel import mesh
+    monkeypatch.setattr(mesh, "device_count", lambda device_type: devices)
+    res = train.main(train_args(corpus, tmp_path, "-step", "1",
+                                "-time_shards", "2", *flag))
+    out = capfd.readouterr().out
+    assert res["step"] == 1 and np.isfinite(res["losses"]).all()
+    assert len(res["launches"]) == ranks
+    assert (tmp_path / "weights-1.npz").exists()
+    assert ("[mesh] data=2 x time=2" in out) == (ranks == 4)
+    assert "[sp] 2 time shards of 512 samples, backend gloo; " + line in out
+
+
+def test_time_shards_across_two_hosts(corpus, tmp_path):
+    """-time_shards 2 with -coordinator/-num_processes/-process_id: two
+    one-device hosts hold one time row (data = 1), which takes the global
+    batch of both hosts' clips; both report the same losses."""
+    from vqvae_wavenet_torch.parallel import free_port
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = []
+    for h in (0, 1):
+        args = train_args(corpus, tmp_path / f"host{h}", "-step", "1",
+                          "-time_shards", "2", "-coordinator",
+                          f"127.0.0.1:{port}", "-num_processes", "2",
+                          "-process_id", str(h))
+        script = ("import json, sys; sys.path.insert(0, %r)\n"
+                  "from vqvae_wavenet_torch import train\n"
+                  "res = train.main(%r)\n"
+                  "print('HOST_LOSSES', json.dumps(res['losses']))\n"
+                  % (REPO, args))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script], cwd=str(tmp_path), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=240)
+        finally:
+            p.kill()
+        assert p.returncode == 0, out + err
+        outs.append(out)
+    losses = [json.loads(o.split("HOST_LOSSES", 1)[1]) for o in outs]
+    assert losses[0] == losses[1] and np.isfinite(losses[0]).all()
+    assert "[sp] 2 time shards of 512 samples, backend gloo; 1 data " \
+        "row(s) of 4 clips" in outs[0]
+    assert (tmp_path / "host0" / "weights-1.npz").exists()
+    assert not (tmp_path / "host1").exists()
 
 
 @pytest.mark.parametrize("flag", [["-coordinator", "localhost:1234"],

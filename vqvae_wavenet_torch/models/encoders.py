@@ -62,13 +62,23 @@ def batch_norm(params, state, x: torch.Tensor, *, train: bool = False,
     return out.to(x.dtype), new_state
 
 
-def group_norm(params, x: torch.Tensor, num_groups: int = 8) -> torch.Tensor:
-    """GroupNorm over (T, C/G) per group (encoders.py:87-99)."""
+def group_norm(params, x: torch.Tensor, num_groups: int = 8,
+               sh=None) -> torch.Tensor:
+    """GroupNorm over (T, C/G) per group (encoders.py:87-99).  With ``sh``
+    (a time shard of a row of more than one) the f32 mean and mean square
+    are averaged over the time row, var = E[x^2] - E[x]^2: the statistics
+    of the whole clip (timeshard.py:159-173)."""
     b, t, c = x.shape
     g = num_groups if c % num_groups == 0 else 1
     xg = x.float().reshape(b, t, g, c // g)
     mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = xg.var(dim=(1, 3), keepdim=True, unbiased=False)
+    if sh is not None and sh.n_time > 1:
+        mean_sq = pmean((xg * xg).mean(dim=(1, 3), keepdim=True), sh,
+                        sh.time_group)
+        mean = pmean(mean, sh, sh.time_group)
+        var = mean_sq - mean * mean
+    else:
+        var = xg.var(dim=(1, 3), keepdim=True, unbiased=False)
     xg = (xg - mean) * torch.rsqrt(var + EPS)
     out = (xg.reshape(b, t, c) * params["scale"].float()
            + params["bias"].float())

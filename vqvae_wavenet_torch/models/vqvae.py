@@ -11,7 +11,7 @@ waveform, which bf16 would degrade), the decoder parameters and
 the local condition run in bf16, labels come from the f32 waveform, and
 the stack kernel hands its skip sum to the loss-head kernel
 (ops/epilogue_kernels.py).  ``time_jitter`` and ``condition_upsample``
-are not ported to training yet (ROADMAP.md queue A).
+are not ported to training yet (ROADMAP.md queue A, item 7).
 
 Reference quirk kept (vqvae.py:77-84): an all-zero one-hot ("None"
 speaker) argmax-selects index 0, so "no speaker" conditions on speaker 0's
@@ -81,7 +81,7 @@ def vqvae_forward(params, state, cfg, x: torch.Tensor,
     if train and (cfg.time_jitter or cfg.condition_upsample):
         raise NotImplementedError(
             "time_jitter and condition_upsample are not ported to training "
-            "yet (ROADMAP.md queue A)")
+            "yet (ROADMAP.md queue A, item 7)")
     bf16 = cfg.train_dtype == "bf16"
     # Encoder_Magenta and Encoder_2019 have no state, and their empty tree
     # leaves no key in an .npz checkpoint

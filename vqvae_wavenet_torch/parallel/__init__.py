@@ -1,7 +1,10 @@
-"""Rank layout and process launch for the port's parallel training: N
-ranks, one process each, every batch split into N contiguous shards along
-one axis -- time under sequence parallelism (SP, ``parallel/timeshard.py``)
-or the batch under data parallelism (DP, ``parallel/mesh.py``).
+"""Rank layout and process launch for the port's parallel training: one
+process a rank, the ranks laid out on a data x time mesh (JAX's 2-D
+('data', 'time') mesh, train.py:139-152): global rank r = d * n_time + t
+holds rows d of n_data contiguous parts of the global batch (data
+parallelism, DP, ``parallel/mesh.py``) and, of those, the time slice t of
+n_time (sequence parallelism, SP, ``parallel/timeshard.py``).  n_time = 1
+is pure DP, n_data = 1 pure SP.
 
 The ranks may span several hosts (processes started on each host, joined
 at one ``tcp://HOST:PORT``): host h holds global ranks h * L .. h * L + L - 1
@@ -32,15 +35,31 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class Shards:
-    """This rank's place: ``rank`` of ``world`` shards (of the time axis
-    under SP, of the batch under DP) on ``device``, talking over
+    """This rank's place: ``rank`` of ``world`` on ``device``, talking over
     ``backend``; the ranks span ``hosts`` hosts, ``world // hosts`` on
-    each, host h holding ranks h * local_world .. (h + 1) * local_world - 1."""
+    each, host h holding ranks h * local_world .. (h + 1) * local_world - 1.
+    ``n_time`` ranks make one time row (rank = data_rank * n_time +
+    time_rank); ``time_group`` is the process group of this rank's time
+    row (None when the row is the whole world)."""
     rank: int
     world: int
     device: torch.device
     backend: str
     hosts: int = 1
+    n_time: int = 1
+    time_group: Any = dataclasses.field(default=None, compare=False)
+
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_time
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.n_time
+
+    @property
+    def time_rank(self) -> int:
+        return self.rank % self.n_time
 
     @property
     def local_world(self) -> int:
@@ -82,9 +101,11 @@ def free_port() -> int:
 
 
 def init_rank(rank: int, world: int, init_method: str, device_type: str,
-              hosts: int = 1) -> Shards:
+              hosts: int = 1, n_time: int = 1) -> Shards:
     """Join the process group at ``init_method`` (tcp://HOST:PORT) as
-    global ``rank`` of ``world``, ``world // hosts`` ranks a host."""
+    global ``rank`` of ``world``, ``world // hosts`` ranks a host, in time
+    rows of ``n_time`` ranks (every rank creates every row's group, in row
+    order, as ``dist.new_group`` requires)."""
     local_world = world // hosts
     device = rank_device(rank % local_world, device_type)
     backend = pick_backend(local_world, device_type)
@@ -95,7 +116,12 @@ def init_rank(rank: int, world: int, init_method: str, device_type: str,
                                   // local_world))
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank)
-    sh = Shards(rank, world, device, backend, hosts)
+    time_group = None
+    if 1 < n_time < world:
+        rows = [dist.new_group(list(range(d * n_time, (d + 1) * n_time)))
+                for d in range(world // n_time)]
+        time_group = rows[rank // n_time]
+    sh = Shards(rank, world, device, backend, hosts, n_time, time_group)
     # a first collective on every rank sets up the communicator before any
     # point-to-point exchange (NCCL wants all ranks in its first call)
     from vqvae_wavenet_torch.parallel.comm import all_reduce_
@@ -104,10 +130,11 @@ def init_rank(rank: int, world: int, init_method: str, device_type: str,
 
 
 def run_in_group(fn: Callable[..., Any], rank: int, world: int,
-                 init_method: str, device_type: str, *args, hosts: int = 1):
+                 init_method: str, device_type: str, *args, hosts: int = 1,
+                 n_time: int = 1):
     """Join the process group in this process, run ``fn(shards, *args)``
     and leave the group (a host's only rank needs no spawned child)."""
-    sh = init_rank(rank, world, init_method, device_type, hosts)
+    sh = init_rank(rank, world, init_method, device_type, hosts, n_time)
     try:
         return fn(sh, *args)
     finally:
@@ -115,23 +142,25 @@ def run_in_group(fn: Callable[..., Any], rank: int, world: int,
 
 
 def _rank_entry(local: int, fn, world: int, init_method: str,
-                device_type: str, hosts: int, host: int, args: tuple,
-                results) -> None:
+                device_type: str, hosts: int, host: int, n_time: int,
+                args: tuple, results) -> None:
     rank = host * (world // hosts) + local
     results.put((local, run_in_group(fn, rank, world, init_method,
-                                     device_type, *args, hosts=hosts)))
+                                     device_type, *args, hosts=hosts,
+                                     n_time=n_time)))
 
 
 def run_ranks(fn: Callable[..., Any], world: int, device_type: str, *args,
               timeout: Optional[float] = None, hosts: int = 1, host: int = 0,
-              init_method: Optional[str] = None) -> List[Any]:
+              init_method: Optional[str] = None, n_time: int = 1
+              ) -> List[Any]:
     """Run ``fn(shards, *args)`` on ``world`` spawned ranks of this host and
     return their results in rank order.  With ``hosts`` > 1 this is host
     ``host`` of a group of ``world * hosts`` ranks that meet at
     ``init_method`` (every host calls run_ranks); alone, the ranks meet on
-    a free loopback port.  ``fn`` must be importable by name (a module
-    level function) and return picklable values (numbers, numpy arrays, not
-    tensors).  All CUDA use in the caller must come before this call or
+    a free loopback port; ``n_time`` ranks make a time row.  ``fn`` must
+    be importable by name (a module level function) and return picklable
+    values (numbers, numpy arrays, not tensors).  All CUDA use in the caller must come before this call or
     stay in the caller alone: the children start fresh.  After ``timeout``
     seconds the ranks are killed and TimeoutError is raised."""
     import torch.multiprocessing as mp
@@ -141,7 +170,7 @@ def run_ranks(fn: Callable[..., Any], world: int, device_type: str, *args,
         init_method = f"tcp://127.0.0.1:{free_port()}"
     procs = mp.start_processes(
         _rank_entry, args=(fn, world * hosts, init_method, device_type,
-                           hosts, host, args, results),
+                           hosts, host, n_time, args, results),
         nprocs=world, join=False, start_method="spawn")
     deadline = None if timeout is None else time.monotonic() + timeout
     got = {}

@@ -1,9 +1,10 @@
-"""Exchanges between time shards (port of the lax.ppermute / pmean uses in
+"""Exchanges between ranks (port of the lax.ppermute / pmean uses in
 vqvae_wavenet_tpu/parallel/timeshard.py:37-57, :121-134, :221-226).
 
 ``shift(x, k)`` is the one point-to-point primitive, JAX's ppermute with
-the pairs (i, i + k): rank r sends x to rank r + k and receives rank
-r - k's x, zeros where that rank does not exist.  Its gradient is the
+the pairs (i, i + k) along the 'time' axis: time shard t of a time row
+sends x to shard t + k of its row and receives shard t - k's x, zeros
+where that shard does not exist.  Its gradient is the
 transposed shift (the cotangent goes back to the rank that sent the
 value), so every exchange built from it is differentiable:
 
@@ -13,9 +14,10 @@ value), so every exchange built from it is differentiable:
   exchange_both(x, l, r)    l columns from the left neighbour, r from the
                             right, zeros at the ends (the SAME pad)
   sharded_shift_right(x)    shift_right over the whole sequence
-  pmean(x)                  mean over the ranks; its gradient is the mean
-                            of the cotangents (the sum of the per-rank
-                            shares of a loss, see timeshard.py)
+  pmean(x)                  mean over the ranks (or a group of them: a
+                            time row); its gradient is the mean of the
+                            cotangents (the sum of the per-rank shares of
+                            a loss, see timeshard.py)
   sum_grads(grads)          the gradients summed over the ranks in f32, in
                             one flat buffer (SP and DP steps alike)
 
@@ -38,10 +40,11 @@ def _host(t: torch.Tensor, sh: Shards) -> torch.Tensor:
     return t.cpu() if sh.staged else t
 
 
-def all_reduce_(t: torch.Tensor, sh: Shards) -> torch.Tensor:
-    """Sum ``t`` over the ranks in place (returns it); no gradient."""
+def all_reduce_(t: torch.Tensor, sh: Shards, group=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks (of ``group``: every rank if None) in place
+    (returns it); no gradient."""
     buf = _host(t.detach(), sh)
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=group)
     if buf is not t:
         t.copy_(buf)
     return t
@@ -75,9 +78,11 @@ def _sendrecv(x: torch.Tensor, dst: Optional[int], src: Optional[int],
 
 
 def _peers(k: int, sh: Shards) -> Tuple[Optional[int], Optional[int]]:
-    dst, src = sh.rank + k, sh.rank - k
-    return (dst if 0 <= dst < sh.world else None,
-            src if 0 <= src < sh.world else None)
+    """The global ranks k time shards right and left of this one in its
+    time row (None past the row's ends)."""
+    t = sh.time_rank
+    return (sh.rank + k if 0 <= t + k < sh.n_time else None,
+            sh.rank - k if 0 <= t - k < sh.n_time else None)
 
 
 class _Shift(torch.autograd.Function):
@@ -92,7 +97,7 @@ class _Shift(torch.autograd.Function):
 
 
 def shift(x: torch.Tensor, k: int, sh: Shards) -> torch.Tensor:
-    """Rank r gets rank r - k's x (zeros if there is none)."""
+    """Time shard t gets shard t - k's x (zeros if there is none)."""
     return _Shift.apply(x, k, sh)
 
 
@@ -132,18 +137,19 @@ def sharded_shift_right(x: torch.Tensor, sh: Shards) -> torch.Tensor:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, sh: Shards):
-        ctx.sh = sh
-        return all_reduce_(x.detach().clone(), sh)
+    def forward(ctx, x, sh: Shards, group):
+        ctx.sh, ctx.group = sh, group
+        return all_reduce_(x.detach().clone(), sh, group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone(), ctx.sh), None
+        return all_reduce_(g.clone(), ctx.sh, ctx.group), None, None
 
 
-def pmean(x: torch.Tensor, sh: Shards) -> torch.Tensor:
-    """The mean of x over the ranks, differentiable."""
-    return _AllReduceSum.apply(x, sh) / sh.world
+def pmean(x: torch.Tensor, sh: Shards, group=None) -> torch.Tensor:
+    """The mean of x over the ranks (of ``group``: every rank if None),
+    differentiable."""
+    return _AllReduceSum.apply(x, sh, group) / dist.get_world_size(group)
 
 
 def sum_grads(grads: List[torch.Tensor], sh: Shards) -> List[torch.Tensor]:

@@ -1,20 +1,24 @@
-"""Data parallelism's rank layout (port of the 'data' axis of
-vqvae_wavenet_tpu/parallel/mesh.py:26-44: ``make_mesh``,
-``batch_sharding``, ``replicated``).
+"""The data x time rank layout (port of the 'data' axis of
+vqvae_wavenet_tpu/parallel/mesh.py:26-44 and of the (data, time) mesh of
+train.py:113-125, :139-152).
 
 JAX shards the global batch (``-batch`` per process x the process count)
-over gcd(global batch, device count) devices of one mesh and lets GSPMD
-make the batch norms, the VQ statistics and the loss means global.  The
-port runs one rank a device: ``data_ranks`` gives each host gcd(batch,
-its device count) ranks -- with P hosts of D devices each, P * gcd(batch,
-D) = gcd(batch * P, D * P) ranks in all, JAX's rule -- and rank l of a
-host takes rows l * B/L .. (l + 1) * B/L - 1 of that host's batch
-(``rank_rows``), so the global batch is the hosts' batches in host order.
-One reader per host reads the host's batch and broadcasts it
-(``host_batch``).  The train state is replicated: the same seed builds it
-on every rank, and a restored one is rank 0's, broadcast (``replicate_``).
-The math that makes the step global lives in the models (``sh`` arguments)
-and in ``training/train_loop.py::dp_loss_and_grads``.
+over gcd(global batch, device count) devices -- under ``-time_shards N``
+over n_data = gcd(global batch, device count // N) rows of N time shards
+each -- and lets GSPMD make the batch norms, the VQ statistics and the
+loss means global.  The port runs one rank a device (``mesh_shape``):
+n_data * N ranks, N = 1 without SP, spread evenly over the hosts.  With
+fewer devices than time shards (device count // N = 0) JAX's gcd(b, 0) =
+b asks for more devices than exist; the port runs one time row (n_data =
+1) whose ranks share the devices.  The global batch is the hosts' batches
+in host order: each host's first rank reads its host's batch and
+broadcasts it, every rank keeps them all (``global_batch``), and rank
+(d, t) takes the contiguous rows d of n_data (``rank_rows``) and, under
+SP, their time slice t.  The train state is replicated: the same seed
+builds it on every rank, and a restored one is rank 0's, broadcast
+(``replicate_``).  The math that makes the step global lives in the
+models (``sh`` arguments), in ``training/train_loop.py::dp_loss_and_grads``
+and in ``parallel/timeshard.py``.
 
 The 'model' axis (tensor parallelism, mesh.py:47-85) is not ported: no CLI
 of the JAX package reaches it (ROADMAP.md queue A).
@@ -37,39 +41,54 @@ def device_count(device_type: str) -> int:
     return torch.cuda.device_count() if device_type == "cuda" else 1
 
 
+def mesh_shape(batch: int, n_time: int, hosts: int,
+               device_type: str) -> Tuple[int, int]:
+    """(n_data, ranks a host) of the data x time mesh for ``-batch``
+    ``batch`` on each of ``hosts`` hosts with this host's device count
+    (every host alike): n_data = gcd(batch * hosts, devices // n_time), or
+    1 when there are fewer devices than time shards (train.py:117-122,
+    :146-152; module docstring)."""
+    n_dev = device_count(device_type) * hosts
+    n_data = math.gcd(batch * hosts, n_dev // n_time) if n_dev >= n_time \
+        else 1
+    if (n_data * n_time) % hosts:
+        raise ValueError(f"a mesh of data={n_data} x time={n_time} does not "
+                         f"spread evenly over {hosts} hosts")
+    return n_data, n_data * n_time // hosts
+
+
 def data_ranks(batch: int, device_type: str) -> int:
-    """This host's data ranks: gcd(batch, device count) (train.py:117-122
-    per host)."""
-    return math.gcd(batch, device_count(device_type))
+    """This host's data ranks without SP: gcd(batch, device count)."""
+    return mesh_shape(batch, 1, 1, device_type)[0]
 
 
 def rank_rows(x: torch.Tensor, sh: Shards) -> torch.Tensor:
-    """This rank's contiguous slice of its host's batch (the leading axis)."""
-    b = x.shape[0] // sh.local_world
-    return x[sh.local_rank * b:(sh.local_rank + 1) * b]
+    """Rank (d, t)'s contiguous part d of n_data of the global batch x
+    (the leading axis)."""
+    b = x.shape[0] // sh.n_data
+    return x[sh.data_rank * b:(sh.data_rank + 1) * b]
 
 
-def host_batch(read: Callable[[], Dict[str, np.ndarray]],
-               shapes: Dict[str, Tuple[int, ...]], device: torch.device,
-               sh: Optional[Shards]) -> Dict[str, torch.Tensor]:
-    """This host's batch on ``device``: ``read()`` (a dict of float32
-    numpy arrays shaped as ``shapes``) runs on the host's first rank only,
-    which broadcasts what it read to the others.  Every rank receives every
-    host's batch (one broadcast from each host's first rank) and keeps its
-    own host's: one rank a host reads its own."""
-    if sh is None or sh.local_world == 1:
+def global_batch(read: Callable[[], Dict[str, np.ndarray]],
+                 shapes: Dict[str, Tuple[int, ...]], device: torch.device,
+                 sh: Optional[Shards]) -> Dict[str, torch.Tensor]:
+    """The global batch on ``device``: ``read()`` (a dict of float32 numpy
+    arrays shaped as ``shapes``, this host's batch) runs on each host's
+    first rank only, which broadcasts what it read to every rank; the
+    hosts' batches are concatenated in host order.  A lone rank reads its
+    own."""
+    if sh is None or sh.world == 1:
         return {k: torch.from_numpy(v).to(device) for k, v in read().items()}
     mine = read() if sh.local_rank == 0 else None
-    out = {}
+    parts: Dict[str, list] = {k: [] for k in shapes}
     for h in range(sh.hosts):
         src = h * sh.local_world
         for k in sorted(shapes):
             buf = (torch.from_numpy(mine[k]).to(device) if sh.rank == src
                    else torch.empty(shapes[k], device=device))
-            broadcast_(buf, sh, src)
-            if h == sh.host:
-                out[k] = buf
-    return out
+            parts[k].append(broadcast_(buf, sh, src))
+    return {k: v[0] if len(v) == 1 else torch.cat(v)
+            for k, v in parts.items()}
 
 
 def replicate_(ts, sh: Shards):

@@ -217,7 +217,7 @@ def _train(args, device, sh):
     from vqvae_wavenet_torch.models.prior import init_prior_params_np
     from vqvae_wavenet_torch.models.vqvae import speaker_vector
     from vqvae_wavenet_torch.params import to_torch
-    from vqvae_wavenet_torch.parallel.mesh import (host_batch, rank_rows,
+    from vqvae_wavenet_torch.parallel.mesh import (global_batch, rank_rows,
                                                    replicate_)
     from vqvae_wavenet_torch.training.checkpoint import (
         restore_checkpoint, save_checkpoint)
@@ -274,7 +274,7 @@ def _train(args, device, sh):
     try:
         for step in range(1, 1 + args.num_steps):
             t0 = time.perf_counter()
-            batch = host_batch(dataset.next, shapes, device, sh)
+            batch = global_batch(dataset.next, shapes, device, sh)
             if sh is not None:
                 batch = {k: rank_rows(v, sh) for k, v in batch.items()}
             # the frozen encoder runs in inference mode: no statistics

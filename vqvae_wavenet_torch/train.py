@@ -4,7 +4,8 @@ which keeps the reference's train.py:12-37, plus -device):
     python -m vqvae_wavenet_torch.train -dataset VCTK -length 6656 -batch 8 \
         -step 100000 -save saved_model/weights [-restore saved_model/weights-N] \
         [-interval 200] [-params model_parameters.json] [-device cuda|cpu] \
-        [-time_shards N [-decoder_halo auto|fused]] [-profile DIR] \
+        [-time_shards N [-decoder_halo auto|fused|layer|recompute]] \
+        [-profile DIR] \
         [-coordinator HOST:PORT -num_processes P -process_id h]
 
 One step is vqvae_forward (with -params magenta_parameters.json, the
@@ -30,22 +31,23 @@ statistics (and the EMA codebook's) and the loss means span every rank,
 and the gradients are summed over the ranks before one identical update on
 each (training/train_loop.py::dp_loss_and_grads).  -coordinator HOST:PORT
 -num_processes P -process_id h (given together, one process a host) join
-P hosts into one group at tcp://HOST:PORT, global rank = h * local ranks +
-local rank; -batch is per process (the global batch is -batch * P), and
-host h draws its crops from numpy seed h.  Rank 0 alone prints, writes
+P hosts into one group at tcp://HOST:PORT; -batch is per process (the
+global batch is -batch * P, the hosts' batches in host order), and host h
+draws its crops from numpy seed h.  Rank 0 alone prints, writes
 metrics.jsonl and the checkpoints, which are the single-device format; a
 restored state is rank 0's, broadcast.
 
--time_shards N trains sequence-parallel (parallel/timeshard.py) instead:
-N ranks are spawned, rank r on cuda:(r % device_count) (or the CPU), each
-with its time slice of every batch, which rank 0 reads and broadcasts; the
-stack kernels run per dilation cycle on halo-extended shards (their SP
-variants) and the gradients are summed over the ranks before the update.
-The batch is not split then (data = 1: the data x time mesh of JAX's
-train.py:139-152 is not ported, nor SP across hosts).  -decoder_halo auto
-is 'fused' on every device ('layer' and 'recompute' are not ported); SP of
-the Magenta family is not ported and raises.  -loader native is not
-ported and raises.
+-time_shards N adds sequence parallelism (parallel/timeshard.py), for
+either family, any encoder, norm and VQ mode: the ranks form a data x
+time mesh of n_data = gcd(global batch, devices // N) rows of N time
+shards (parallel/mesh.py::mesh_shape; n_data = 1, the N ranks sharing the
+devices, when there are fewer devices than N), global rank d * N + t on
+cuda:(local rank % device_count) (or the CPU) with the time slice t of
+its rows d of every batch; the stack kernels run per layer group on
+halo-extended shards (their SP variants): -decoder_halo auto = fused, a
+group per dilation cycle; recompute, one group with the receptive field's
+halo; layer, a group per layer.  The gradients are summed over every rank
+before the update.  -loader native is not ported and raises.
 
 -profile DIR traces steps 10-14 with torch.profiler (host and, on CUDA,
 device activity; rank 0 only) and writes DIR/trace.json (Chrome trace);
@@ -113,28 +115,25 @@ def parse_args(argv=None):
                              "random crop (dataset.py:23-31)")
     parser.add_argument("-time_shards", default=1, type=int, metavar="N",
                         help="sequence parallelism: split the time axis of "
-                             "every batch over N spawned ranks (-length/N a "
-                             "multiple of 64); the batch is then not split "
-                             "(the data x time mesh is not ported)")
+                             "every clip over N ranks (-length/N a multiple "
+                             "of the encoder's samples a frame); with more "
+                             "devices, a data x time mesh")
     parser.add_argument("-decoder_halo", default="auto",
                         choices=["auto", "fused", "layer", "recompute"],
-                        help="SP decoder scheme: 'fused' (= 'auto') runs "
-                             "one stack kernel call per dilation cycle with "
-                             "its recompute halo; 'layer' and 'recompute' "
-                             "are not ported (ROADMAP.md queue A, SP)")
+                        help="SP decoder scheme: 'fused' (= 'auto') one "
+                             "stack kernel call per dilation cycle with its "
+                             "halo, 'recompute' one call with the receptive "
+                             "field's halo, 'layer' one call per layer "
+                             "with its own halo")
     parser.add_argument("-device", default="cuda",
                         help="torch device (default cuda)")
     return parser.parse_args(argv)
 
 
 def _refuse_unported(args) -> None:
-    if args.decoder_halo in ("layer", "recompute"):
-        raise NotImplementedError(f"-decoder_halo {args.decoder_halo} is not "
-                                  f"ported (only 'fused'): ROADMAP.md queue "
-                                  f"A, SP")
     if args.loader == "native":
         raise NotImplementedError("-loader native (the C++ loader) is not "
-                                  "ported yet: ROADMAP.md queue A")
+                                  "ported yet: ROADMAP.md queue A, item 7")
 
 
 def _hosts(args):
@@ -164,37 +163,33 @@ def main(argv=None):
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.generate import resolve_device
     from vqvae_wavenet_torch.parallel import run_in_group, run_ranks
-    from vqvae_wavenet_torch.parallel.mesh import data_ranks
+    from vqvae_wavenet_torch.parallel.mesh import mesh_shape
     device = resolve_device(args.device)
     cfg = ModelConfig.from_json(args.parameter_path)
     check_length(cfg, args.max_len)
-    if args.time_shards > 1:
-        if hosts > 1:
-            raise NotImplementedError(
-                "-time_shards across hosts (the data x time mesh of "
-                "train.py:139-152) is not ported: ROADMAP.md queue A, SP")
+    n_time = args.time_shards
+    if n_time > 1:
         from vqvae_wavenet_torch.parallel.timeshard import check_supported
-        check_supported(cfg, args.max_len, args.time_shards,
-                        args.decoder_halo)
-        results = run_ranks(_rank, args.time_shards, device.type, vars(args),
-                            "time")
+        check_supported(cfg, args.max_len, n_time, args.decoder_halo)
+    n_data, local = mesh_shape(args.batch_size, n_time, hosts, device.type)
+    if n_data > 1 and n_time > 1:
+        print(f"[mesh] data={n_data} x time={n_time}")
+    if local * hosts == 1:
+        return _train(args, device, None)
+    if local == 1:      # this host's one rank: no child to spawn
+        results = [run_in_group(_rank, host, hosts, init, device.type,
+                                vars(args), hosts=hosts, n_time=n_time)]
     else:
-        local = data_ranks(args.batch_size, device.type)
-        if local * hosts == 1:
-            return _train(args, device, None)
-        if local == 1:      # this host's one rank: no child to spawn
-            results = [run_in_group(_rank, host, hosts, init, device.type,
-                                    vars(args), "data", hosts=hosts)]
-        else:
-            results = run_ranks(_rank, local, device.type, vars(args), "data",
-                                hosts=hosts, host=host, init_method=init)
+        results = run_ranks(_rank, local, device.type, vars(args),
+                            hosts=hosts, host=host, init_method=init,
+                            n_time=n_time)
     return dict(results[0], launches=[r["launches"] for r in results])
 
 
-def _rank(sh, args: dict, axis: str):
+def _rank(sh, args: dict):
     """One rank of a parallel run (spawned by run_ranks, or this host's
-    only one): ``axis`` "time" under -time_shards, else "data"."""
-    return _train(argparse.Namespace(**args), sh.device, sh, axis)
+    only one)."""
+    return _train(argparse.Namespace(**args), sh.device, sh)
 
 
 def _launch_counts() -> dict:
@@ -214,15 +209,15 @@ def _launch_counts() -> dict:
 PROFILE_STEPS = (10, 15)     # -profile traces steps 10-14 (train.py:210-219)
 
 
-def _train(args, device: torch.device, sh, axis: str = "data"):
+def _train(args, device: torch.device, sh):
     """The training loop on one device (sh None) or as rank sh.rank of a
-    data-parallel (``axis`` "data") or sequence-parallel ("time") run."""
+    parallel run (data-parallel, and sequence-parallel when sh.n_time > 1)."""
     from torch.profiler import record_function
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.data import DATASETS
     from vqvae_wavenet_torch.ops.conv import set_full_f32
     from vqvae_wavenet_torch.params import random_params_np, to_torch
-    from vqvae_wavenet_torch.parallel.mesh import (host_batch, rank_rows,
+    from vqvae_wavenet_torch.parallel.mesh import (global_batch, rank_rows,
                                                    replicate_)
     from vqvae_wavenet_torch.training.checkpoint import (
         restore_checkpoint, save_checkpoint)
@@ -259,34 +254,37 @@ def _train(args, device: torch.device, sh, axis: str = "data"):
     if sh is None:
         def step_fn(ts, batch):
             return train_step(ts, batch, cfg)
-    elif axis == "time":
-        from vqvae_wavenet_torch.parallel.timeshard import sp_loss_and_grads
-        t_l = args.max_len // sh.world
-        grads_fn = functools.partial(sp_loss_and_grads, sh=sh,
-                                     decoder_halo=args.decoder_halo)
-
-        def step_fn(ts, batch):
-            x_l = batch["x"][:, sh.rank * t_l:(sh.rank + 1) * t_l]
-            return train_step(ts, {"x": x_l.contiguous(), "y": batch["y"]},
-                              cfg, grads_fn=grads_fn)
     else:
-        grads_fn = functools.partial(dp_loss_and_grads, sh=sh)
+        if sh.n_time > 1:
+            from vqvae_wavenet_torch.parallel.timeshard import (
+                sp_loss_and_grads)
+            grads_fn = functools.partial(sp_loss_and_grads, sh=sh,
+                                         decoder_halo=args.decoder_halo)
+        else:
+            grads_fn = functools.partial(dp_loss_and_grads, sh=sh)
+        t_l = args.max_len // sh.n_time
+        rows = slice(sh.time_rank * t_l, (sh.time_rank + 1) * t_l)
 
         def step_fn(ts, batch):
-            return train_step(ts, {k: rank_rows(v, sh)
-                                   for k, v in batch.items()},
+            return train_step(ts, {"x": rank_rows(batch["x"], sh)[:, rows]
+                                   .contiguous(),
+                                   "y": rank_rows(batch["y"], sh)},
                               cfg, grads_fn=grads_fn, sh=sh)
     if lead:
         print(f"[restore] last global step: {gs}")
         staged = (", ranks share a GPU: exchanges staged through host "
                   "memory" if sh is not None and sh.staged else "")
-        if sh is not None and axis == "time":
-            print(f"[sp] {sh.world} time shards of {args.max_len // sh.world}"
-                  f" samples, backend {sh.backend}{staged}")
+        clips = args.batch_size * (sh.hosts if sh else 1)
+        if sh is not None and sh.n_time > 1:
+            print(f"[sp] {sh.n_time} time shards of "
+                  f"{args.max_len // sh.n_time} samples, backend "
+                  f"{sh.backend}{staged}; {sh.n_data} data row(s) of "
+                  f"{clips // sh.n_data} clips, decoder halo "
+                  f"{args.decoder_halo}")
         elif sh is not None:
             print(f"[dp] {sh.world} data ranks ({sh.hosts} host(s)) of "
-                  f"{args.batch_size // sh.local_world} clips, backend "
-                  f"{sh.backend}{staged}")
+                  f"{clips // sh.world} clips, backend {sh.backend}"
+                  f"{staged}")
 
     save_dir = os.path.dirname(args.save_path) or "."
     writer = None
@@ -305,7 +303,7 @@ def _train(args, device: torch.device, sh, axis: str = "data"):
                 prof = None
             t0 = time.perf_counter()
             with record_function("train_step"):
-                batch = host_batch(dataset.next, shapes, device, sh)
+                batch = global_batch(dataset.next, shapes, device, sh)
                 ts, metrics = step_fn(ts, batch)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)

@@ -123,8 +123,8 @@ def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
     ``grads_fn(params, model_state, cfg, batch)`` gives (loss, aux, grads):
     ``loss_and_grads`` here, ``dp_loss_and_grads`` under data parallelism,
     the sequence-parallel one under -time_shards (parallel/timeshard.py).
-    ``sh``: a data-parallel rank's place, over whose ranks the EMA
-    codebook's statistics are summed.  The gradients and the update run in
+    ``sh``: a parallel rank's place (data x time), over whose ranks the
+    EMA codebook's statistics are summed.  The gradients and the update run in
     the profiler ranges "loss_and_grads" and "optimizer"."""
     schedule = piecewise_constant_schedule(cfg.learning_rate_schedule)
     with record_function("loss_and_grads"):
