@@ -124,6 +124,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              kernels, the optimizer's kernels and copies, the device's
              idle share of the step, and the largest kernels outside the
              port's.
+  20. train-cond  the training CLI with "condition_upsample" and
+             "time_jitter" (the condition at one frame a sample through
+             the stack and loss-head kernels), six steps in f32 and bf16:
+             the loss falls, lc_encb's bytes, the step's ms and peak
+             memory; generate from the bf16 checkpoint;
+  21. q512   quantization_channels 512: six bf16 training steps (the loss
+             head over 256-column chunks), then the generation kernel at
+             Q=512 against its twin (teacher-forced bf16, greedy f32) and
+             generate from the checkpoint;
+  22. standalone  the standalone WaveNet trainer at the shipped decoder
+             widths, B=8 x 6656, f32, with lc [8, 104, 128] and without:
+             a step, and its loss and gradients against the plain twin;
+  23. summaries  one -interval write of the training CLI read back from
+             its event file (tags; each histogram's count its array's
+             size); [dp] reads rank 0's write of a 2-rank run;
+  24. visualise  python -m vqvae_wavenet_torch.visualise on [e2e]'s .npy
+             files.
+The training CLI's default -loader auto reads the synthetic
+16 kHz PCM16 corpus with the native C++ loader; [train-e2e] runs its bf16
+steps with -loader native and again with -loader python (steps/s side by
+side), and [train-epilogue] adds the loss head at F = T (one frame a
+sample) and at Q = 512 and 1,024.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and
 prints no result.  Outputs go under build/chip_smoke/ (gitignored).
@@ -1317,8 +1339,8 @@ def phase_train_bwd2(card: str):
     return out
 
 
-def _epilogue_inputs(B, T, F, dtype, g):
-    S, Q = 512, 256
+def _epilogue_inputs(B, T, F, dtype, g, Q: int = 256):
+    S = 512
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
     skip = (torch.randn((B, T, S), generator=g) * 0.5).cuda()
     w1 = ((torch.rand((S, S), generator=g) * 2 - 1)
@@ -1331,21 +1353,21 @@ def _epilogue_inputs(B, T, F, dtype, g):
     return skip, w1, w2, b2, enc2, labels
 
 
-def _epilogue_check(tag, B, T, F, dtype, g) -> dict:
+def _epilogue_check(tag, B, T, F, dtype, g, Q: int = 256) -> dict:
     """Both loss-head entries against their plain twins on one random case
-    at S=512, Q=256 (frames of T / F rows): the loss within 1e-5 (f32) /
+    at S=512 and Q classes (frames of T / F rows): the loss within 1e-5 (f32) /
     1e-3 (bf16) relative, sk = T(relu(skip)) bit for bit, every other
     leaf as in train-stack; the backward twin gets the kernel forward's a1
     and probs and rounds relu(skip) itself.  Returns the case: its forward
     and backward arguments, the kernel's outputs and the errors."""
     from vqvae_wavenet_torch.ops import epilogue_kernels as ek
     N = B * T
-    fwd = _epilogue_inputs(B, T, F, dtype, g)
+    fwd = _epilogue_inputs(B, T, F, dtype, g, Q)
     skip, w1, w2, b2, enc2, labels = fwd
     lk, a1, probs, sk = ek.epilogue_forward_cuda(*fwd)
     lp, a1_p, probs_p = ek.epilogue_forward_plain(*fwd)
     l_err = abs(float(lk) - float(lp)) / abs(float(lp))
-    log(f"[{tag}] {dtype} B={B} T={T} F={F}: loss kernel "
+    log(f"[{tag}] {dtype} B={B} T={T} F={F} Q={Q}: loss kernel "
         f"{float(lk) / N:.6f} plain {float(lp) / N:.6f} (relative "
         f"{l_err:.3g})")
     if not l_err <= (1e-5 if dtype == "f32" else 1e-3):
@@ -1393,52 +1415,67 @@ def _epilogue_repeat(tag, dtype, case) -> None:
                     ek.epilogue_backward_cuda(*case["bargs"], case["sk"]))
 
 
+def _epilogue_times(case):
+    """(fwd kernel, fwd plain, bwd kernel, bwd plain) ms of one case."""
+    from vqvae_wavenet_torch.ops import epilogue_kernels as ek
+    fwd, bargs, sk = case["fwd"], case["bargs"], case["sk"]
+    return (cuda_ms(lambda: ek.epilogue_forward_cuda(*fwd), 10),
+            cuda_ms(lambda: ek.epilogue_forward_plain(*fwd), 5),
+            cuda_ms(lambda: ek.epilogue_backward_cuda(*bargs, sk), 10),
+            cuda_ms(lambda: ek.epilogue_backward_plain(*bargs), 5))
+
+
 def phase_train_epilogue(card: str):
     """The loss-head kernel (forward and backward entries) against its
     plain twin at the shipped widths S=512, Q=256, f32 and bf16, at B=8,
     T=6656 (104 frames of 64 rows) and at B=3, T=4416 (69 frames: T % 128
     = 64, so the last row tile of each batch row is half empty), by
-    ``_epilogue_check``.  At the full shape both entries run twice on the
-    same inputs and must repeat bit for bit, and torch.profiler splits
-    their device time by kernel.  Returns the JSON fields of both entries
-    (bf16, full shape)."""
+    ``_epilogue_check``; then at one row a frame (F = T = 6,656: the
+    upsampled condition) and at Q=512 and Q=1,024 (104 frames: the
+    classes walked in 256-column chunks).  At B=8 both entries run twice
+    on the same inputs and must repeat bit for bit, and each case's times
+    stand beside its bound; at the full shape torch.profiler splits their
+    device time by kernel, and Q=256 is timed again after the other cases
+    (its run-to-run range).  Returns the JSON fields of both entries
+    (bf16, full shape, Q=256)."""
     from vqvae_wavenet_torch.ops import epilogue_kernels as ek
     g = torch.Generator(device="cpu").manual_seed(5)
     out = {}
-    for B, T, F in ((8, 6656, 104), (3, 4416, 69)):
+    for B, T, F, Q in ((8, 6656, 104, 256), (3, 4416, 69, 256),
+                       (8, 6656, 6656, 256), (8, 6656, 104, 512),
+                       (8, 6656, 104, 1024)):
         for dtype in ("f32", "bf16"):
-            case = _epilogue_check("train-epilogue", B, T, F, dtype, g)
+            case = _epilogue_check("train-epilogue", B, T, F, dtype, g, Q)
             if B != 8:
                 del case
                 continue
             _epilogue_repeat("train-epilogue", dtype, case)
-            fwd, bargs, sk = case["fwd"], case["bargs"], case["sk"]
-            f_ms = cuda_ms(lambda: ek.epilogue_forward_cuda(*fwd), 10)
-            fp_ms = cuda_ms(lambda: ek.epilogue_forward_plain(*fwd), 5)
-            b_ms = cuda_ms(lambda: ek.epilogue_backward_cuda(*bargs, sk),
-                           10)
-            bp_ms = cuda_ms(lambda: ek.epilogue_backward_plain(*bargs), 5)
-            for name, fn in (
-                    ("fwd", lambda: ek.epilogue_forward_cuda(*fwd)),
-                    ("bwd", lambda: ek.epilogue_backward_cuda(*bargs, sk))):
-                parts = _kernel_breakdown(fn)
-                log(f"[train-epilogue] {dtype} {name} per kernel, device us "
-                    f"per call (calls), torch.profiler: " + ", ".join(
-                        f"{k} {us / n:.1f} ({n})" for k, (us, n) in sorted(
-                            parts.items(), key=lambda kv: -kv[1][0]))
-                    + f"; sum {sum(us for us, _ in parts.values()):.1f}")
-                if name == "fwd":
-                    rr = parts.get("relu_round")
-                    rr_txt = ("not measured" if rr is None
-                              else f"{rr[0] / rr[1] / 1e3:.3f} ms")
+            f_ms, fp_ms, b_ms, bp_ms = _epilogue_times(case)
             f_bound, b_bound = _epilogue_bounds(case, dtype)
-            log(f"[train-epilogue] {dtype} B={B} T={T}: fwd kernel "
-                f"{f_ms:.3f} ms (plain {fp_ms:.3f}, bound {f_bound[0]:.3f} "
-                f"by {f_bound[1]}; its relu_round pass, which writes sk "
-                f"for TMA, {rr_txt} of device time), bwd "
+            rr_txt = "not split"
+            if (F, Q) == (104, 256):
+                fwd, bargs, sk = case["fwd"], case["bargs"], case["sk"]
+                for name, fn in (
+                        ("fwd", lambda: ek.epilogue_forward_cuda(*fwd)),
+                        ("bwd", lambda: ek.epilogue_backward_cuda(*bargs,
+                                                                  sk))):
+                    parts = _kernel_breakdown(fn)
+                    log(f"[train-epilogue] {dtype} {name} per kernel, device "
+                        f"us per call (calls), torch.profiler: " + ", ".join(
+                            f"{k} {us / n:.1f} ({n})" for k, (us, n) in
+                            sorted(parts.items(), key=lambda kv: -kv[1][0]))
+                        + f"; sum {sum(us for us, _ in parts.values()):.1f}")
+                    if name == "fwd":
+                        rr = parts.get("relu_round")
+                        rr_txt = ("not measured" if rr is None
+                                  else f"{rr[0] / rr[1] / 1e3:.3f} ms")
+            log(f"[train-epilogue] {dtype} B={B} T={T} F={F} Q={Q}: fwd "
+                f"kernel {f_ms:.3f} ms (plain {fp_ms:.3f}, bound "
+                f"{f_bound[0]:.3f} by {f_bound[1]}; its relu_round pass, "
+                f"which writes sk for TMA, {rr_txt} of device time), bwd "
                 f"kernel {b_ms:.3f} ms (plain {bp_ms:.3f}, bound "
                 f"{b_bound[0]:.3f} by {b_bound[1]})  ({card})")
-            if dtype == "bf16":
+            if dtype == "bf16" and (F, Q) == (104, 256):
                 out["train_epilogue_fwd"] = {
                     "max_abs_err": case["f_err"], "ms": f_ms,
                     "plain_ms": fp_ms, "bound_ms": f_bound[0],
@@ -1447,8 +1484,16 @@ def phase_train_epilogue(card: str):
                     "max_abs_err": case["b_err"], "ms": b_ms,
                     "plain_ms": bp_ms, "bound_ms": b_bound[0],
                     "bound_by": b_bound[1], "library_ms": None}
-            del case, fwd, bargs, sk
+            del case
             torch.cuda.empty_cache()
+    case = _epilogue_check("train-epilogue", 8, 6656, 104, "bf16", g)
+    f_ms, _, b_ms, _ = _epilogue_times(case)
+    log(f"[train-epilogue] bf16 B=8 T=6656 F=104 Q=256 again, after the "
+        f"other cases: fwd kernel {f_ms:.3f} ms, bwd kernel {b_ms:.3f} ms "
+        f"(first: {out['train_epilogue_fwd']['ms']:.3f}, "
+        f"{out['train_epilogue_bwd']['ms']:.3f})  ({card})")
+    del case
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1499,17 +1544,23 @@ def phase_train_e2e(card: str):
     data = _train_corpus()
     configs = {dtype: _train_config(dtype) for dtype in ("f32", "bf16")}
     launches = {}
+    rates = {}
     ckpt = None
     for dtype in ("f32", "bf16"):
         save = os.path.join(OUT, f"train_{dtype}")
         vq_kernels.launches = 0
         train_kernels.fwd_launches = train_kernels.bwd_launches = 0
         epilogue_kernels.fwd_launches = epilogue_kernels.bwd_launches = 0
-        res = train_cli.main([
-            "-dataset", "VCTK", "-length", "6656", "-batch", "8", "-step",
-            "6", "-save", os.path.join(save, "weights"), "-params",
-            configs[dtype], "-data", data, "-device", "cuda", "-log_every",
-            "1", "-interval", "1000", "-ckpt_interval", "1000"])
+        with _Tee() as tee:
+            res = train_cli.main([
+                "-dataset", "VCTK", "-length", "6656", "-batch", "8",
+                "-step", "6", "-save", os.path.join(save, "weights"),
+                "-params", configs[dtype], "-data", data, "-device", "cuda",
+                "-log_every", "1", "-interval", "1000", "-ckpt_interval",
+                "1000", "-loader", "native"])
+        if "[data] native C++ loader" not in tee.text:
+            raise AssertionError("[train-e2e] -loader native printed no "
+                                 "loader line")
         counts = {"vq_argmin": vq_kernels.launches,
                   "train_stack_fwd": train_kernels.fwd_launches,
                   "train_stack_bwd": train_kernels.bwd_launches,
@@ -1517,11 +1568,12 @@ def phase_train_e2e(card: str):
                   "train_epilogue_bwd": epilogue_kernels.bwd_launches}
         print()
         steady = res["step_seconds"][2:]
+        rates[dtype] = len(steady) / sum(steady)
         log(f"[train-e2e] {dtype}: losses "
             + " ".join(f"{v:.4f}" for v in res["losses"])
-            + f"; {len(steady) / sum(steady):.3f} steps/s over steps 3-6 "
+            + f"; {rates[dtype]:.3f} steps/s over steps 3-6 "
             f"(host clock, synchronised; first step "
-            f"{res['step_seconds'][0]:.2f} s)  ({card})")
+            f"{res['step_seconds'][0]:.2f} s; -loader native)  ({card})")
         log(f"[train-e2e] {dtype}: kernel launches {counts}")
         if not np.isfinite(res["losses"]).all():
             raise AssertionError(f"non-finite training loss ({dtype})")
@@ -1537,6 +1589,15 @@ def phase_train_e2e(card: str):
         if min(counts[k] for k in need) < 1:
             raise AssertionError(f"a kernel of the {dtype} training path "
                                  f"was never launched: {counts}")
+    res, counts = _cli_train("train-e2e python loader", card,
+                             configs["bf16"], 6656, data,
+                             os.path.join(OUT, "train_bf16_python"),
+                             "-loader", "python")
+    _need("train-e2e python loader", counts)
+    _add(launches, counts)
+    log(f"[train-e2e] bf16 steps/s over steps 3-6: -loader native "
+        f"{rates['bf16']:.3f}, -loader python {res['steps_per_s']:.3f} "
+        f"(same corpus, host clock)  ({card})")
     audio = os.path.join(OUT, "train_input.wav")
     t = np.arange(2048) / 16000.0
     wavfile.write(audio, 16000, (0.3 * np.sin(2 * np.pi * 200.0 * t)
@@ -2057,21 +2118,47 @@ def phase_sp_train(card: str):
     return launches
 
 
-def _cli_train(tag, card, params_json, length: int, data: str, save: str):
-    """vqvae_wavenet_torch.train for six steps at -batch 8 with the VQ,
-    stack and loss-head counters set to 0 just before and read just after;
-    finite losses and a checkpoint.  Returns (result, counts)."""
+class _Tee:
+    """Standard output copied into ``text`` while it prints."""
+
+    def __init__(self):
+        self.text = ""
+
+    def write(self, s):
+        self.text += s
+        return self._out.write(s)
+
+    def flush(self):
+        self._out.flush()
+
+    def __enter__(self):
+        self._out, sys.stdout = sys.stdout, self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self._out
+
+
+def _cli_train(tag, card, params_json, length: int, data: str, save: str,
+               *extra, steps: int = 6):
+    """vqvae_wavenet_torch.train for ``steps`` steps at -batch 8 (and the
+    ``extra`` flags) with the VQ, stack and loss-head counters set to 0
+    just before and read just after; finite losses and a checkpoint.
+    Returns (result with its printed text under "stdout", counts)."""
     from vqvae_wavenet_torch import train as train_cli
     from vqvae_wavenet_torch.ops import (epilogue_kernels, train_kernels,
                                          vq_kernels)
     vq_kernels.launches = 0
     train_kernels.fwd_launches = train_kernels.bwd_launches = 0
     epilogue_kernels.fwd_launches = epilogue_kernels.bwd_launches = 0
-    res = train_cli.main([
-        "-dataset", "VCTK", "-length", str(length), "-batch", "8", "-step",
-        "6", "-save", os.path.join(save, "weights"), "-params", params_json,
-        "-data", data, "-device", "cuda", "-log_every", "1", "-interval",
-        "1000", "-ckpt_interval", "1000"])
+    with _Tee() as tee:
+        res = train_cli.main([
+            "-dataset", "VCTK", "-length", str(length), "-batch", "8",
+            "-step", str(steps), "-save", os.path.join(save, "weights"),
+            "-params", params_json, "-data", data, "-device", "cuda",
+            "-log_every", "1", "-interval", "1000", "-ckpt_interval",
+            "1000", *extra])
+    res["stdout"] = tee.text
     counts = {"vq_argmin": vq_kernels.launches,
               "train_stack_fwd": train_kernels.fwd_launches,
               "train_stack_bwd": train_kernels.bwd_launches,
@@ -2079,8 +2166,9 @@ def _cli_train(tag, card, params_json, length: int, data: str, save: str):
               "train_epilogue_bwd": epilogue_kernels.bwd_launches}
     print()
     steady = res["step_seconds"][2:]
+    res["steps_per_s"] = len(steady) / sum(steady)
     log(f"[{tag}] losses " + " ".join(f"{v:.4f}" for v in res["losses"])
-        + f"; {len(steady) / sum(steady):.3f} steps/s over steps 3-6 (host "
+        + f"; {res['steps_per_s']:.3f} steps/s over steps 3-{steps} (host "
         f"clock, synchronised; first step {res['step_seconds'][0]:.2f} s); "
         f"kernel launches {counts}  ({card})")
     if not np.isfinite(res["losses"]).all():
@@ -2088,6 +2176,394 @@ def _cli_train(tag, card, params_json, length: int, data: str, save: str):
     if not os.path.exists(res["path"] + ".npz"):
         raise AssertionError(f"[{tag}] no checkpoint written")
     return res, counts
+
+
+TRAIN_NEED = ("vq_argmin", "train_stack_fwd", "train_stack_bwd",
+              "train_epilogue_fwd", "train_epilogue_bwd")
+
+
+def _need(tag, counts, need=TRAIN_NEED) -> None:
+    if min(counts.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"[{tag}] a kernel of the path was never "
+                             f"launched: {counts}")
+
+
+def _gen_from(tag, card, ckpt, params_json, data) -> dict:
+    """vqvae_wavenet_torch.generate from a training checkpoint: 2,048
+    greedy samples for p226 in bf16, the VQ and generation counters set to
+    0 just before and read just after."""
+    from scipy.io import wavfile
+    from vqvae_wavenet_torch import generate as gen_cli
+    from vqvae_wavenet_torch.ops import gen_kernels, vq_kernels
+    audio = os.path.join(OUT, "train_input.wav")
+    t = np.arange(2048) / 16000.0
+    wavfile.write(audio, 16000, (0.3 * np.sin(2 * np.pi * 200.0 * t)
+                                 * 32767).astype(np.int16))
+    vq_kernels.launches = gen_kernels.launches = 0
+    res = gen_cli.main(["-restore", ckpt, "-audio", audio, "-speakers",
+                        "p226", "-mode", "greedy", "-params", params_json,
+                        "-data", data, "-device", "cuda"])
+    counts = {"vq_argmin": vq_kernels.launches,
+              "gen_wavenet": gen_kernels.launches}
+    if res["audio"].shape != (1, 2048) or not np.isfinite(
+            res["audio"]).all():
+        raise AssertionError(f"[{tag}] generation from the checkpoint failed")
+    _need(tag, counts, ("vq_argmin", "gen_wavenet"))
+    log(f"[{tag}] generated 2048 samples from {os.path.basename(ckpt)} in "
+        f"{res['seconds']:.2f} s; launches {counts}  ({card})")
+    return counts
+
+
+def phase_train_cond(card: str):
+    """The upsampled condition and the time jitter through the training
+    CLI: the shipped config with "condition_upsample": true and
+    "time_jitter": true at -batch 8 -length 6656, six steps in f32 and in
+    bf16 (the condition reaches the stack and loss-head kernels at one
+    frame a sample: F = T = 6,656, C = 128): finite losses that fall (the
+    mean of the last two below the first), the
+    path's kernels launched, lc_encb's bytes and the step's ms and peak
+    memory; then vqvae_wavenet_torch.generate converts from the bf16
+    checkpoint.  Returns the runs' launch counts."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    data = _train_corpus()
+    total: dict = {}
+    for dtype in ("f32", "bf16"):
+        cfgp = _train_config(dtype, condition_upsample=True,
+                             time_jitter=True)
+        torch.cuda.reset_peak_memory_stats()
+        res, counts = _cli_train("train-cond", card, cfgp, 6656, data,
+                                 os.path.join(OUT, f"cond_{dtype}"))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        w = ModelConfig.from_json(cfgp).wavenet
+        lc_bytes = 4 * w.num_layers * 6656 * 8 * 2 * w.dilation_filters
+        log(f"[train-cond] {dtype}: lc_encb [L, F, B, 2D] f32 at F = T = "
+            f"6656: {lc_bytes / 1e9:.3f} GB (its gradient as large); step "
+            f"{1e3 / res['steps_per_s']:.1f} ms; peak device memory "
+            f"{peak:.2f} GB  ({card})")
+        losses = res["losses"]
+        if not np.mean(losses[-2:]) < losses[0]:
+            raise AssertionError(f"[train-cond] {dtype}: the loss does not "
+                                 f"fall: {losses}")
+        _need("train-cond", counts, TRAIN_NEED if dtype == "bf16"
+              else TRAIN_NEED[:3])
+        _add(total, counts)
+    _add(total, _gen_from("train-cond", card, res["path"] + ".npz", cfgp,
+                          data))
+    return total
+
+
+def _q512_config() -> str:
+    """build/chip_smoke/model_q512_bf16.json: the shipped config in bf16
+    with a copy of wavenet_parameters.json at quantization_channels 512."""
+    path = os.path.join(OUT, "model_q512_bf16.json")
+    wpath = os.path.join(OUT, "wavenet_q512.json")
+    with open(os.path.join(REPO, "wavenet_parameters.json")) as f:
+        _write_json(wpath, dict(json.load(f), quantization_channels=512))
+    with open(os.path.join(REPO, "model_parameters.json")) as f:
+        mp = json.load(f)
+    _write_json(path, dict(mp, wavenet_parameters=wpath, train_dtype="bf16"))
+    return path
+
+
+def phase_q512(card: str):
+    """quantization_channels 512 end to end: six bf16 steps through the
+    training CLI at -batch 8 -length 6656 (the loss head over two
+    256-column chunks), then the generation kernel on the trained
+    decoder at Q=512 against its plain twin: teacher-forced bf16 logits
+    within 5e-2 of max |logit|, a greedy f32 clip of 1,024 samples with
+    identical bins (or a first divergence at a near tie), and
+    vqvae_wavenet_torch.generate from the checkpoint.  Returns the
+    launches."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.ops import gen_kernels as gk
+    from vqvae_wavenet_torch.params import load_npz
+    data = _train_corpus()
+    cfgp = _q512_config()
+    res, counts = _cli_train("q512", card, cfgp, 6656, data,
+                             os.path.join(OUT, "q512"))
+    _need("q512", counts)
+    ckpt = res["path"] + ".npz"
+    wcfg = ModelConfig.from_json(cfgp).wavenet
+    params, _ = load_npz(ckpt, "cuda")
+    dec = params["decoder"]
+    if dec["postprocess2"]["kernel"].shape[-1] != 512:
+        raise AssertionError("[q512] the checkpoint's head is not 512 wide")
+    g = torch.Generator(device="cpu").manual_seed(9)
+    lc = (torch.randn((3, 4, dec["layers"]["lc_kernel"].shape[1]),
+                      generator=g) * 0.5).cuda()
+    w16 = gk.pack_gen_params(dec, wcfg, torch.bfloat16, "cuda")
+    _teacher_forced_check("q512", dec, w16, lc, None, "tanh_first",
+                          BF16_LOGIT_TOL, g)
+    w32 = gk.pack_gen_params(dec, wcfg, torch.float32, "cuda")
+    gcon, g_pp1 = gk.condition_terms(dec, w32, 1)
+    lc1 = lc[:1].repeat_interleave(4, dim=1)
+    bk, _ = gk.generate_clip_cuda(w32, lc1, gcon, g_pp1, length=1024)
+    bp, lp = gk.generate_clip_plain(w32, lc1, gcon, g_pp1, length=1024,
+                                    want_logits=True)
+    diff = (bk != bp).nonzero()
+    if len(diff):
+        first = int(diff[0, 1])
+        top2 = torch.topk(lp[0, first], 2).values
+        margin = float(top2[0] - top2[1])
+        log(f"[q512] greedy f32 1024: first divergence at step {first}, "
+            f"plain top-two margin {margin:.3g}")
+        if margin > GREEDY_TIE:
+            raise AssertionError("[q512] greedy bins diverge away from a "
+                                 "near tie")
+    else:
+        log(f"[q512] greedy f32 1024: bins identical "
+            f"({int(torch.unique(bk).numel())} distinct bins, max "
+            f"{int(bk.max())})")
+    _add(counts, _gen_from("q512", card, ckpt, cfgp, data))
+    return counts
+
+
+class _PlainStack:
+    """Inside: the stack's CUDA entries ``names`` run their plain twins (on
+    the same CUDA tensors), so a whole step can be held against its plain
+    twin."""
+
+    def __init__(self, names=("stack_forward", "stack_backward")):
+        self.NAMES = names
+
+    def __enter__(self):
+        from vqvae_wavenet_torch.ops import train_kernels as tk
+        self._saved = {n: getattr(tk, n + "_cuda") for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(tk, n + "_cuda", getattr(tk, n + "_plain"))
+
+    def __exit__(self, *exc):
+        from vqvae_wavenet_torch.ops import train_kernels as tk
+        for n, f in self._saved.items():
+            setattr(tk, n + "_cuda", f)
+
+
+def phase_standalone(card: str):
+    """The standalone WaveNet trainer (models/wavenet.py::
+    make_standalone_trainer) at the shipped decoder widths (30 layers,
+    R=256, 2D=512, S=512, Q=256), B=8 x 6656, f32, with lc [B, 104, 128]
+    and with no lc: one step_fn call (the stack kernels' counters set to 0
+    just before and read just after), and the first step's loss against
+    the plain twin's (forward and backward plain) and its gradients
+    against the plain backward twin run on the kernel forward's saved
+    activations (1e-3 of each leaf's max), as [train-epilogue] feeds its
+    backward twin the kernel forward's outputs: from a plain forward, a
+    head's relu gate that an f32 rounding difference flips moves a
+    condition kernel's gradient by more than 1e-3 of its max.  Returns
+    the launches."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.models.wavenet import (make_standalone_trainer,
+                                                    wavenet_forward,
+                                                    wavenet_loss)
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    from vqvae_wavenet_torch.training.optimizer import tree_leaves
+    w = ModelConfig.from_json(os.path.join(REPO,
+                                           "model_parameters.json")).wavenet
+    x, _ = _fixed_batch(8, "cuda")
+    g = torch.Generator(device="cpu").manual_seed(13)
+    total = {"train_stack_fwd": 0, "train_stack_bwd": 0}
+    for c_lc in (128, None):
+        tag = f"standalone lc={'[8, 104, 128]' if c_lc else 'none'}"
+        init_fn, step_fn = make_standalone_trainer(w, c_lc)
+        state = init_fn(np.random.default_rng(0), "cuda")
+        lc = (None if c_lc is None else
+              (torch.randn((8, 104, c_lc), generator=g) * 0.5).cuda())
+
+        def grads():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(state["params"])]
+            from vqvae_wavenet_torch.training.optimizer import tree_unflatten
+            p = tree_unflatten(state["params"], leaves)
+            loss = wavenet_loss(*wavenet_forward(p, w, x, lc))
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        tk.fwd_launches = tk.bwd_launches = 0
+        t0 = time.perf_counter()
+        new, m = step_fn(state, x, lc)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"train_stack_fwd": tk.fwd_launches,
+                  "train_stack_bwd": tk.bwd_launches}
+        _need(tag, counts, tuple(counts))
+        _add(total, counts)
+        lk, gk_ = grads()
+        with _PlainStack():
+            lp, _ = grads()
+        with _PlainStack(("stack_backward",)):
+            _, gp = grads()
+        rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        log(f"[{tag}] f32 step {secs * 1e3:.1f} ms (first call, host "
+            f"clock); loss {float(m['loss']):.6f}, kernel {float(lk):.6f} "
+            f"plain {float(lp):.6f} (relative {rel:.3g}); launches "
+            f"{counts}  ({card})")
+        if not rel <= TRAIN_TOL["f32"] or abs(
+                float(m["loss"]) - float(lk)) > 1e-6 * abs(float(lk)):
+            raise AssertionError(f"[{tag}] loss disagrees")
+        _check_leaves(tag, "f32", {f"leaf {i}": (a, b) for i, (a, b) in
+                                   enumerate(zip(gk_, gp))})
+        if not new["step"] == 1 or not all(
+                torch.isfinite(t).all() for t in tree_leaves(new["params"])):
+            raise AssertionError(f"[{tag}] the update failed")
+        del state, new, gk_, gp
+        torch.cuda.empty_cache()
+    return total
+
+
+def _pb_fields(buf: bytes) -> dict:
+    """A protobuf message's fields: {number: [value, ...]}, varints as
+    ints, fixed64 / fixed32 / length-delimited as bytes."""
+    out, i = {}, 0
+    while i < len(buf):
+        key, i = _pb_varint(buf, i)
+        num, wire = key >> 3, key & 7
+        if wire == 0:
+            v, i = _pb_varint(buf, i)
+        elif wire == 1:
+            v, i = buf[i:i + 8], i + 8
+        elif wire == 5:
+            v, i = buf[i:i + 4], i + 4
+        elif wire == 2:
+            n, i = _pb_varint(buf, i)
+            v, i = buf[i:i + n], i + n
+        else:
+            raise AssertionError(f"unexpected protobuf wire type {wire}")
+        out.setdefault(num, []).append(v)
+    return out
+
+
+def _pb_varint(buf: bytes, i: int):
+    v = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return v, i
+
+
+def read_events(path: str) -> list:
+    """An event file's events as (step, {tag: simple_value or (num,
+    bucket counts)}), each record's length and data checked against its
+    masked CRC32C; the first event must carry the file version."""
+    from vqvae_wavenet_torch.training.metrics import masked_crc32c
+    import struct
+    data = open(path, "rb").read()
+    i, events = 0, []
+    while i < len(data):
+        head = data[i:i + 8]
+        (n,) = struct.unpack("<Q", head)
+        (c1,) = struct.unpack("<I", data[i + 8:i + 12])
+        rec = data[i + 12:i + 12 + n]
+        (c2,) = struct.unpack("<I", data[i + 12 + n:i + 16 + n])
+        if c1 != masked_crc32c(head) or c2 != masked_crc32c(rec):
+            raise AssertionError(f"{path}: a record fails its CRC")
+        i += 16 + n
+        ev = _pb_fields(rec)
+        if not events and ev.get(3) != [b"brain.Event:2"]:
+            raise AssertionError(f"{path}: no file version first")
+        vals = {}
+        for summ in ev.get(5, []):
+            for v in _pb_fields(summ).get(1, []):
+                f = _pb_fields(v)
+                tag = f[1][0].decode()
+                if 5 in f:
+                    h = _pb_fields(f[5][0])
+                    (num,) = struct.unpack("<d", h[3][0])
+                    counts = np.frombuffer(b"".join(h.get(7, [])), "<f8")
+                    vals[tag] = (num, counts)
+                else:
+                    vals[tag] = struct.unpack("<f", f[2][0])[0]
+        events.append((ev.get(2, [0])[0], vals))
+    return events
+
+
+def _check_event_file(tag, save_dir, step: int, cfg_json, card) -> None:
+    """The event file in save_dir: the scalars and the histogram set of
+    one -interval write at ``step``, each histogram's count equal to its
+    array's size (the parameters' shapes, B=8 x 104 frames)."""
+    from vqvae_wavenet_torch.config import ModelConfig
+    from vqvae_wavenet_torch.params import random_params_np
+    from vqvae_wavenet_torch.training.metrics import clean_tag, tree_paths
+    (name,) = [f for f in os.listdir(save_dir) if "tfevents" in f]
+    events = read_events(os.path.join(save_dir, name))
+    got = {}
+    for s, vals in events:
+        if s == step:
+            got.update(vals)
+    cfg = ModelConfig.from_json(cfg_json)
+    params, _ = random_params_np(cfg, 109)
+    w, n = cfg.wavenet, 8 * 104
+    sizes = {"z_e": n * cfg.latent_dim, "e_k": n * cfg.latent_dim,
+             "q_z_x_": n, "distances": n * cfg.k,
+             "embedding": cfg.k * cfg.latent_dim,
+             "speaker_embedding": 109 * cfg.speaker_embedding}
+    sizes.update({f"wavenet/layer_{i}/kernel": w.kernel_size
+                  * w.residual_filters * 2 * w.dilation_filters
+                  for i in range(w.num_layers)})
+    sizes.update({clean_tag(f"gradients/{p}"): v.size
+                  for p, v in tree_paths(params)})
+    scalars = ("loss", "reconstruction_loss", "lr", "vq_loss",
+               "commitment_loss", "perplexity", "distances_mean",
+               "global_norm/gradient_norm")
+    missing = [k for k in list(sizes) + list(scalars) if k not in got]
+    if missing:
+        raise AssertionError(f"[{tag}] tags missing at step {step}: "
+                             f"{missing[:8]}")
+    bad = {k: (got[k][0], float(got[k][1].sum()), v)
+           for k, v in sizes.items()
+           if not got[k][0] == got[k][1].sum() == v}
+    if bad:
+        raise AssertionError(f"[{tag}] histogram counts differ from the "
+                             f"array sizes: {list(bad.items())[:4]}")
+    log(f"[{tag}] event file {name}: {len(events)} events; at step {step} "
+        f"{len(got)} tags ({len(sizes)} histograms, each count its array's "
+        f"size; gradient norm {got['global_norm/gradient_norm']:.4g}; loss "
+        f"{got['loss']:.4f})  ({card})")
+
+
+def phase_summaries(card: str):
+    """One -interval write of the training CLI (the shipped config, bf16,
+    -batch 8 -length 6656, three steps, -interval 3) read back by
+    ``read_events``: the scalars and the reference's histogram set, each
+    histogram's count equal to its array's size.  [dp] reads the same
+    write from rank 0 of a 2-rank run.  Returns the launches."""
+    data = _train_corpus()
+    save = os.path.join(OUT, "summaries")
+    if os.path.isdir(save):
+        import shutil
+        shutil.rmtree(save)
+    cfgp = _train_config("bf16")
+    res, counts = _cli_train("summaries", card, cfgp, 6656, data, save,
+                             "-interval", "3", steps=3)
+    _need("summaries", counts)
+    _check_event_file("summaries", save, 3, cfgp, card)
+    return counts
+
+
+def phase_visualise(card: str):
+    """python -m vqvae_wavenet_torch.visualise on the codebook and speaker
+    table [e2e]'s conversions wrote (build/chip_smoke/embedding_0.npy,
+    speaker_embedding_0.npy) with the repo's VCTK tables: four TSV files,
+    one row a code or a speaker."""
+    from vqvae_wavenet_torch import visualise
+    emb = os.path.join(OUT, "embedding_0.npy")
+    spk = os.path.join(OUT, "speaker_embedding_0.npy")
+    if not (os.path.exists(emb) and os.path.exists(spk)):
+        _convert(card, "visualise", _e2e_checkpoint(),
+                 os.path.join(REPO, "model_parameters.json"), _e2e_wav(),
+                 "bf16", "greedy", distinct=True)
+    save = os.path.join(OUT, "visualise")
+    visualise.main(["-embedding", emb, "-speaker", spk, "-dataset", "VCTK",
+                    "-save", save, "-data", os.path.join(REPO, "data")])
+    rows = {}
+    for stem, n in (("embedding_0", 512), ("speaker_embedding_0", 109)):
+        for kind in ("vecs", "meta"):
+            with open(os.path.join(save, f"{stem}_{kind}.tsv")) as f:
+                rows[f"{stem}_{kind}"] = f.read().count("\n")
+            if rows[f"{stem}_{kind}"] != n:
+                raise AssertionError(f"[visualise] {stem}_{kind}.tsv: "
+                                     f"{rows[f'{stem}_{kind}']} rows, not {n}")
+    log(f"[visualise] TSV rows {rows}")
 
 
 def _add(total: dict, counts: dict) -> None:
@@ -2516,11 +2992,15 @@ def phase_dp(card: str):
     p_loss, p_grads = prior_loss_and_grads(params, codes, h)
     p_grads = [g.cpu() for g in p_grads]
     torch.cuda.empty_cache()
+    dp_save = os.path.join(OUT, "dp_train")
+    if os.path.isdir(dp_save):
+        import shutil
+        shutil.rmtree(dp_save)
     cli = vars(train_cli.parse_args([
         "-dataset", "VCTK", "-length", "6656", "-batch", "8", "-step", "4",
-        "-save", os.path.join(OUT, "dp_train", "weights"), "-params",
+        "-save", os.path.join(dp_save, "weights"), "-params",
         _train_config("bf16"), "-data", data, "-device", "cuda",
-        "-log_every", "1", "-interval", "1000", "-ckpt_interval", "1000"]))
+        "-log_every", "1", "-interval", "4", "-ckpt_interval", "1000"]))
     t0 = time.perf_counter()
     res = run_ranks(_dp_rank, 2, "cuda", 8, dtypes, cli, timeout=600)
     secs = time.perf_counter() - t0
@@ -2567,6 +3047,8 @@ def phase_dp(card: str):
         f"{[r['train']['launches'] for r in res]}  ({card})")
     if not os.path.exists(res[0]["train"]["path"] + ".npz"):
         raise AssertionError("[dp] rank 0 wrote no checkpoint")
+    _check_event_file("dp summaries, rank 0 of 2", dp_save, 4,
+                      _train_config("bf16"), card)
     del res, ref
     torch.cuda.empty_cache()
 
@@ -2576,8 +3058,8 @@ def phase_dp(card: str):
     if n < 2:
         log("[dp] NCCL (a card per rank): not run, this machine has one card")
         return launches
-    cli = dict(cli, num_steps=6, save_path=os.path.join(OUT, "dp_nccl",
-                                                        "weights"))
+    cli = dict(cli, num_steps=6, interval=1000,
+               save_path=os.path.join(OUT, "dp_nccl", "weights"))
     for world in sorted({2, n}):
         if world < n:      # fewer ranks than cards: the CLI's rank function
             runs = run_ranks(train_cli._rank, world, "cuda", cli,
@@ -2983,7 +3465,8 @@ def phase_profile(card: str):
 PHASES = ("vq", "gen", "gen-int8", "e2e", "magenta", "train-stack",
           "train-epilogue", "train-e2e", "sp-stack", "sp-train",
           "train-bwd2", "magenta-train", "encoders", "prior", "dp",
-          "sp-mesh", "profile")
+          "sp-mesh", "profile", "train-cond", "q512", "standalone",
+          "summaries", "visualise")
 
 
 def main(argv=None) -> int:
@@ -3014,7 +3497,12 @@ def main(argv=None) -> int:
                 "prior": lambda: phase_prior(card),
                 "dp": lambda: phase_dp(card),
                 "sp-mesh": lambda: phase_sp_mesh(card),
-                "profile": lambda: phase_profile(card)}
+                "profile": lambda: phase_profile(card),
+                "train-cond": lambda: phase_train_cond(card),
+                "q512": lambda: phase_q512(card),
+                "standalone": lambda: phase_standalone(card),
+                "summaries": lambda: phase_summaries(card),
+                "visualise": lambda: phase_visualise(card)}
         for name in only:
             runs[name]()
         log(f"[only] {' '.join(only)}: passed")
@@ -3030,6 +3518,11 @@ def main(argv=None) -> int:
                       **phase_magenta_train(card)}
     # the new paths' launches add to the earlier main paths' counts
     extra: dict = {}
+    _add(extra, phase_train_cond(card))
+    _add(extra, phase_q512(card))
+    _add(extra, phase_standalone(card))
+    _add(extra, phase_summaries(card))
+    phase_visualise(card)
     _add(extra, phase_encoders(card))
     _add(extra, phase_prior(card))
     _add(extra, phase_dp(card))

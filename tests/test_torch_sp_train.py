@@ -254,7 +254,7 @@ def test_halo_sizes_and_cycle_plans_match_jax():
     (dict(time_jitter=True), 512, 2, "fused", NotImplementedError),
     (dict(condition_upsample=True), 512, 2, "fused", NotImplementedError)])
 def test_unported_sp_options_raise(kw, length, world, halo, error):
-    with pytest.raises(error, match="ROADMAP.md queue A, item 7"
+    with pytest.raises(error, match="JAX's SP asserts the same"
                        if error is NotImplementedError else "shards"):
         check_supported(port_cfg(**kw), length, world, halo)
 

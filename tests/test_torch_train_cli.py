@@ -183,12 +183,17 @@ def test_cuda_device_without_gpu_raises(corpus, tmp_path):
         train.main(args)
 
 
-@pytest.mark.parametrize("flag", [["-loader", "native"]])
-def test_unported_flags_raise(corpus, tmp_path, flag):
-    from vqvae_wavenet_torch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, "
-                                                  "item 7"):
-        train.main(train_args(corpus, tmp_path, "-step", "1", *flag))
+def test_loader_native_trains(corpus, tmp_path, capfd):
+    """-loader native reads the 16 kHz PCM16 corpus with the C++ loader
+    (built from cpp/dataloader.cpp into build/) and trains; the loaders'
+    batches are compared in tests/test_torch_native_loader.py."""
+    from vqvae_wavenet_torch import native_loader, train
+    if native_loader.build_error() is not None:
+        pytest.skip("g++ cannot build the native loader here")
+    res = train.main(train_args(corpus, tmp_path, "-step", "2", "-loader",
+                                "native"))
+    assert "[data] native C++ loader: 4 files" in capfd.readouterr().out
+    assert res["step"] == 2 and np.isfinite(res["losses"]).all()
 
 
 @pytest.mark.parametrize("flag,devices,ranks,line", [

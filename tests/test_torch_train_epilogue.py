@@ -105,14 +105,15 @@ def test_epilogue_matches_xla(dtype, loss_tol, grad_tol, shape):
 @pytest.mark.parametrize("entry,Q,frames", [
     ("fwd", 512, 3), ("bwd", 264, 3), ("fwd", 128, 2)])
 def test_epilogue_wrapper_refuses_shapes_before_device(entry, Q, frames):
-    """A Q the kernel's 256-column softmax tile cannot hold, or frames
-    that do not divide T, raise ValueError with the reason, before the
-    wrapper looks at the device (CPU tensors here).  Frames of any number
-    of rows dividing T are taken (65 here, 97.5 for frames=2)."""
+    """Frames that do not divide T raise ValueError with the reason,
+    before the wrapper looks at the device (CPU tensors here).  Frames of
+    any number of rows dividing T (65 here, 97.5 for frames=2) and any Q
+    that is a multiple of 8 (past 256 the kernel walks 256-column chunks)
+    pass the shape checks and reach the device check."""
     S, B, T = 16, 1, 195
     skip, w1 = torch.zeros((B, T, S)), torch.zeros((S, S))
     w2, labels = torch.zeros((S, Q)), torch.zeros((B, T), dtype=torch.int32)
-    match = "at most 256" if Q > 256 else "divid"
+    match = "divid" if T % frames else "CUDA tensors"
     with pytest.raises(ValueError, match=match):
         if entry == "fwd":
             epilogue_kernels.epilogue_forward_cuda(

@@ -249,7 +249,10 @@ def test_engines_other_than_auto_are_refused():
     from vqvae_wavenet_torch.config import ModelConfig as PortConfig
     with pytest.raises(ValueError, match="TPU"):
         PortConfig(train_engine="pallas")
+    # time_jitter is no engine: it trains (its parity with JAX is in
+    # tests/test_torch_jitter.py)
+    from vqvae_wavenet_torch.models.vqvae import jitter_moves
     cfg = dataclasses.replace(tiny_cfg(), time_jitter=True)
-    pts = port_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.train_step(pts, torch_batch(batch_np()), cfg)
+    batch = dict(torch_batch(batch_np()), jitter=jitter_moves(1, 2, 2))
+    _, m = tloop.train_step(port_state(), batch, cfg)
+    assert np.isfinite(float(m["loss"]))

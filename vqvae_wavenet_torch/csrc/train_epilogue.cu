@@ -51,8 +51,12 @@
 // 64-row frames do, no frame is cut, the second pass has no work and is
 // not launched, and every sum is the former per-tile sum bit for bit;
 // Encoder_2019's 320-row frames are all cut.  h2 takes the 256-column
-// K-major tile (Bf16KWCfg / F32KWCfg), so its block holds a whole row of
-// logits (Q <= 256) in the staged C tile and runs the softmax there.  The weight gradients are MN-major (the
+// K-major tile (Bf16KWCfg / F32KWCfg), so for Q <= 256 its block holds a
+// whole row of logits in the staged C tile and runs the softmax there;
+// past 256 classes the blocks walk 256-column chunks, a statistics pass
+// (each chunk's max and sum of exp), a join of the chunks per row and a
+// second pass that recomputes the chunk's logits for the probs (Head).
+// The weight gradients are MN-major (the
 // dk layout) with split counts that fill one wave and a fixed-order sum
 // of the partials.  Nothing sums with atomics: a run repeats bit for bit.
 //
@@ -93,7 +97,7 @@ template <> struct Cfgs<float> {
   using MN = hg::F32Cfg;
 };
 
-constexpr int MAX_Q = 256;          // classes of the softmax tile
+constexpr int CHUNK = 256;          // classes of the softmax tile
 constexpr int DL_ROWS = 64;         // rows per block of the dlogits pass
 
 // the (batch row, first time step) of a row-product tile
@@ -185,8 +189,17 @@ struct H1 {
 };
 
 // logits = a1 . W2 + b2 and the softmax of each row, in the C tile of a
-// block that holds whole rows (BN = 256 >= Q columns)
-template <class Cf>
+// block that holds BN = 256 columns of its rows.  MODE WHOLE (Q <= 256):
+// the block holds whole rows and writes probs and its rows' nll sum.  For
+// Q > 256 the classes are walked in 256-column chunks (blockIdx.x = the
+// chunk) twice: MODE STATS writes each row's chunk max and sum of exp
+// (relative to that max) and, from the chunk holding the label, the picked
+// logit; softmax_join then joins the chunks' statistics into the row's max
+// M and sum S (and its nll); MODE PROBS recomputes the chunk's logits and
+// writes probs = T(exp(x - M) / S).  The logits never reach memory.
+enum HeadMode { WHOLE = 0, STATS = 1, PROBS = 2 };
+
+template <class Cf, int MODE>
 struct Head {
   using Cfg = Cf;
   using T = typename Cf::T;
@@ -195,9 +208,13 @@ struct Head {
   const float* b2;      // [Q]
   const int* labels;    // [rows]
   T* probs;             // [rows, Q]
-  float* part;          // [B * tiles of a batch row]: each tile's nll sum
+  float* part;          // WHOLE: [B * tiles of a batch row], each tile's nll
+                        // sum; STATS: [rows][chunks] float2 (max, sum)
+  float* picked;        // STATS: [rows], the label's logit
+  const float* ms;      // PROBS: [rows] float2 (M, S)
   int T_, Q, kt;
 
+  __device__ int col0() const { return MODE == WHOLE ? 0 : blockIdx.x * Cfg::BN; }
   __device__ void k_range(int& it0, int& it1) const {
     it0 = 0;
     it1 = kt;
@@ -206,7 +223,7 @@ struct Head {
     int b, t0;
     row_tile<Cfg>(b, t0);
     hg::tma_load_4d(sA, &a1, bar, it * Cfg::BK, t0, b, 0);
-    hg::tma_load_4d(sB, &w, bar, it * Cfg::BK, 0, 0, 0);
+    hg::tma_load_4d(sB, &w, bar, it * Cfg::BK, col0(), 0, 0);
   }
   // A quarter-warp owns a row: warp w takes rows w RW + i (i < RW), its
   // quarter-warp qw the rows i = 4 ii + qw, four consecutive rows at once;
@@ -224,35 +241,54 @@ struct Head {
     float* nll = C + Cfg::BM * PITCH;       // past the tile, in the ring
     int b, t0;
     row_tile<Cfg>(b, t0);
+    const int q0 = col0();
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     const int qw = lane >> 3, l8 = lane & 7;
     float bias[2 * NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = 2 * l8 + 16 * j;
+      const int c = q0 + 2 * l8 + 16 * j;
       const float2 v = c < Q ? *reinterpret_cast<const float2*>(b2 + c)
                              : make_float2(0.f, 0.f);
       bias[2 * j] = v.x;
       bias[2 * j + 1] = v.y;
     }
     const int lt = t0 + w * RW + lane;
-    const int my_label =
-        lane < RW && lt < T_ ? labels[(long long)b * T_ + lt] : 0;
+    const bool lv = lane < RW && lt < T_;
+    const int my_label = MODE != PROBS && lv ? labels[(long long)b * T_ + lt] - q0 : 0;
+    float2 my_ms = make_float2(0.f, 1.f);
+    if (MODE == PROBS && lv)
+      my_ms = reinterpret_cast<const float2*>(ms)[(long long)b * T_ + lt];
 #pragma unroll 1
     for (int ii = 0; ii < RW / 4; ++ii) {
       const int i = 4 * ii + qw, r = w * RW + i, t = t0 + r;
       const bool live = t < T_;
-      const int lab = __shfl_sync(0xffffffffu, my_label, i);
       const long long m = (long long)b * T_ + t;
       const float* row = C + r * PITCH;
       float x[2 * NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 y = *reinterpret_cast<const float2*>(row + 2 * l8 + 16 * j);
+        x[2 * j] = y.x + bias[2 * j];
+        x[2 * j + 1] = y.y + bias[2 * j + 1];
+      }
+      if constexpr (MODE == PROBS) {
+        const float mx = __shfl_sync(0xffffffffu, my_ms.x, i);
+        const float se = __shfl_sync(0xffffffffu, my_ms.y, i);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int c = q0 + 2 * l8 + 16 * j;
+          if (live && c < Q)
+            st2(probs + m * Q + c, expf(x[2 * j] - mx) / se,
+                expf(x[2 * j + 1] - mx) / se);
+        }
+        continue;
+      }
+      const int lab = __shfl_sync(0xffffffffu, my_label, i);
       float mx = -INFINITY, pick = 0.f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int c = 2 * l8 + 16 * j;
-        const float2 y = *reinterpret_cast<const float2*>(row + c);
-        x[2 * j] = y.x + bias[2 * j];
-        x[2 * j + 1] = y.y + bias[2 * j + 1];
+        const int c = q0 + 2 * l8 + 16 * j;
         if (c < Q) mx = fmaxf(mx, fmaxf(x[2 * j], x[2 * j + 1]));
         if (j == lab >> 4) pick = lab & 1 ? x[2 * j + 1] : x[2 * j];
       }
@@ -263,7 +299,7 @@ struct Head {
       float se = 0.f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        if (2 * l8 + 16 * j < Q) {
+        if (q0 + 2 * l8 + 16 * j < Q) {
           x[2 * j] = expf(x[2 * j] - mx);
           x[2 * j + 1] = expf(x[2 * j + 1] - mx);
           se += x[2 * j];
@@ -273,6 +309,14 @@ struct Head {
 #pragma unroll
       for (int o = 4; o > 0; o >>= 1)
         se += __shfl_xor_sync(0xffffffffu, se, o);
+      if constexpr (MODE == STATS) {
+        if (live && l8 == 0) {
+          reinterpret_cast<float2*>(part)[m * gridDim.x + blockIdx.x] =
+              make_float2(mx, se);
+          if (0 <= lab && lab < Cfg::BN) picked[m] = pick;
+        }
+        continue;
+      }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = 2 * l8 + 16 * j;
@@ -281,39 +325,61 @@ struct Head {
       }
       if (l8 == 0) nll[r] = live ? (logf(se) + mx) - pick : 0.f;
     }
-    hg::consumers_sync();
-    if (threadIdx.x < 32) {                 // rows in order: lane l sums a
-      constexpr int RL = Cfg::BM / 32;      // run of RL, then a butterfly
-      float s = 0.f;
+    if constexpr (MODE == WHOLE) {
+      hg::consumers_sync();
+      if (threadIdx.x < 32) {               // rows in order: lane l sums a
+        constexpr int RL = Cfg::BM / 32;    // run of RL, then a butterfly
+        float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < RL; ++i) s += nll[lane * RL + i];
+        for (int i = 0; i < RL; ++i) s += nll[lane * RL + i];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) part[(long long)b * gridDim.y + blockIdx.y] = s;
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) part[(long long)b * gridDim.y + blockIdx.y] = s;
+      }
     }
   }
 };
 
-// dlogits, one thread per column q, DL_ROWS rows per block: writes
-// T(dlogits) and the block's f32 column sums (for db2)
+// The chunks' statistics of each row joined in chunk order: M = the max of
+// the chunk maxima, S = sum of s_c exp(m_c - M); ms[row] = (M, S), and
+// nll[row] = log S + M - logit[label] (0 past T: rows = B * T exactly)
+__global__ void softmax_join(const float2* __restrict__ st,
+                             const float* __restrict__ pick, long long rows,
+                             int chunks, float2* __restrict__ ms,
+                             float* __restrict__ nll) {
+  const long long m = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (m >= rows) return;
+  const float2* s = st + m * chunks;
+  float mx = -INFINITY;
+  for (int c = 0; c < chunks; ++c) mx = fmaxf(mx, s[c].x);
+  float se = 0.f;
+  for (int c = 0; c < chunks; ++c) se += s[c].y * expf(s[c].x - mx);
+  ms[m] = make_float2(mx, se);
+  nll[m] = (logf(se) + mx) - pick[m];
+}
+
+// dlogits, a thread per column q (per Q / blockDim.x columns past 1,024
+// classes), DL_ROWS rows per block: writes T(dlogits) and the block's f32
+// column sums (for db2)
 template <typename T>
 __global__ void dlogits_rows(const T* __restrict__ probs,
                              const int* __restrict__ labels,
                              const float* __restrict__ g, int rows, int Q,
                              T* __restrict__ dl, float* __restrict__ part) {
-  const int q = threadIdx.x;
   const float scale = g[0] / (float)rows;
   const int r0 = (int)blockIdx.x * DL_ROWS;
   const int r1 = min(rows, r0 + DL_ROWS);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const long long i = (long long)r * Q + q;
-    const float v = (tg::to_f(probs[i]) - (labels[r] == q ? 1.f : 0.f))
-                    * scale;
-    dl[i] = tg::from_f<T>(v);
-    s += v;
+  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
+    float s = 0.f;
+    for (int r = r0; r < r1; ++r) {
+      const long long i = (long long)r * Q + q;
+      const float v = (tg::to_f(probs[i]) - (labels[r] == q ? 1.f : 0.f))
+                      * scale;
+      dl[i] = tg::from_f<T>(v);
+      s += v;
+    }
+    part[(long long)blockIdx.x * Q + q] = s;
   }
-  part[(long long)blockIdx.x * Q + q] = s;
 }
 
 // a weight gradient part[split] [M, N] = sum over the split's rows of
@@ -539,29 +605,71 @@ cudaError_t launch_h1(const T* sk, const T* w1t, const float* enc2, T* a1,
                             B), s);
 }
 
+// the float2 statistics, picked logits, (M, S) and nll of the chunked
+// head: floats of fwd's scratch past 256 classes
+inline long long chunked_floats(int B, int T, int Q) {
+  const long long rows = (long long)B * T;
+  return rows * (2LL * tg::ceil_div(Q, CHUNK) + 4);
+}
+
+template <class WC, int MODE>
+Head<WC, MODE> head(const typename WC::T* a1, const typename WC::T* w2t,
+                    const float* b2, const int* labels, typename WC::T* probs,
+                    int T_, int S, int Q, int B, cudaError_t& e) {
+  Head<WC, MODE> o{};
+  e = hg::encode_k<WC>(&o.a1, a1, hg::dense(S, T_, B, 1), WC::BM);
+  if (e == cudaSuccess)
+    e = hg::encode_k<WC>(&o.w, w2t, hg::dense(S, Q, 1, 1), WC::BN);
+  o.b2 = b2; o.labels = labels; o.probs = probs;
+  o.T_ = T_; o.Q = Q;
+  o.kt = tg::ceil_div(S, WC::BK);
+  return o;
+}
+
 template <typename T>
 int fwd(int B, int T_, int FR, int S, int Q, const float* skip, const T* w1t,
         const T* w2t, const float* b2, const float* enc2, const int* labels,
         T* sk, T* a1, T* probs, float* part, float* total, cudaStream_t s) {
   using KC = typename Cfgs<T>::K;
   using WC = typename Cfgs<T>::KW;
-  if (!frames_fit(T_, FR) || Q > MAX_Q)
-    return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(WC::BN == CHUNK, "a chunk is the tile's columns");
+  if (!frames_fit(T_, FR)) return static_cast<int>(cudaErrorInvalidValue);
   const long long n8 = (long long)B * T_ * S / 8;
   relu_round<T><<<(unsigned)((n8 + 255) / 256), 256, 0, s>>>(skip, n8, sk);
   EPI_TRY(cudaGetLastError());
 
   EPI_TRY(launch_h1<KC>(sk, w1t, enc2, a1, B, T_, S, FR, s));
 
-  Head<WC> o;
-  EPI_TRY(hg::encode_k<WC>(&o.a1, a1, hg::dense(S, T_, B, 1), WC::BM));
-  EPI_TRY(hg::encode_k<WC>(&o.w, w2t, hg::dense(S, Q, 1, 1), WC::BN));
-  o.b2 = b2; o.labels = labels; o.probs = probs; o.part = part;
-  o.T_ = T_; o.Q = Q;
-  o.kt = tg::ceil_div(S, WC::BK);
   const int tpb = tg::ceil_div(T_, WC::BM);
-  EPI_TRY(hg::launch(o, dim3(1, tpb, B), s));
-  tg::sum_all<<<1, 256, 0, s>>>(part, B * tpb, total);
+  cudaError_t e;
+  if (Q <= CHUNK) {
+    Head<WC, WHOLE> o = head<WC, WHOLE>(a1, w2t, b2, labels, probs, T_, S, Q, B, e);
+    EPI_TRY(e);
+    o.part = part;
+    EPI_TRY(hg::launch(o, dim3(1, tpb, B), s));
+    tg::sum_all<<<1, 256, 0, s>>>(part, B * tpb, total);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // past 256 classes: statistics per chunk, their join, then the probs
+  const int chunks = tg::ceil_div(Q, CHUNK);
+  const long long rows = (long long)B * T_;
+  float* st = part;                          // [rows][chunks] float2
+  float* pk = st + 2 * rows * chunks;        // [rows]
+  float* ms = pk + rows;                     // [rows] float2
+  float* nll = ms + 2 * rows;                // [rows]
+  Head<WC, STATS> o1 = head<WC, STATS>(a1, w2t, b2, labels, probs, T_, S, Q, B, e);
+  EPI_TRY(e);
+  o1.part = st; o1.picked = pk;
+  EPI_TRY(hg::launch(o1, dim3(chunks, tpb, B), s));
+  softmax_join<<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
+      reinterpret_cast<const float2*>(st), pk, rows, chunks,
+      reinterpret_cast<float2*>(ms), nll);
+  EPI_TRY(cudaGetLastError());
+  Head<WC, PROBS> o2 = head<WC, PROBS>(a1, w2t, b2, labels, probs, T_, S, Q, B, e);
+  EPI_TRY(e);
+  o2.ms = ms;
+  EPI_TRY(hg::launch(o2, dim3(chunks, tpb, B), s));
+  tg::sum_all<<<1, 256, 0, s>>>(nll, (int)rows, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -576,7 +684,8 @@ int bwd(int B, int T_, int FR, int S, int Q, const float* g, const T* probs,
   if (!frames_fit(T_, FR)) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = B * T_;
   const int nblk = tg::ceil_div(rows, DL_ROWS);
-  dlogits_rows<T><<<nblk, Q, 0, s>>>(probs, labels, g, rows, Q, dl, part);
+  dlogits_rows<T><<<nblk, min(Q, 1024), 0, s>>>(probs, labels, g, rows, Q,
+                                                dl, part);
   EPI_TRY(cudaGetLastError());
   EPI_TRY(tg::launch_reduce(part, nblk, Q, db2, s));
 
@@ -635,7 +744,8 @@ int bwd(int B, int T_, int FR, int S, int Q, const float* g, const T* probs,
 
 // The floats of scratch (part) each entry needs; the caller sizes part
 // with these, so the row blocking is known to this file alone.
-extern "C" long long train_epilogue_fwd_part_floats(int B, int T) {
+extern "C" long long train_epilogue_fwd_part_floats(int B, int T, int Q) {
+  if (Q > CHUNK) return chunked_floats(B, T, Q);
   return (long long)B * tg::ceil_div(T, hg::F32KWCfg::BM);   // the smaller BM
 }
 
@@ -655,7 +765,7 @@ extern "C" long long train_epilogue_bwd_part_floats(int B, int T, int S,
 }
 
 // dtype 0 = float32, 1 = bfloat16.  sk gets T(relu(skip)) [B*T, S] (the
-// backward reads it); part holds train_epilogue_fwd_part_floats(B, T)
+// backward reads it); part holds train_epilogue_fwd_part_floats(B, T, Q)
 // floats; total gets the summed NLL (the caller divides by B*T).
 extern "C" int train_epilogue_fwd(int dtype, int B, int T, int FR, int S,
                                   int Q, const void* skip, const void* w1t,

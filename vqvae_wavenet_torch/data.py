@@ -4,8 +4,10 @@ JAX package): speaker tables, wav reading at 16 kHz, and the training
 sampler -- manifests found under the data root or its <corpus>_info/
 folder, a uniformly drawn file, a random ``max_len`` crop (short files are
 zero-padded), the speaker one-hot, prefetched by one background thread.
-Randomness comes from an explicit numpy seed.  The native C++ loader is
-not ported (ROADMAP.md queue A).
+Randomness comes from an explicit numpy seed.  ``make_input_pipeline``
+picks this python loader or the native C++ one (native_loader.py) as the
+JAX package's -loader flag does; ``get_speaker_info`` reads the speakers'
+metadata for visualise.py.
 """
 from __future__ import annotations
 
@@ -29,6 +31,26 @@ def get_speaker_to_int(speaker_path: str) -> dict:
                 speaker, number = line.split(", ")
                 speaker_to_int[speaker] = int(number)
     return speaker_to_int
+
+
+def get_speaker_info(speaker_to_int: dict, info_path: str) -> dict:
+    """Speaker gender/accent metadata for the projector (utils.py:103-116);
+    VCTK is detected by the absence of '|' in the header line."""
+    with open(info_path) as f:
+        lines = f.readlines()
+    speaker_info = {}
+    is_vctk = "|" not in lines[0]
+    for line in lines[1:]:
+        parts = line.split(maxsplit=1)
+        if len(parts) < 2:
+            continue
+        speaker, info = parts
+        speaker = ("p" if is_vctk else "") + speaker
+        if speaker in speaker_to_int:
+            speaker_info[speaker_to_int[speaker]] = "#".join(info.split())
+    for v in speaker_to_int.values():
+        speaker_info.setdefault(v, "missing_info")
+    return speaker_info
 
 
 def read_wav_16k(path: str) -> np.ndarray:
@@ -208,3 +230,76 @@ class Aishell(Dataset):
 
 
 DATASETS = {"VCTK": VCTK, "LibriSpeech": LibriSpeech, "Aishell": Aishell}
+
+
+def wav_is_pcm16_16k(path: str) -> bool:
+    """Header-only probe: RIFF/WAVE, PCM (format 1), 16-bit, 16 kHz, what
+    the native loader reads (it parses PCM16 and does not resample)."""
+    try:
+        with open(path, "rb") as f:
+            if f.read(4) != b"RIFF":
+                return False
+            f.read(4)
+            if f.read(4) != b"WAVE":
+                return False
+            while True:
+                hdr = f.read(8)
+                if len(hdr) < 8:
+                    return False
+                size = int.from_bytes(hdr[4:8], "little")
+                if hdr[:4] == b"fmt ":
+                    fmt = f.read(min(size, 16))
+                    if len(fmt) < 16:
+                        return False
+                    return (int.from_bytes(fmt[0:2], "little") == 1
+                            and int.from_bytes(fmt[14:16], "little") == 16
+                            and int.from_bytes(fmt[4:8], "little") == 16000)
+                f.seek((size + 1) & ~1, 1)
+    except OSError:
+        return False
+
+
+def make_input_pipeline(name: str, *, batch_size: int, max_len: int,
+                        relative_path: str = "data/", loader: str = "auto",
+                        seed: Optional[int] = None,
+                        trim_silence: bool = False):
+    """The started training input pipeline (datasets.py:318-370):
+    'python' the Dataset above; 'native' the C++ loader (4 worker
+    threads), which raises with the reason when the corpus is not 16 kHz
+    PCM16, with trim_silence, or when the library does not build; 'auto'
+    the native loader when it is eligible, else python (printing why).
+    Both expose next() -> {'x', 'y'}, stop() and num_speakers."""
+    if name not in DATASETS:
+        raise NotImplementedError(f"dataset {name} not implemented")
+    if loader not in ("auto", "python", "native"):
+        raise ValueError(f"unknown loader '{loader}'")
+    ds = DATASETS[name](batch_size=batch_size, max_len=max_len,
+                        relative_path=relative_path, seed=seed,
+                        trim_silence=trim_silence)
+    if loader == "python":
+        return ds.start()
+    from vqvae_wavenet_torch import native_loader as nl
+    probe = os.path.join(relative_path, ds.data_dir, ds.all_files[0])
+    reason = None
+    if trim_silence:
+        reason = "trim_silence is python-only"
+    elif not wav_is_pcm16_16k(probe):
+        reason = f"corpus is not 16 kHz PCM16 ({probe})"
+    else:
+        err = nl.build_error()
+        if err is not None:
+            reason = f"native library failed to build ({err})"
+    if reason is None:
+        files = [os.path.join(relative_path, ds.data_dir, f)
+                 for f in ds.all_files]
+        ids = [ds.speaker_to_int[ds.split_func(f)] for f in ds.all_files]
+        pipe = nl.NativeLoader(files, ids, ds.num_speakers, batch_size,
+                               max_len, seed=seed if seed is not None else 0)
+        print(f"[data] native C++ loader: {len(files)} files, "
+              f"{pipe.num_threads} worker threads")
+        return pipe
+    if loader == "native":
+        raise RuntimeError(f"-loader native unavailable: {reason}")
+    print(f"[data] native loader ineligible ({reason}); using the python "
+          f"pipeline")
+    return ds.start()

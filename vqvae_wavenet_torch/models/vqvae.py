@@ -10,8 +10,12 @@ in JAX, vqvae.py:132: its MFCC front end frames and transforms the
 waveform, which bf16 would degrade), the decoder parameters and
 the local condition run in bf16, labels come from the f32 waveform, and
 the stack kernel hands its skip sum to the loss-head kernel
-(ops/epilogue_kernels.py).  ``time_jitter`` and ``condition_upsample``
-are not ported to training yet (ROADMAP.md queue A, item 7).
+(ops/epilogue_kernels.py).  ``condition_upsample`` runs the condition
+through cond_conv and repeats it to one frame a sample (the kernels then
+see T frames); ``time_jitter`` moves each latent frame by -1, 0 or +1
+(vqvae.py:87-100), with the moves drawn apart from their application
+(``jitter_moves``: the training loop draws them from the global step, as
+JAX's train.py:222 seeds PRNGKey(gs + step)).
 
 Reference quirk kept (vqvae.py:77-84): an all-zero one-hot ("None"
 speaker) argmax-selects index 0, so "no speaker" conditions on speaker 0's
@@ -42,16 +46,46 @@ def speaker_vector(params, cfg, y: Optional[torch.Tensor]):
     return y
 
 
+JITTER_PROB = 0.12     # a frame moves with .06 to each side (vqvae.py:87)
+
+
+def jitter_moves(seed: int, batch: int, frames: int) -> torch.Tensor:
+    """The time jitter's moves [batch, frames] int64 in {-1, 0, +1} with
+    probabilities .06, .88, .06, drawn per sequence from a CPU
+    torch.Generator seeded with ``seed`` (the same on every rank, which
+    takes its own rows).  JAX draws them with jax.random.categorical; the
+    two agree in distribution only."""
+    g = torch.Generator().manual_seed(int(seed))
+    u = torch.rand((batch, frames), generator=g, dtype=torch.float64)
+    return (u >= 1.0 - JITTER_PROB / 2).long() - (u < JITTER_PROB / 2).long()
+
+
+def time_jitter(lc: torch.Tensor, moves: torch.Tensor) -> torch.Tensor:
+    """lc [B, T, C] with frame t replaced by frame t + moves[b, t], edges
+    reflected (an index below 0 moves +2, one at T or past it -2), per
+    sequence (vqvae.py:87-100)."""
+    t = lc.shape[1]
+    idx = torch.arange(t, device=lc.device)[None, :] + moves.to(lc.device)
+    idx = idx + 2 * (idx < 0).long() - 2 * (idx >= t).long()
+    return torch.gather(lc, 1, idx[..., None].expand(-1, -1, lc.shape[2]))
+
+
 def build_local_condition(params, cfg, z_q: torch.Tensor,
                           y: Optional[torch.Tensor],
-                          target_len: Optional[int] = None) -> torch.Tensor:
-    """concat(z_q, tiled h) (+ conv_3_128 and upsampling when
-    cfg.condition_upsample), at train=False.  Returns [B, T_cond, C_lc]."""
+                          target_len: Optional[int] = None,
+                          moves: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """concat(z_q, tiled h), the time jitter when cfg.time_jitter and the
+    ``moves`` [B, T_cond] are given (training), then conv_3_128 and the
+    upsampling to ``target_len`` when cfg.condition_upsample.  Returns
+    [B, T_cond, C_lc] (T_cond = target_len when upsampled)."""
     h = speaker_vector(params, cfg, y)
     lc = z_q
     if h is not None:
         lc = torch.cat([lc, h.to(lc.dtype).expand(lc.shape[0], lc.shape[1],
                                                    h.shape[-1])], dim=-1)
+    if cfg.time_jitter and moves is not None:
+        lc = time_jitter(lc, moves)
     if cfg.condition_upsample:
         lc = conv1d(lc, params["cond_conv"]["kernel"],
                     params["cond_conv"]["bias"], padding="SAME")
@@ -70,18 +104,16 @@ def _cast(tree, dtype):
 
 def vqvae_forward(params, state, cfg, x: torch.Tensor,
                   y: Optional[torch.Tensor], *, train: bool = True,
-                  sh=None):
+                  sh=None, jitter: Optional[torch.Tensor] = None):
     """The training forward.  x: [B, T, 1] raw waveform; y: one-hot
     [B, 1, num_speakers] or None.  Returns (loss, aux): aux carries the
     individual losses, the metrics, the new model state (BN running
     statistics; the VQ EMA state passes through) and z_e, z_q, q_z_x.
     ``sh`` (parallel.Shards): x is this rank's slice of a data-parallel
     batch; the batch norms and the VQ statistics span every rank
-    (vqvae.py:123-147 with axis_name), the losses stay this rank's."""
-    if train and (cfg.time_jitter or cfg.condition_upsample):
-        raise NotImplementedError(
-            "time_jitter and condition_upsample are not ported to training "
-            "yet (ROADMAP.md queue A, item 7)")
+    (vqvae.py:123-147 with axis_name), the losses stay this rank's.
+    ``jitter``: the time jitter's moves [B, T_cond] (``jitter_moves``),
+    applied when cfg.time_jitter and train (JAX's rng)."""
     bf16 = cfg.train_dtype == "bf16"
     # Encoder_Magenta and Encoder_2019 have no state, and their empty tree
     # leaves no key in an .npz checkpoint
@@ -108,7 +140,8 @@ def vqvae_forward(params, state, cfg, x: torch.Tensor,
         z_q = e_k = z_e
         aux["z_q"] = z_q
 
-    lc = build_local_condition(params, cfg, z_q, y, target_len=x.shape[1])
+    lc = build_local_condition(params, cfg, z_q, y, target_len=x.shape[1],
+                               moves=jitter if train else None)
     Q = cfg.wavenet.quantization_channels
     if bf16:
         dec16 = _cast(params["decoder"], torch.bfloat16)

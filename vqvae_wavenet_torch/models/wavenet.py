@@ -11,6 +11,10 @@ The compute type follows the input: float32, or bfloat16 under
 input), with float32 sums and an f32 skip path and logits.  The stack
 rounds where its kernel does (ops/train_kernels.py); the heads here are
 plain torch, as the JAX package leaves them to XLA.
+
+``make_standalone_trainer`` trains the WaveNet alone (the reference's
+Wavenet.get_loss path, wavenet.py:175-198; JAX wavenet.py:317-352): Adam
+in f32 over the six-point schedule, the stack kernels on the card.
 """
 from __future__ import annotations
 
@@ -85,3 +89,57 @@ def wavenet_forward(params, cfg, inputs: torch.Tensor,
 def wavenet_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean sparse softmax CE over the flattened B*T (wavenet.py:310-314)."""
     return F.cross_entropy(logits.float(), labels.long())
+
+
+def make_standalone_trainer(cfg, lc_channels: Optional[int] = None,
+                            gc_channels: Optional[int] = None,
+                            schedule: Optional[dict] = None):
+    """The standalone WaveNet trainer for WavenetConfig ``cfg``: returns
+    (init_fn(generator, device=None) -> state, step_fn(state, x, lc=None,
+    gc=None) -> (state, metrics)).  ``generator`` is a numpy Generator
+    (or seed) for the init (``params.random_wavenet_np``); the state is
+    {"params", "opt_state": {"mu", "nu", "count"}, "step"}; a step is the
+    mean cross-entropy of ``wavenet_forward`` on x [B, T, 1] with the
+    optional lc [B, F, C] and gc [B, T_gc, C_gc], its gradients by
+    autograd and one Adam update (b1 0.9, b2 0.999, eps 1e-8) at
+    ``schedule`` (default WAVENET_STANDALONE_SCHEDULE) of the step count;
+    metrics {"loss", "lr", "step"}."""
+    import numpy as np
+    from vqvae_wavenet_torch.params import random_wavenet_np, to_torch
+    from vqvae_wavenet_torch.training.optimizer import (
+        WAVENET_STANDALONE_SCHEDULE, fused_adam_ema_step,
+        piecewise_constant_schedule, tree_leaves, tree_unflatten)
+
+    lr_fn = piecewise_constant_schedule(schedule or
+                                        WAVENET_STANDALONE_SCHEDULE)
+
+    def init_fn(generator, device=None):
+        seed = (int(generator.integers(2 ** 31))
+                if isinstance(generator, np.random.Generator)
+                else int(generator))
+        params = to_torch(random_wavenet_np(cfg, lc_channels, gc_channels,
+                                            seed), device)
+        zeros = [torch.zeros_like(t) for t in tree_leaves(params)]
+        return {"params": params,
+                "opt_state": {"mu": tree_unflatten(params, zeros),
+                              "nu": tree_unflatten(params, [
+                                  torch.zeros_like(t) for t in zeros]),
+                              "count": 0},
+                "step": 0}
+
+    def step_fn(state, x, lc=None, gc=None):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(state["params"])]
+        p = tree_unflatten(state["params"], leaves)
+        with torch.enable_grad():
+            logits, labels = wavenet_forward(p, cfg, x, lc, gc)
+            loss = wavenet_loss(logits, labels)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        params, _, opt_state = fused_adam_ema_step(
+            state["params"], None, state["opt_state"], list(grads), lr_fn)
+        step = state["step"] + 1
+        return ({"params": params, "opt_state": opt_state, "step": step},
+                {"loss": loss.detach(), "lr": lr_fn(state["step"]),
+                 "step": step})
+
+    return init_fn, step_fn

@@ -22,8 +22,12 @@ The kernel's forward also writes sk = T(relu(skip)), the operand its
 products read through TMA, and its backward reads sk for dW1; the plain
 version recomputes relu(skip) where it needs it.  Frames may have any
 number of rows FR = T / F (64 for Encoder_64 and Encoder_Magenta, 320 for
-Encoder_2019); the kernel joins the per-frame sums of frames its 128-row
-tiles cut in a fixed order (csrc/train_epilogue.cu).
+Encoder_2019; 1 for an upsampled condition); the kernel joins the
+per-frame sums of frames its 128-row tiles cut in a fixed order.  Any
+number of classes Q that is a multiple of 8: past 256 the kernel walks
+the classes in 256-column chunks, a pass of per-chunk max and sum of exp,
+their join per row, and a pass writing the probabilities
+(csrc/train_epilogue.cu).
 """
 from __future__ import annotations
 
@@ -88,11 +92,6 @@ def epilogue_backward_plain(g, skip, a1, probs, labels, w1, w2,
 
 # ----------------------------------------------------------------- kernels
 
-# the classes one block's softmax tile holds: a whole row of logits in
-# the 256-column C tile (csrc/train_epilogue.cu, MAX_Q)
-MAX_Q = 256
-
-
 def _check(cd, S, Q, *tensors):
     """Shapes first (so a width the kernel cannot take raises before any
     device check), then devices and layout.  Frames of any number of rows
@@ -102,9 +101,6 @@ def _check(cd, S, Q, *tensors):
     if S % 8 or Q % 8 or not 8 <= Q:
         raise ValueError(f"epilogue kernel needs S, Q multiples of 8 "
                          f"(TMA rows of 16 bytes; got S={S}, Q={Q})")
-    if Q > MAX_Q:
-        raise ValueError(f"epilogue kernel: a block's softmax tile holds a "
-                         f"whole row of at most {MAX_Q} classes (got Q={Q})")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError("the epilogue kernel needs CUDA tensors")
@@ -126,7 +122,7 @@ def _lib():
                                        + [ctypes.c_void_p] * 17)
     # the scratch sizes, from the kernel's own row blocking
     lib.train_epilogue_fwd_part_floats.restype = ctypes.c_longlong
-    lib.train_epilogue_fwd_part_floats.argtypes = [ctypes.c_int] * 2
+    lib.train_epilogue_fwd_part_floats.argtypes = [ctypes.c_int] * 3
     lib.train_epilogue_bwd_part_floats.restype = ctypes.c_longlong
     lib.train_epilogue_bwd_part_floats.argtypes = [ctypes.c_int] * 4
     return lib
@@ -157,7 +153,7 @@ def epilogue_forward_cuda(skip, w1, w2, b2, enc2, labels):
     probs = torch.empty((B, T, Q), dtype=cd, device=dev)
     sk = torch.empty((B, T, S), dtype=cd, device=dev)
     lib = _lib()
-    part = torch.empty((lib.train_epilogue_fwd_part_floats(B, T),),
+    part = torch.empty((lib.train_epilogue_fwd_part_floats(B, T, Q),),
                        dtype=torch.float32, device=dev)
     total = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), record_function("train_epilogue_fwd"):

@@ -602,7 +602,7 @@ def fused_residual_stack(lp, cfg, x0: torch.Tensor,
     kernel [L, K, R, 2D], bias [L, 2D], lc_kernel [L, C, 2D], skip_kernel
     [L, D, S], skip_bias [L, S], res_kernel [L, D, R], res_bias [L, R],
     optional gc_kernel/gc_bias).  local_condition [B, F, C] or None;
-    global_condition [B, 1, C_gc] or None.  Returns the skip sum [B, T, S]
+    global_condition [B, 1 or F, C_gc] or None.  Returns the skip sum [B, T, S]
     float32 including the summed skip biases (train_pallas.py:1782-1850),
     or (skip sum, xout [B, T, R]) with ``with_xout``.  ``start_rows`` (a
     per-shard int) and ``layer_range`` (lo, hi) select the
@@ -621,12 +621,16 @@ def fused_residual_stack(lp, cfg, x0: torch.Tensor,
                               device=x0.device)
     lc_encb = lc_encb + lp["bias"].float()[:, None, None, :]
     if global_condition is not None and "gc_kernel" in lp:
-        if global_condition.shape[1] != 1:
-            raise NotImplementedError("a global condition must be constant "
-                                      "over time (T_gc = 1)")
-        genc = torch.einsum("bc,lcf->lbf", global_condition[:, 0].float(),
+        # [B, T_gc, C_gc]: T_gc = 1 adds to every frame; a condition that
+        # varies in time adds per frame, on the local condition's frames
+        # (or alone, T_gc frames), as JAX broadcasts it (wavenet.py:187-190)
+        genc = torch.einsum("bsc,lcf->lsbf", global_condition.float(),
                             lp["gc_kernel"].float())
-        lc_encb = lc_encb + genc[:, None]
+        if lc_encb.shape[1] not in (1, genc.shape[1]) \
+                and genc.shape[1] != 1:
+            raise ValueError(f"a global condition of {genc.shape[1]} frames "
+                             f"does not fit {lc_encb.shape[1]} local frames")
+        lc_encb = lc_encb + genc
         if "gc_bias" in lp:
             lc_encb = lc_encb + lp["gc_bias"].float()[:, None, None, :]
     out = _Stack.apply(

@@ -161,3 +161,17 @@ def sum_grads(grads: List[torch.Tensor], sh: Shards) -> List[torch.Tensor]:
         out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
         i += g.numel()
     return out
+
+
+def gather_global(t: torch.Tensor, sh: Shards) -> torch.Tensor:
+    """The global tensor of every rank's ``t`` [b, f, ...] (its rows of
+    data row d, its frames of time shard t; every rank's of one shape):
+    the time shards joined on axis 1 in time order, the data rows on axis
+    0 in data order.  A collective: every rank calls it; no gradient."""
+    buf = _host(t.detach().contiguous(), sh)
+    parts = [torch.empty_like(buf) for _ in range(sh.world)]
+    dist.all_gather(parts, buf)
+    n = sh.n_time
+    rows = [torch.cat(parts[d * n:(d + 1) * n], dim=1) if n > 1
+            else parts[d] for d in range(sh.n_data)]
+    return torch.cat(rows, dim=0).to(t.device)

@@ -49,8 +49,9 @@ bf16 (``train_dtype='bf16'``) follows the single-device contract
 (models/vqvae.py, models/magenta.py): encoder convs in bf16 (Encoder_2019
 and the Magenta family's encoder stay f32), the decoder in bf16, norm
 statistics, VQ, labels and loss in f32.  ``time_jitter`` and
-``condition_upsample`` raise NotImplementedError (ROADMAP.md queue A,
-item 7).
+``condition_upsample`` raise NotImplementedError under SP, as JAX's SP
+asserts (vqvae_wavenet_tpu/parallel/timeshard.py:613); one device and DP
+train both.
 """
 from __future__ import annotations
 
@@ -130,9 +131,10 @@ def check_supported(cfg, length: int, n_time: int,
     """Raise for what the port's SP path does not cover; return the decoder's
     group plan for clips of ``length`` samples on ``n_time`` time shards."""
     if cfg.time_jitter or cfg.condition_upsample:
-        raise NotImplementedError("time_jitter and condition_upsample are "
-                                  "not ported to training (ROADMAP.md queue "
-                                  "A, item 7)")
+        raise NotImplementedError("time_jitter and condition_upsample do "
+                                  "not train time-sharded (JAX's SP asserts "
+                                  "the same); train them on one device or "
+                                  "data-parallel")
     ratio = encoder_downsample_rate(cfg.encoder)
     if n_time < 2 or length % (n_time * ratio):
         raise ValueError(f"-length {length} must split into {n_time} shards "

@@ -175,11 +175,12 @@ def _uniform_inits(rng):
     return glorot, uus
 
 
-def _decoder_np(w, c_lc: int, uus, c_gc: Optional[int] = None,
+def _decoder_np(w, c_lc: Optional[int], uus, c_gc: Optional[int] = None,
                 bias: float = 0.0):
     """WaveNet decoder parameters (wavenet.py:35-81) for WavenetConfig
-    ``w``: kernels uniform-unit-scaling, every bias ``bias``; gc kernels
-    (per layer and in postprocess1) when ``c_gc`` is given."""
+    ``w``: kernels uniform-unit-scaling, every bias ``bias``; lc and gc
+    kernels (per layer and in postprocess1) when ``c_lc`` / ``c_gc`` is
+    given."""
     L, K = w.num_layers, w.kernel_size
     R, D, S = w.residual_filters, w.dilation_filters, w.skip_filters
     Q, PK, PF = (w.quantization_channels, w.preprocess_kernel_size,
@@ -196,12 +197,13 @@ def _decoder_np(w, c_lc: int, uus, c_gc: Optional[int] = None,
         "skip_start": {"kernel": uus((1, PF, S)), "bias": b(S)},
         "layers": {"kernel": stack((K, R, 2 * D)), "bias": b(L, 2 * D),
                    "skip_kernel": stack((D, S)), "skip_bias": b(L, S),
-                   "res_kernel": stack((D, R)), "res_bias": b(L, R),
-                   "lc_kernel": stack((c_lc, 2 * D))},
-        "postprocess1": {"kernel": uus((1, S, S)), "bias": b(S),
-                         "lc_kernel": uus((c_lc, S))},
+                   "res_kernel": stack((D, R)), "res_bias": b(L, R)},
+        "postprocess1": {"kernel": uus((1, S, S)), "bias": b(S)},
         "postprocess2": {"kernel": uus((1, S, Q)), "bias": b(Q)},
     }
+    if c_lc is not None:
+        dec["layers"]["lc_kernel"] = stack((c_lc, 2 * D))
+        dec["postprocess1"]["lc_kernel"] = uus((c_lc, S))
     if c_gc is not None:
         dec["layers"]["gc_kernel"] = stack((c_gc, 2 * D))
         dec["postprocess1"]["gc_kernel"] = uus((c_gc, S))
@@ -287,6 +289,15 @@ def _encoder_np(name: str, latent_dim: int, glorot, uus):
              "out": {"kernel": glorot((1, filters, latent_dim)),
                      "bias": zeros(latent_dim)},
              "bn": bn}, {"bn": bn_state})
+
+
+def random_wavenet_np(w, lc_channels: Optional[int] = None,
+                      gc_channels: Optional[int] = None, seed: int = 0):
+    """A random WaveNet parameter tree alone (the standalone trainer's,
+    wavenet.py:35-81) for WavenetConfig ``w``, with lc / gc kernels when
+    their widths are given.  Leaves are float32 numpy arrays."""
+    _, uus = _uniform_inits(np.random.default_rng(seed))
+    return _decoder_np(w, lc_channels, uus, gc_channels)
 
 
 def random_params_np(cfg, num_speakers: Optional[int], seed: int = 0):

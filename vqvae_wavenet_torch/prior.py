@@ -36,7 +36,9 @@ the generation kernel on CUDA in bf16 (its plain twin in f32 on the CPU,
 as the port's generate.py defaults); codes and decoder draw from numpy
 seed 0 (the JAX prior.py's fixed keys); it writes
 prior_<speaker>.wav (a repeated speaker gets _<index>) beside the prior.
-Only VCTK is ported (other datasets raise).  On a host with several GPUs
+-dataset takes VCTK, LibriSpeech or Aishell, as the training CLI does
+(the manifests under -data; sampling without -speakers conditions on
+the dataset's speaker count).  On a host with several GPUs
 training is data-parallel as the JAX prior's step over the 'data' axis
 (prior.py:239-253): gcd(-batch, GPU count) spawned ranks, each encoding and
 taking the NLL of its contiguous slice of the batch (read by rank 0 and
@@ -55,7 +57,9 @@ import numpy as np
 import torch
 
 SEED = 0
-VCTK_SPEAKERS = 109    # the table generate.py pins for VCTK checkpoints
+# the speaker tables' sizes a checkpoint of each dataset was trained with
+# (JAX prior.py:126-128; VCTK's is the table generate.py pins)
+SPEAKERS = {"VCTK": 109, "Aishell": 340, "LibriSpeech": 251}
 
 
 def parse_args(argv=None):
@@ -125,14 +129,13 @@ def main(argv=None):
     from vqvae_wavenet_torch.parallel import run_ranks
     from vqvae_wavenet_torch.parallel.mesh import data_ranks
 
-    if args.dataset != "VCTK":
-        raise NotImplementedError(f"dataset {args.dataset}: the port's prior "
-                                  f"reads VCTK only (ROADMAP.md queue A)")
+    if args.dataset not in SPEAKERS:
+        raise NotImplementedError(f"dataset {args.dataset} not implemented")
     device = resolve_device(args.device)
     cfg = _vqvae_config(args)
     if args.sample > 0:
         return _sample(args, cfg, _load_vqvae(args, device)[0],
-                       VCTK_SPEAKERS, device)
+                       SPEAKERS[args.dataset], device)
     ranks = data_ranks(args.batch_size, device.type)
     if ranks == 1:
         return _train(args, device, None)

@@ -10,14 +10,22 @@ which keeps the reference's train.py:12-37, plus -device):
 
 One step is vqvae_forward (with -params magenta_parameters.json, the
 Magenta family's magenta_forward) + autograd (the stack, loss-head and VQ
-kernels on the card) + the fused Adam/EMA update.  The config's encoder
+kernels on the card) + the fused Adam/EMA update.  The config's
+"time_jitter" jitters the latent frames with moves drawn from the global
+step, "condition_upsample" conditions the decoder per sample through
+cond_conv, and "quantization_channels" may be any multiple of 8 (past
+256 the bf16 loss head walks 256-column chunks).  The config's encoder
 may be "64", "Magenta" or "2019"; -length must be a multiple of its
 samples a latent frame (64, 64, 320: Encoder_2019 trains at e.g. -length
 6400), so that the frames divide the clip as the decoder needs.  "train_dtype": "bf16"
 in the params JSON trains in bf16 mixed precision in either family.  The
 stack's backward is the layer sweep, or the two-kernel form when
-vqvae_wavenet_torch.ops.train_kernels.BWD_FUSED_DK is "off".  Scalars go to
-<save dir>/metrics.jsonl every -interval steps; the progress line prints
+vqvae_wavenet_torch.ops.train_kernels.BWD_FUSED_DK is "off".  Every
+-interval steps the scalars, the gradients' global norm
+(global_norm/gradient_norm) and the reference's histogram set
+(training/metrics.py::summary_histograms) go to a TensorBoard event file
+in the save directory (written without tensorboardX) and the scalars to
+<save dir>/metrics.jsonl; the progress line prints
 every -log_every steps; weights-<step>.npz is written every -ckpt_interval
 steps and at the end (training/checkpoint.py; the port's generate.py
 restores it).  The initial weights and the crop sampler draw from numpy
@@ -47,7 +55,10 @@ its rows d of every batch; the stack kernels run per layer group on
 halo-extended shards (their SP variants): -decoder_halo auto = fused, a
 group per dilation cycle; recompute, one group with the receptive field's
 halo; layer, a group per layer.  The gradients are summed over every rank
-before the update.  -loader native is not ported and raises.
+before the update.  -loader native reads the corpus with the repo's C++
+loader (cpp/dataloader.cpp, built with g++ at first use; 16 kHz PCM16
+only, raising with the reason otherwise), -loader auto (the default)
+takes it where it is eligible, -loader python the python one.
 
 -profile DIR traces steps 10-14 with torch.profiler (host and, on CUDA,
 device activity; rank 0 only) and writes DIR/trace.json (Chrome trace);
@@ -108,8 +119,9 @@ def parse_args(argv=None):
                         help="print the progress line every N steps")
     parser.add_argument("-loader", default="auto",
                         choices=["auto", "python", "native"],
-                        help="input pipeline; the port has the python one "
-                             "('native' is not ported)")
+                        help="input pipeline: the python loader, the native "
+                             "C++ one (16 kHz PCM16 corpora), or auto (native "
+                             "where it is eligible)")
     parser.add_argument("-trim_silence", action="store_true",
                         help="trim leading/trailing silence before the "
                              "random crop (dataset.py:23-31)")
@@ -128,12 +140,6 @@ def parse_args(argv=None):
     parser.add_argument("-device", default="cuda",
                         help="torch device (default cuda)")
     return parser.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    if args.loader == "native":
-        raise NotImplementedError("-loader native (the C++ loader) is not "
-                                  "ported yet: ROADMAP.md queue A, item 7")
 
 
 def _hosts(args):
@@ -158,7 +164,6 @@ def main(argv=None):
     the kernels' launch counts, with several ranks a list with one dict
     per rank of this host and the other keys this host's first rank's)."""
     args = parse_args(argv)
-    _refuse_unported(args)
     hosts, host, init = _hosts(args)
     from vqvae_wavenet_torch.config import ModelConfig
     from vqvae_wavenet_torch.generate import resolve_device
@@ -214,14 +219,17 @@ def _train(args, device: torch.device, sh):
     parallel run (data-parallel, and sequence-parallel when sh.n_time > 1)."""
     from torch.profiler import record_function
     from vqvae_wavenet_torch.config import ModelConfig
-    from vqvae_wavenet_torch.data import DATASETS
+    from vqvae_wavenet_torch.data import DATASETS, make_input_pipeline
+    from vqvae_wavenet_torch.models.encoders import encoder_downsample_rate
+    from vqvae_wavenet_torch.models.vqvae import jitter_moves
     from vqvae_wavenet_torch.ops.conv import set_full_f32
     from vqvae_wavenet_torch.params import random_params_np, to_torch
     from vqvae_wavenet_torch.parallel.mesh import (global_batch, rank_rows,
                                                    replicate_)
     from vqvae_wavenet_torch.training.checkpoint import (
         restore_checkpoint, save_checkpoint)
-    from vqvae_wavenet_torch.training.metrics import MetricWriter, display_time
+    from vqvae_wavenet_torch.training.metrics import (
+        MetricWriter, display_time, summary_histograms)
     from vqvae_wavenet_torch.training.train_loop import (
         dp_loss_and_grads, init_train_state, to_device, train_step)
 
@@ -230,12 +238,14 @@ def _train(args, device: torch.device, sh):
     if args.dataset not in DATASETS:
         raise NotImplementedError(f"dataset {args.dataset} not implemented")
     # each host's first rank reads that host's batches, from its own seed
-    dataset = DATASETS[args.dataset](
-        batch_size=args.batch_size, max_len=args.max_len,
-        relative_path=args.data_path, seed=SEED + (sh.host if sh else 0),
-        trim_silence=args.trim_silence)
+    # (the others only need the speaker count)
+    kw = dict(batch_size=args.batch_size, max_len=args.max_len,
+              relative_path=args.data_path, seed=SEED + (sh.host if sh else 0),
+              trim_silence=args.trim_silence)
     if sh is None or sh.local_rank == 0:
-        dataset.start()
+        dataset = make_input_pipeline(args.dataset, loader=args.loader, **kw)
+    else:
+        dataset = DATASETS[args.dataset](**kw)
     shapes = {"x": (args.batch_size, args.max_len, 1),
               "y": (args.batch_size, 1, dataset.num_speakers)}
     cfg = ModelConfig.from_json(args.parameter_path)
@@ -252,8 +262,8 @@ def _train(args, device: torch.device, sh):
         ts = replicate_(ts, sh)
     gs = ts["step"]
     if sh is None:
-        def step_fn(ts, batch):
-            return train_step(ts, batch, cfg)
+        def step_fn(ts, batch, summ):
+            return train_step(ts, batch, cfg, with_summaries=summ)
     else:
         if sh.n_time > 1:
             from vqvae_wavenet_torch.parallel.timeshard import (
@@ -265,11 +275,11 @@ def _train(args, device: torch.device, sh):
         t_l = args.max_len // sh.n_time
         rows = slice(sh.time_rank * t_l, (sh.time_rank + 1) * t_l)
 
-        def step_fn(ts, batch):
-            return train_step(ts, {"x": rank_rows(batch["x"], sh)[:, rows]
-                                   .contiguous(),
-                                   "y": rank_rows(batch["y"], sh)},
-                              cfg, grads_fn=grads_fn, sh=sh)
+        def step_fn(ts, batch, summ):
+            return train_step(ts, dict(
+                {k: rank_rows(v, sh) for k, v in batch.items()},
+                x=rank_rows(batch["x"], sh)[:, rows].contiguous()),
+                cfg, grads_fn=grads_fn, sh=sh, with_summaries=summ)
     if lead:
         print(f"[restore] last global step: {gs}")
         staged = (", ranks share a GPU: exchanges staged through host "
@@ -304,12 +314,23 @@ def _train(args, device: torch.device, sh):
             t0 = time.perf_counter()
             with record_function("train_step"):
                 batch = global_batch(dataset.next, shapes, device, sh)
-                ts, metrics = step_fn(ts, batch)
+                if cfg.time_jitter:     # JAX's PRNGKey(gs + step)
+                    batch["jitter"] = jitter_moves(
+                        gs + step, batch["x"].shape[0], args.max_len
+                        // encoder_downsample_rate(cfg.encoder)).to(device)
+                want = (gs + step) % args.interval == 0
+                ts, metrics = step_fn(ts, batch, want)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
             step_seconds.append(time.perf_counter() - t0)
-            if lead and (gs + step) % args.interval == 0:
-                writer.scalars(gs + step, metrics)
+            if want:
+                summ = metrics.pop("summaries")
+            if lead and want:       # train.py:222-237
+                scalars = dict(metrics, **{
+                    "global_norm/gradient_norm": summ.pop("grad_norm")})
+                writer.histograms(gs + step, summary_histograms(
+                    ts["params"], summ))
+                writer.scalars(gs + step, scalars)
                 writer.flush()
             if step % args.log_every == 0 or step == args.num_steps:
                 rl = float(metrics["reconstruction_loss"])

@@ -11,12 +11,21 @@ elsewhere):
     ema' = ema_decay ema + (1 - ema_decay) p'
 
 The bias corrections are float32, as in JAX.  A missing gradient (a
-parameter the loss does not reach) counts as zero.
+parameter the loss does not reach) counts as zero.  Without EMA shadows
+(``ema_params`` None: the standalone WaveNet trainer) the step is plain
+Adam.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+# the standalone WaveNet trainer's schedule (reference wavenet.py:180-188;
+# vqvae_wavenet_tpu/training/optimizer.py:23)
+WAVENET_STANDALONE_SCHEDULE = {
+    0: 4e-4, 40000: 2e-4, 80000: 1e-4,
+    120000: 8e-5, 160000: 4e-5, 200000: 2e-5,
+}
 
 
 def piecewise_constant_schedule(schedule: dict):
@@ -78,14 +87,16 @@ def fused_adam_ema_step(params, ema_params, opt_state, grads, schedule_fn, *,
                         ema_decay: float = 0.999):
     """One Adam + update + EMA step.  opt_state = {"mu", "nu", "count"}
     (mu/nu shaped like params, count an int).  Returns (params,
-    ema_params, opt_state), all new tensors."""
+    ema_params, opt_state), all new tensors; ema_params None stays None."""
     count = int(opt_state["count"])
     cf = np.float32(count + 1)
     c1 = float(np.float32(1.0) - np.float32(b1) ** cf)
     c2 = float(np.float32(1.0) - np.float32(b2) ** cf)
     lr = schedule_fn(count)
     out_p, out_e, out_m, out_v = [], [], [], []
-    for p, e, m, v, g in zip(tree_leaves(params), tree_leaves(ema_params),
+    emas = (tree_leaves(ema_params) if ema_params is not None
+            else [None] * len(grads))
+    for p, e, m, v, g in zip(tree_leaves(params), emas,
                              tree_leaves(opt_state["mu"]),
                              tree_leaves(opt_state["nu"]), grads):
         g = torch.zeros_like(m) if g is None else g.to(m.dtype)
@@ -94,9 +105,11 @@ def fused_adam_ema_step(params, ema_params, opt_state, grads, schedule_fn, *,
         upd = (lr * (m / c1) / (torch.sqrt(v / c2) + eps)).to(p.dtype)
         p = p - upd
         out_p.append(p)
-        out_e.append(ema_decay * e + (1.0 - ema_decay) * p)
+        if e is not None:
+            out_e.append(ema_decay * e + (1.0 - ema_decay) * p)
         out_m.append(m)
         out_v.append(v)
-    return (tree_unflatten(params, out_p), tree_unflatten(ema_params, out_e),
+    return (tree_unflatten(params, out_p),
+            None if ema_params is None else tree_unflatten(ema_params, out_e),
             {"mu": tree_unflatten(params, out_m),
              "nu": tree_unflatten(params, out_v), "count": count + 1})

@@ -68,7 +68,8 @@ def _forward(params, model_state, cfg, batch, sh=None):
         return magenta_forward(params, batch["x"], batch["y"],
                                train_dtype=cfg.train_dtype, sh=sh)
     return vqvae_forward(params, model_state, cfg, batch["x"],
-                         batch.get("y"), train=True, sh=sh)
+                         batch.get("y"), train=True, sh=sh,
+                         jitter=batch.get("jitter"))
 
 
 def loss_and_grads(params, model_state, cfg, batch):
@@ -116,16 +117,23 @@ def dp_loss_and_grads(params, model_state, cfg, batch, sh):
 
 
 def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
-               grads_fn=loss_and_grads, sh=None):
+               grads_fn=loss_and_grads, sh=None,
+               with_summaries: bool = False):
     """One optimizer step.  batch = {"x": [B, T, 1], "y": [B, 1, S] or
-    None} on the parameters' device.  Returns (new train state, metrics);
+    None, and under time_jitter "jitter": the moves [B, T_cond]
+    (models/vqvae.py::jitter_moves)} on the parameters' device.  Returns (new train state, metrics);
     the metrics are 0-d tensors (no host sync here) except the ints.
     ``grads_fn(params, model_state, cfg, batch)`` gives (loss, aux, grads):
     ``loss_and_grads`` here, ``dp_loss_and_grads`` under data parallelism,
     the sequence-parallel one under -time_shards (parallel/timeshard.py).
     ``sh``: a parallel rank's place (data x time), over whose ranks the
     EMA codebook's statistics are summed.  The gradients and the update run in
-    the profiler ranges "loss_and_grads" and "optimizer"."""
+    the profiler ranges "loss_and_grads" and "optimizer".
+    ``with_summaries``: metrics["summaries"] holds the TensorBoard tensor
+    set (train_loop.py:120-139): z_e, the gradient tree and its global
+    norm, q_z_x, e_k and the distances of z_e's first 1,024 rows to every
+    code; under ``sh`` z_e, q_z_x and e_k are gathered from every rank
+    into the global batch's (a collective at summary steps only)."""
     schedule = piecewise_constant_schedule(cfg.learning_rate_schedule)
     with record_function("loss_and_grads"):
         loss, aux, grads = grads_fn(ts["params"], ts["model_state"], cfg,
@@ -157,7 +165,34 @@ def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
               "distances_mean"):
         if k in aux:
             metrics[k] = aux[k]
+    if with_summaries:
+        metrics["summaries"] = _summaries(ts, aux, grads, cfg, sh)
     return new_ts, metrics
+
+
+def _summaries(ts, aux, grads, cfg, sh):
+    """The summary tensors of a step from the parameters before it."""
+    gtree = tree_unflatten(ts["params"], [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(tree_leaves(ts["params"]), grads)])
+    norm = torch.sqrt(sum(g.float().pow(2).sum()
+                          for g in tree_leaves(gtree)))
+    e_k = aux.get("e_k", aux.get("encoding"))
+    if e_k is None and "q_z_x" in aux and "vq" in ts["params"]:
+        e_k = ts["params"]["vq"]["embedding"][aux["q_z_x"]]
+    out = {"z_e": aux["z_e"], "q_z_x": aux.get("q_z_x"), "e_k": e_k}
+    out = {k: v for k, v in out.items() if v is not None}
+    if sh is not None:
+        from vqvae_wavenet_torch.parallel.comm import gather_global
+        out = {k: gather_global(v, sh) for k, v in out.items()}
+    summ = dict(out, grads=gtree, grad_norm=norm)
+    if cfg.use_vq and "vq" in ts["params"]:
+        emb = ts["params"]["vq"]["embedding"].float()
+        flat = out["z_e"].reshape(-1, emb.shape[1])[:1024].float()
+        summ["distances"] = ((flat ** 2).sum(-1, keepdim=True)
+                             - 2.0 * flat @ emb.T
+                             + (emb ** 2).sum(-1)[None, :])
+    return summ
 
 
 def to_device(ts, device: Optional[torch.device]):
