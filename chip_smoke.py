@@ -140,7 +140,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
              its event file (tags; each histogram's count its array's
              size); [dp] reads rank 0's write of a 2-rank run;
   24. visualise  python -m vqvae_wavenet_torch.visualise on [e2e]'s .npy
-             files.
+             files;
+  25. tp     tensor parallelism at B=8 x 6656: data 1 x model 2 in f32
+             and bf16 and data 2 x model 2 in bf16 (ranks on this card
+             over gloo) against the single-device step (loss, gradients,
+             the update, batch-norm statistics), whole leaves bit for bit
+             equal on every rank after three steps, the ranks' launches
+             (the forward kernel at S = 256), the stack forward at S =
+             256 against its twin and timed beside S = 512, the train
+             state's bytes a rank; over NCCL with two or four cards;
+  26. dryrun vqvae_wavenet_torch.dryrun.dryrun_multichip(8): the JAX
+             dryrun's six rows on eight ranks.
 The training CLI's default -loader auto reads the synthetic
 16 kHz PCM16 corpus with the native C++ loader; [train-e2e] runs its bf16
 steps with -loader native and again with -loader python (steps/s side by
@@ -1932,13 +1942,19 @@ def _sp_case(B: int, dtype: str, device, name: str = "shipped"):
             x[:, :T].contiguous(), y)
 
 
-def _host_ms(fn, device) -> float:
-    """Host milliseconds of one call of fn, synchronised on both sides."""
+def _timed(fn, device):
+    """(fn(), host milliseconds of the call, synchronised on both
+    sides)."""
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize(device)
-    return (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _host_ms(fn, device) -> float:
+    """Host milliseconds of one call of fn, synchronised on both sides."""
+    return _timed(fn, device)[1]
 
 
 def _sp_grads_rank(sh, B: int, dtypes):
@@ -3333,6 +3349,346 @@ def phase_sp_mesh(card: str):
 
 
 # the port's kernel wrappers: each launches in a profiler range of its name
+TP_STEPS = 3
+
+
+def _tp_bytes(specs, params, n_model: int) -> tuple:
+    """(one device's, one model rank's) bytes of params + gradients + the
+    two Adam moments + the EMA shadows: 5 float32 values a parameter, a
+    split leaf's 1/n_model of them on a rank."""
+    from vqvae_wavenet_torch.training.optimizer import tree_leaves
+    whole = mine = 0
+    for p, axis in zip(tree_leaves(params), tree_leaves(specs)):
+        whole += p.numel()
+        mine += p.numel() // (n_model if axis is not None else 1)
+    return 20 * whole, 20 * mine
+
+
+def _tp_rank(sh, B: int, dtypes, steps: int, want: bool):
+    """One rank of [tp]: per train_dtype, _sp_case's weights and batch (B
+    clips), the rank's shard_state of a fresh train state and its rows;
+    ``steps`` TP steps (mesh_train_step), the training kernels' counters
+    set to 0 just before and read just after; the first step's loss, and
+    with ``want`` on rank 0 its gradients and new params joined into whole
+    trees (numpy) and its new batch-norm statistics; after the steps the
+    digests of every leaf the rules keep whole (params, EMA shadows, Adam
+    moments, model state) and whether each split leaf is its slice of
+    gather_state; the warm host ms of the last step and the peak device
+    memory of the rank."""
+    import hashlib
+    from vqvae_wavenet_torch import train as train_cli
+    from vqvae_wavenet_torch.ops.conv import set_full_f32
+    from vqvae_wavenet_torch.parallel.comm import own_slice
+    from vqvae_wavenet_torch.parallel.mesh import (gather_state, gather_tree,
+                                                   param_specs, rank_rows,
+                                                   shard_state)
+    from vqvae_wavenet_torch.training.optimizer import (tree_leaves,
+                                                        tree_unflatten)
+    from vqvae_wavenet_torch.training.train_loop import (
+        dp_loss_and_grads, init_train_state, mesh_train_step)
+    set_full_f32()
+    out = {"backend": sh.backend}
+    for dtype in dtypes:
+        cfg, p, s, x, y = _sp_case(B, dtype, sh.device)
+        ts = init_train_state(p, s)
+        specs = param_specs(ts["params"], sh.n_model)
+        mine = shard_state(ts, sh, specs)
+        del ts, p
+        skip_cols = mine["params"]["decoder"]["layers"]["skip_kernel"].shape[2]
+        batch = {"x": rank_rows(x, sh), "y": rank_rows(y, sh)}
+        seen = []
+
+        def grads_fn(*args):
+            seen.append(dp_loss_and_grads(*args, sh=sh, specs=specs))
+            return seen[-1]
+        step = mesh_train_step(cfg, sh, specs)
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats(sh.device)
+        new, _ = step(mine, batch, grads_fn=grads_fn)
+        loss, aux, grads = seen.pop()
+        res = {"loss": float(loss), "skip_cols": skip_cols}
+        grads = gather_tree(tree_unflatten(mine["params"], grads), sh, specs)
+        whole = gather_state(new, sh, specs)
+        if want and sh.rank == 0:
+            res["grads"] = [g.float().cpu().numpy() for g in
+                            tree_leaves(grads)]
+            res["new"] = [t.cpu().numpy() for t in
+                          tree_leaves(whole["params"])]
+            res["bn"] = [t.cpu().numpy() for t in
+                         tree_leaves(aux["state"]["encoder"])]
+        del grads, aux, whole, seen
+        ms = None
+        for _ in range(steps - 1):
+            (new, _), ms = _timed(lambda: step(new, batch), sh.device)
+        res["launches"] = train_cli._launch_counts()
+        res["peak_gb"] = torch.cuda.max_memory_allocated(sh.device) / 1e9
+        res["step_ms"] = ms
+        whole = gather_state(new, sh, specs)
+        flat = tree_leaves(specs)
+        kept, sliced = [], []
+        for name in ("params", "ema_params", "mu", "nu", "model_state"):
+            tree = new["opt_state"] if name in ("mu", "nu") else new
+            ref = whole["opt_state"] if name in ("mu", "nu") else whole
+            axes = flat if name != "model_state" else [None] * len(
+                tree_leaves(tree[name]))
+            for a, w, axis in zip(tree_leaves(tree[name]),
+                                  tree_leaves(ref[name]), axes):
+                if axis is None:
+                    kept.append(hashlib.sha256(a.detach().contiguous().cpu()
+                                               .numpy().tobytes()).hexdigest())
+                else:
+                    sliced.append(bool(torch.equal(a, own_slice(w, axis,
+                                                                sh))))
+        res.update(kept=kept, sliced=sliced)
+        out[dtype] = res
+        del new, mine, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_reference(B: int, dtype: str):
+    """The single-device step on _sp_case's whole batch: (loss, gradients
+    on the CPU, new batch-norm statistics, old ones, new params and old
+    ones on the CPU)."""
+    from vqvae_wavenet_torch.training.optimizer import tree_leaves
+    from vqvae_wavenet_torch.training.train_loop import (
+        init_train_state, loss_and_grads, train_step)
+    cfg, p, s, x, y = _sp_case(B, dtype, "cuda")
+    ts = init_train_state(p, s)
+    loss, aux, grads = loss_and_grads(p, s, cfg, {"x": x, "y": y})
+    new, _ = train_step(ts, {"x": x, "y": y}, cfg)
+    out = (float(loss), [g.float().cpu() for g in grads],
+           [t.cpu() for t in tree_leaves(aux["state"]["encoder"])],
+           [t.cpu() for t in tree_leaves(s["encoder"])],
+           [t.cpu() for t in tree_leaves(new["params"])],
+           [t.cpu() for t in tree_leaves(p)], cfg.learning_rate_schedule[0])
+    del ts, new, aux, grads, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_update(tag, got, ref, old, grads, lr: float) -> float:
+    """The params after the TP step's first update, ``got``, from ``old``
+    (f32 master weights): (a) equal, within 2 ulp of the value plus 1e-4
+    lr, to Adam's first step (lr * g / (|g| + 1e-8)) worked out in float64
+    from the TP step's own joined gradients ``grads`` (the sharded update
+    is the whole one), and (b) within 2.5 lr of the single device's new
+    params ``ref`` (its gradients differ by the order of sums, checked
+    above; Adam's first step moves every element by about lr * sign(g), so
+    a gradient within rounding of zero may take the other sign).  Returns
+    the largest share of (a)'s bound and logs (b)'s."""
+    eps32 = torch.finfo(torch.float32).eps
+    worst = far = 0.0
+    for a, r, o, g in zip(got, ref, old, grads):
+        a = torch.from_numpy(np.asarray(a, np.float64))
+        o, g = o.double(), torch.from_numpy(np.asarray(g, np.float64))
+        ulp = 2 * eps32 * torch.maximum(a.abs(), o.abs())
+        want = o - lr * g / (g.abs() + 1e-8)
+        worst = max(worst, float(((a - want).abs()
+                                  / (ulp + 1e-4 * lr)).max()))
+        far = max(far, float(((a - o) - (r.double() - o)).abs().max()
+                             / (2.5 * lr)))
+    log(f"[{tag}] new params, {len(got)} leaves: against Adam's first step "
+        f"on the TP gradients, largest share of the bound {worst:.3g}; "
+        f"against the single-device step, largest share of 2.5 lr "
+        f"{far:.3g}")
+    if worst >= 1 or far >= 1:
+        raise AssertionError(f"[{tag}] the updated params disagree")
+    return worst
+
+
+def _tp_stack_check(card: str) -> None:
+    """The forward kernel (B4) at a model rank's S = 256 columns of the
+    shipped skip_kernel against its plain twin, f32 and bf16 at B=8 x
+    6656, and its time beside the S = 512 call's and the bound."""
+    from vqvae_wavenet_torch.ops import train_kernels as tk
+    for dtype in ("f32", "bf16"):
+        cfg, w, x0, _ = _stack_inputs(8, 6656, 104, dtype, False, seed=3)
+        kw = dict(dils=tuple(cfg.wavenet.dilation_rates),
+                  gate_order="tanh_first")
+        full = list(w)
+        w[1] = w[1][:, :, :256].contiguous()
+        sk, act, xs = tk.stack_forward_cuda(*w, x0, **kw)
+        sp, act_p, _ = tk.stack_forward_plain(*w, x0, **kw)
+        err = _check_leaves("tp stack S=256", dtype, {
+            "skip_sum": (sk, sp), "act[0]": (act[0], act_p[0])})
+        del sp, act_p
+        ms = cuda_ms(lambda: tk.stack_forward_cuda(*w, x0, **kw), 3)
+        ms512 = cuda_ms(lambda: tk.stack_forward_cuda(*full, x0, **kw), 3)
+        L, K, R, D2 = w[0].shape
+        D, S, N = D2 // 2, 256, 8 * 6656
+        b = bound(2.0 * N * L * (K * R * D2 + D * (S + R)),
+                  nbytes(*w, x0, sk, act, xs), dtype)
+        log(f"[tp] stack forward kernel at S=256 (a model rank's columns), "
+            f"{dtype} B=8 T=6656: {ms:.2f} ms against {ms512:.2f} ms at "
+            f"S=512 in this run; bound {b[0]:.2f} ms by {b[1]}; largest "
+            f"share of the tolerance {err / TRAIN_TOL[dtype]:.3g}  ({card})")
+        del sk, act, xs, w, full
+        torch.cuda.empty_cache()
+
+
+def phase_tp(card: str):
+    """Tensor parallelism on the card, the shipped config at B=8 x 6,656.
+    (a) data 1 x model 2 (both ranks on this card over gloo, staged
+        through host memory, when it is the only one), f32 and bf16: the
+        first step's loss ([dp]'s rtol: f32 2e-4, bf16 2e-2), its gradients
+        joined over the row (_check_sp_grads), the updated params
+        (_check_update) and the new batch-norm statistics (_check_bn)
+        against the single-device step on the same batch and weights;
+    (b) data 2 x model 2 (4 ranks) in bf16: the loss and gradients alike;
+    both: after three steps every leaf the rules keep whole is bit for bit
+        equal on every rank and every split leaf is its slice of
+        gather_state; every rank launched the forward kernel at S = 256
+        (its skip_kernel columns), the sweep, the VQ kernel and in bf16
+        the loss head; the warm host ms of a step and each rank's peak
+        memory, and the bytes of params + gradients + Adam + EMA a rank
+        holds against one device's;
+    (c) the forward kernel at S = 256 against its twin (_tp_stack_check);
+    (d) the single-device step's warm ms and peak memory, f32 and bf16;
+        with two or more cards: data 1 x model 2 over NCCL (a card a
+        rank), bf16 steps/s and peak memory beside it; with four or more:
+        data 2 x model 2 beside DP at 4 ranks.
+    Returns the main-path launches of (a), (b) and (d), summed over the
+    ranks."""
+    from vqvae_wavenet_torch.parallel import run_ranks
+    from vqvae_wavenet_torch.parallel.mesh import param_specs
+    from vqvae_wavenet_torch.training.optimizer import tree_leaves
+    refs = {d: _tp_reference(8, d) for d in ("f32", "bf16")}
+    launches: dict = {}
+
+    def check(tag, res, dtype, compare_update):
+        r0 = res[0][dtype]
+        loss, grads, bn, bn_old, new, old, lr = refs[dtype]
+        rel = abs(r0["loss"] - loss) / abs(loss)
+        log(f"[tp] {tag} {dtype}: loss {r0['loss']:.6f}, single device "
+            f"{loss:.6f} (relative {rel:.3g}); warm step {r0['step_ms']:.1f}"
+            f" ms on rank 0 ({res[0]['backend']}, host clock); peak memory "
+            f"per rank " + " ".join(f"{r[dtype]['peak_gb']:.2f}" for r in res)
+            + f" GB  ({card})")
+        if not rel <= (2e-4 if dtype == "f32" else 2e-2):
+            raise AssertionError(f"[tp] {tag} {dtype}: loss disagrees")
+        _check_sp_grads(f"tp {tag}", dtype, r0["grads"], grads,
+                        refs["f32"][1])
+        if compare_update:
+            _check_update(f"tp {tag} {dtype}", r0["new"], new, old,
+                          r0["grads"], lr)
+            _check_bn(f"tp {tag}", dtype, r0["bn"], bn, bn_old)
+        kept = {tuple(r[dtype]["kept"]) for r in res}
+        sliced = [all(r[dtype]["sliced"]) for r in res]
+        log(f"[tp] {tag} {dtype}: after {TP_STEPS} steps the {len(r0['kept'])}"
+            f" whole leaves bit for bit equal on all {len(res)} ranks "
+            f"{len(kept) == 1}, every rank's {len(r0['sliced'])} split "
+            f"leaves their slice of gather_state {all(sliced)}; skip_kernel "
+            f"columns a rank {r0['skip_cols']}; launches per rank "
+            f"{[r[dtype]['launches'] for r in res]}")
+        need = ["vq_argmin", "train_stack_fwd", "train_stack_bwd"] + (
+            ["train_epilogue_fwd", "train_epilogue_bwd"]
+            if dtype == "bf16" else [])
+        if len(kept) != 1 or not all(sliced) or r0["skip_cols"] != 256:
+            raise AssertionError(f"[tp] {tag} {dtype}: the ranks drifted")
+        for r in res:
+            if min(r[dtype]["launches"][k] for k in need) < 1:
+                raise AssertionError(f"[tp] {tag} {dtype}: a rank missed a "
+                                     f"kernel: {r[dtype]['launches']}")
+            _add(launches, {k: v for k, v in r[dtype]["launches"].items()
+                            if v})
+
+    t0 = time.perf_counter()
+    res = run_ranks(_tp_rank, 2, "cuda", 8, ("f32", "bf16"), TP_STEPS, True,
+                    n_model=2, timeout=600)
+    log(f"[tp] data 1 x model 2: {time.perf_counter() - t0:.1f} s for the "
+        f"spawned run")
+    for dtype in ("f32", "bf16"):
+        check("data 1 x model 2", res, dtype, True)
+    del res
+    t0 = time.perf_counter()
+    res = run_ranks(_tp_rank, 4, "cuda", 8, ("bf16",), TP_STEPS, True,
+                    n_model=2, timeout=600)
+    log(f"[tp] data 2 x model 2: {time.perf_counter() - t0:.1f} s for the "
+        f"spawned run")
+    check("data 2 x model 2", res, "bf16", False)
+    del res
+    cfg, p, _, _, _ = _sp_case(8, "f32", "cpu")
+    specs = param_specs(p, 2)
+    whole, mine = _tp_bytes(specs, p, 2)
+    split = sum(t.numel() for t, a in zip(tree_leaves(p), tree_leaves(specs))
+                if a is not None)
+    log(f"[tp] params + gradients + Adam moments + EMA shadows (float32): "
+        f"{whole / 1e6:.1f} MB on one device, {mine / 1e6:.1f} MB on a rank "
+        f"of model 2 ({(whole - mine) / 1e6:.1f} MB less; the split leaves "
+        f"hold {split / 1e6:.2f} M values)")
+    del refs
+    torch.cuda.empty_cache()
+    _tp_stack_check(card)
+
+    from vqvae_wavenet_torch.training.train_loop import (init_train_state,
+                                                         train_step)
+    for dtype in ("f32", "bf16"):      # one card's step, for comparison
+        cfg, p, s, x, y = _sp_case(8, dtype, "cuda")
+        ts = init_train_state(p, s)
+        del p, s
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TP_STEPS + 3):
+            (ts, _), ms = _timed(lambda: train_step(ts, {"x": x, "y": y},
+                                                    cfg), "cuda")
+        log(f"[tp] one card, the single-device step {dtype} B=8: warm step "
+            f"{ms:.1f} ms, {1e3 / ms:.3f} steps/s (host clock); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (this process, "
+            f"its other tensors included)  ({card})")
+        del ts
+        torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("[tp] NCCL (a card per rank): not run, this machine has one card")
+        return launches
+    meshes = [(2, 2)] + ([(4, 2), (4, 1)] if n >= 4 else [])
+    for world, n_model in meshes:
+        res = run_ranks(_tp_rank, world, "cuda", 8, ("bf16",), TP_STEPS + 3,
+                        False, n_model=n_model, timeout=600)
+        r = res[0]["bf16"]
+        log(f"[tp] {res[0]['backend'].upper()}, data {world // n_model} x "
+            f"model {n_model} (a card a rank), bf16 B=8: warm step "
+            f"{r['step_ms']:.1f} ms, {1e3 / r['step_ms']:.3f} steps/s (host "
+            f"clock); peak memory per rank "
+            + " ".join(f"{q['bf16']['peak_gb']:.2f}" for q in res)
+            + f" GB; whole leaves equal on every rank "
+            f"{len({tuple(q['bf16']['kept']) for q in res}) == 1}  ({card})")
+        if len({tuple(q["bf16"]["kept"]) for q in res}) != 1:
+            raise AssertionError("[tp] NCCL ranks drifted")
+        for q in res:
+            _add(launches, {k: v for k, v in q["bf16"]["launches"].items()
+                            if v})
+    return launches
+
+
+def phase_dryrun(card: str):
+    """vqvae_wavenet_torch.dryrun.dryrun_multichip(8) on the card(s): the
+    JAX dryrun's six rows (it prints them), eight ranks sharing the
+    cards over gloo when there are fewer than eight; no rank imports JAX.
+    The kernels' counters: the ranks' own (fresh processes), and this
+    process's generation counters set to 0 just before.  Returns the
+    launches summed over the ranks and this process."""
+    from vqvae_wavenet_torch.dryrun import dryrun_multichip
+    from vqvae_wavenet_torch.ops import gen_kernels
+    gen_kernels.launches = 0
+    t0 = time.perf_counter()
+    res = dryrun_multichip(8, device="cuda", timeout=600)
+    secs = time.perf_counter() - t0
+    launches = {"gen_wavenet": gen_kernels.launches}
+    for r in res["launches"]:
+        _add(launches, {k: v for k, v in r.items() if v})
+    log(f"[dryrun] 8 ranks on {torch.cuda.device_count()} card(s): "
+        f"{secs:.1f} s; launches {launches}; JAX imported by a rank "
+        f"{any(res['imported'])}  ({card})")
+    need = ("vq_argmin", "train_stack_fwd", "train_stack_bwd",
+            "train_stack_fwd_sp", "train_stack_bwd_sp", "gen_wavenet")
+    if any(res["imported"]) or min(launches.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"[dryrun] a row missed a kernel or imported "
+                             f"JAX: {launches}")
+    return launches
+
+
 PORT_RANGES = ("vq_argmin", "gen_wavenet", "gen_wavenet_int8",
                "train_stack_fwd", "train_stack_bwd", "train_stack_fwd_sp",
                "train_stack_bwd_sp", "train_stack_bwd_chain",
@@ -3466,7 +3822,7 @@ PHASES = ("vq", "gen", "gen-int8", "e2e", "magenta", "train-stack",
           "train-epilogue", "train-e2e", "sp-stack", "sp-train",
           "train-bwd2", "magenta-train", "encoders", "prior", "dp",
           "sp-mesh", "profile", "train-cond", "q512", "standalone",
-          "summaries", "visualise")
+          "summaries", "visualise", "tp", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -3502,7 +3858,9 @@ def main(argv=None) -> int:
                 "q512": lambda: phase_q512(card),
                 "standalone": lambda: phase_standalone(card),
                 "summaries": lambda: phase_summaries(card),
-                "visualise": lambda: phase_visualise(card)}
+                "visualise": lambda: phase_visualise(card),
+                "tp": lambda: phase_tp(card),
+                "dryrun": lambda: phase_dryrun(card)}
         for name in only:
             runs[name]()
         log(f"[only] {' '.join(only)}: passed")
@@ -3528,6 +3886,8 @@ def main(argv=None) -> int:
     _add(extra, phase_dp(card))
     _add(extra, phase_sp_mesh(card))
     _add(extra, phase_profile(card))
+    _add(extra, phase_tp(card))
+    _add(extra, phase_dryrun(card))
     launches["vq_argmin"] += extra.pop("vq_argmin", 0)
     launches["gen_wavenet"] += extra.pop("gen_wavenet", 0)
     magenta["gen_wavenet_int8"] += extra.pop("gen_wavenet_int8", 0)

@@ -21,6 +21,16 @@ Neither Encoder_Magenta nor Encoder_2019 has model state; both return
 the state they are given.  Under data or sequence parallelism Encoder_64's
 batch norms take their statistics over every rank (``sh``).  All three run in the JAX package through XLA
 (no Pallas kernel), so their convs are ``F.conv1d`` here.
+
+Under tensor parallelism (``sh.n_model`` > 1, parallel/mesh.py) the 768-wide
+convs of Encoder_64 and Encoder_2019 arrive as the rank's output columns
+(a kernel narrower than its bias) and run column-parallel: each reads the
+whole input, joined over the model row (``comm.gather_split``; before the
+replicated ``out`` conv ``comm.gather_replicated``), and makes the rank's
+channels, whose bias, batch norm and residuals are the rank's slices; the
+batch-norm statistics span the data group, and the new running statistics
+are joined over the row, so the model state stays whole.  Encoder_Magenta
+(128 wide) is never split.
 """
 from __future__ import annotations
 
@@ -29,7 +39,9 @@ import torch
 from vqvae_wavenet_torch.ops.conv import causal_conv1d, conv1d, shift_right
 from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
 from vqvae_wavenet_torch.ops.signal import mfcc
-from vqvae_wavenet_torch.parallel.comm import pmean
+from vqvae_wavenet_torch.parallel.comm import (all_gather_, gather_replicated,
+                                              gather_split, model_slice,
+                                              own_slice, pmean)
 
 EPS = 1e-3
 MOMENTUM = 0.99
@@ -40,7 +52,7 @@ def batch_norm(params, state, x: torch.Tensor, *, train: bool = False,
     """Keras BatchNorm over (B, T) (encoders.py:58-84).  Returns (out in
     x's dtype, new running statistics).  With ``sh`` (parallel.Shards: the
     batch or the time axis split over ranks) training takes the mean and
-    the mean square over every rank (``comm.pmean``, whose gradient
+    the mean square over the data group (``comm.pmean``, whose gradient
     averages over the ranks): sync-BN, the single-device statistics of the
     whole batch."""
     xf = x.float()
@@ -48,7 +60,8 @@ def batch_norm(params, state, x: torch.Tensor, *, train: bool = False,
         mean = xf.mean(dim=(0, 1))
         mean_sq = (xf * xf).mean(dim=(0, 1))
         if sh is not None:
-            mean, mean_sq = pmean(mean, sh), pmean(mean_sq, sh)
+            mean = pmean(mean, sh, sh.data_group)
+            mean_sq = pmean(mean_sq, sh, sh.data_group)
         var = mean_sq - mean * mean
         new_state = {
             "mean": (MOMENTUM * state["mean"]
@@ -85,30 +98,71 @@ def group_norm(params, x: torch.Tensor, num_groups: int = 8,
     return out.to(x.dtype)
 
 
+def _split(conv, sh) -> bool:
+    """A conv whose kernel holds this rank's output columns (narrower than
+    its bias) under tensor parallelism."""
+    return (sh is not None and sh.n_model > 1
+            and conv["kernel"].shape[-1] != conv["bias"].shape[-1])
+
+
+def _bias(conv, sh):
+    """The bias of the conv's output channels on this rank."""
+    return model_slice(conv["bias"], 0, sh) if _split(conv, sh) \
+        else conv["bias"]
+
+
+def _whole(net, sh, split: bool, feeds_split: bool):
+    """A split conv's output channels joined over the model row, for a
+    split or a replicated consumer; anything else as it is."""
+    if not split:
+        return net
+    return (gather_split if feeds_split else gather_replicated)(net, -1, sh)
+
+
 def encoder_64_forward(params, state, x: torch.Tensor, norm: str = "batch",
                        train: bool = False, sh=None):
     """x: [B, T, 1] raw float wav -> (z_e [B, T/64, latent_dim], new
     state {"bn": [...]}); ``sh``: the batch norms' statistics over the
-    ranks of a data-parallel run."""
+    ranks of a data-parallel run, and the split convs of a
+    tensor-parallel one."""
     new_bn = []
 
-    def normalize(i, net):
+    def normalize(i, net, split):
+        p, s = params["bn"][i], state["bn"][i]
+        if split:        # this rank's channels of the norm
+            p = {k: model_slice(v, 0, sh) for k, v in p.items()}
         if norm == "batch":
-            net, s = batch_norm(params["bn"][i], state["bn"][i], net,
-                                train=train, sh=sh)
+            mine = ({k: own_slice(v, 0, sh) for k, v in s.items()}
+                    if split else s)
+            net, new = batch_norm(p, mine, net, train=train, sh=sh)
+            if split and train:
+                new = {k: all_gather_(v, sh, 0, sh.model_group)
+                       for k, v in new.items()}
+            s = new if train else s
         else:
-            net, s = group_norm(params["bn"][i], net), state["bn"][i]
+            groups = 8
+            if split:
+                if p["scale"].shape[0] * sh.n_model % 8 or 8 % sh.n_model:
+                    raise NotImplementedError(
+                        f"group norm of 8 groups over {sh.n_model} model "
+                        f"ranks")
+                groups = 8 // sh.n_model
+            net = group_norm(p, net, num_groups=groups)
         new_bn.append(s)
         return net
 
     net = x
-    for i, conv in enumerate(params["convs"]):
-        net = conv1d(net, conv["kernel"], conv["bias"], stride=2,
+    convs = params["convs"]
+    for i, conv in enumerate(convs):
+        split = _split(conv, sh)
+        net = conv1d(net, conv["kernel"], _bias(conv, sh), stride=2,
                      padding="SAME")
-        net = normalize(i, torch.relu(net))
+        net = normalize(i, torch.relu(net), split)
+        net = _whole(net, sh, split,
+                     i + 1 < len(convs) and _split(convs[i + 1], sh))
     net = conv1d(net, params["out"]["kernel"], params["out"]["bias"],
                  padding="VALID")
-    return normalize(len(params["convs"]), net), {"bn": new_bn}
+    return normalize(len(convs), net, False), {"bn": new_bn}
 
 
 MAGENTA_DILATIONS = (1, 2, 4, 8, 16, 16)
@@ -141,12 +195,18 @@ def encoder_magenta_forward(params, state, x: torch.Tensor,
 def encoder_2019_forward(params, state, x: torch.Tensor,
                          norm: str = "batch", train: bool = False, sh=None):
     """x: [B, T, 1] -> (z_e [B, ceil(ceil(T/160)/2), latent_dim], state),
-    float32 (encoders.py:224-247)."""
-    def conv(net, p, stride=1):
-        return conv1d(net, p["kernel"], p["bias"], stride=stride,
+    float32 (encoders.py:224-247).  Under tensor parallelism ``net`` holds
+    this rank's channels and each conv reads them joined over the model
+    row."""
+    split = _split(params["pre1"], sh)
+
+    def conv(net, p, stride=1, last=False):
+        net = _whole(net, sh, split, not last)
+        return conv1d(net, p["kernel"], _bias(p, sh), stride=stride,
                       padding="SAME")
 
-    net = torch.relu(conv(mfcc(x[..., 0]), params["pre1"]))
+    net = torch.relu(conv1d(mfcc(x[..., 0]), params["pre1"]["kernel"],
+                            _bias(params["pre1"], sh), padding="SAME"))
     net = torch.relu(conv(net, params["pre2"])) + net
     net = torch.relu(conv(net, params["strided"], stride=2))
     for p in params["res"]:
@@ -154,7 +214,7 @@ def encoder_2019_forward(params, state, x: torch.Tensor,
     for p in params["relu"]:
         r = torch.relu(conv(net, p))
         net = r + r          # the reference's oddity: 2 * relu(conv(net))
-    return conv(net, params["out"]), state
+    return conv(net, params["out"], last=True), state
 
 
 # name -> (forward, samples per latent frame)
@@ -174,7 +234,8 @@ def _entry(name: str):
 def encoder_forward(name: str, params, state, x: torch.Tensor,
                     norm: str = "batch", train: bool = False, sh=None):
     """Encoder ``name``; ``sh`` syncs Encoder_64's batch norms over the
-    ranks (the other two have no batch statistics and ignore it)."""
+    ranks (Encoder_Magenta has no batch statistics and ignores it) and
+    splits the 768-wide convs of a tensor-parallel run."""
     return _entry(name)[0](params, state, x, norm=norm, train=train, sh=sh)
 
 

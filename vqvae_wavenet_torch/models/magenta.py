@@ -32,10 +32,12 @@ import torch.nn.functional as F
 from vqvae_wavenet_torch.config import WavenetConfig
 from vqvae_wavenet_torch.models import vq as vq_mod
 from vqvae_wavenet_torch.models.vqvae import _cast
-from vqvae_wavenet_torch.models.wavenet import wavenet_logits, wavenet_loss
+from vqvae_wavenet_torch.models.wavenet import (split_decoder,
+                                                wavenet_logits, wavenet_loss)
 from vqvae_wavenet_torch.ops.conv import causal_conv1d, conv1d
 from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
 from vqvae_wavenet_torch.ops.signal import pool1d
+from vqvae_wavenet_torch.parallel.comm import reduce_model
 
 MAGENTA_LR_SCHEDULE = {0: 1e-4, 60000: 8e-5, 80000: 6e-5, 100000: 4e-5,
                        120000: 2e-5, 140000: 1e-5}
@@ -101,13 +103,25 @@ def _named_leaves(tree, path=""):
         yield path, tree
 
 
-def regularization_loss(params) -> torch.Tensor:
+# the leaves a tensor-parallel rank holds its shard of (parallel/mesh.py)
+SPLIT_LEAVES = ("/decoder/layers/skip_kernel", "/decoder/postprocess1/kernel")
+
+
+def regularization_loss(params, sh=None) -> torch.Tensor:
     """Sum over the leaves of decay * ||w||^2, with decay * 10 on every
     leaf whose path holds "embedding" (the codebook vq/embedding; not
-    speaker_emb), decay = MAGENTA_DECAY (magenta.py:139-148)."""
-    return sum(MAGENTA_DECAY * (10.0 if "embedding" in path else 1.0)
-               * torch.sum(torch.square(leaf))
-               for path, leaf in _named_leaves(params))
+    speaker_emb), decay = MAGENTA_DECAY (magenta.py:139-148).  Under
+    tensor parallelism (``sh``) the squares of a split leaf's shards are
+    summed over the model row, so each counts once."""
+    split = sh is not None and split_decoder(params["decoder"], sh)
+    terms = {False: [], True: []}
+    for path, leaf in _named_leaves(params):
+        terms[split and path in SPLIT_LEAVES].append(
+            MAGENTA_DECAY * (10.0 if "embedding" in path else 1.0)
+            * torch.sum(torch.square(leaf)))
+    if not terms[True]:
+        return sum(terms[False])
+    return sum(terms[False]) + reduce_model(sum(terms[True]), sh)
 
 
 def magenta_forward(params, x: torch.Tensor, gc_one_hot: torch.Tensor,
@@ -117,9 +131,11 @@ def magenta_forward(params, x: torch.Tensor, gc_one_hot: torch.Tensor,
     in float32; under train_dtype 'bf16' the decoder's parameters, its
     input, z_q and the speaker vector are cast to bfloat16 (master weights
     stay float32; labels and losses float32).  Returns (loss, aux).  With
-    ``sh`` (a data-parallel rank's slice) the VQ statistics span every
-    rank; the losses, the regularization included, are this rank's, whose
-    mean over the ranks is the whole batch's."""
+    ``sh`` (a data-parallel rank's slice) the VQ statistics span the data
+    group; the losses, the regularization included, are this rank's, whose
+    mean over the ranks is the whole batch's.  On a data x model mesh the
+    decoder's skip_kernel columns and postprocess1 rows are the rank's
+    (models/wavenet.py); the encoder (368 wide) is whole."""
     cfg = magenta_wavenet_config()
     z_e = magenta_encode(params["encoder"], x)
     q = vq_mod.quantize(params["vq"], z_e, mode="st", sh=sh)
@@ -134,9 +150,9 @@ def magenta_forward(params, x: torch.Tensor, gc_one_hot: torch.Tensor,
         dec = _cast(dec, bf)
         x_dec, z_q_dec, gc_dec = x.to(bf), z_q.to(bf), gc.to(bf)
     logits = wavenet_logits(dec, cfg, x_dec, z_q_dec, gc_dec,
-                            gate_order="sigmoid_first")
+                            gate_order="sigmoid_first", sh=sh)
     recon = wavenet_loss(logits.float().reshape(-1, Q), labels)
-    reg = regularization_loss(params)
+    reg = regularization_loss(params, sh)
     loss = recon + reg + vq_loss + commitment
     return loss, {"reconstruction_loss": recon, "vq_loss": vq_loss,
                   "commitment_loss": commitment, "reg_loss": reg,

@@ -4,14 +4,16 @@ through it), lookup, straight-through z_q = z_e + (e_k - z_e).detach(),
 perplexity and the closed-form mean distance; the losses of the three
 modes (st, joint, ema) and the EMA codebook update (Magenta/sonnet.py:
 224-241, Laplace-smoothed cluster sizes).  Under data or sequence
-parallelism the statistics span every rank (``sh``).
+parallelism the statistics span every rank (``sh``), under tensor
+parallelism the data group, with the same bits on every rank of a model
+row (``comm.replicated_sum_``).
 """
 from __future__ import annotations
 
 import torch
 
 from vqvae_wavenet_torch.ops.vq_kernels import vq_nearest
-from vqvae_wavenet_torch.parallel.comm import all_reduce_
+from vqvae_wavenet_torch.parallel.comm import replicated_sum_
 
 
 def quantize(params, z_e: torch.Tensor, *, mode: str = "st", sh=None):
@@ -40,9 +42,9 @@ def quantize(params, z_e: torch.Tensor, *, mode: str = "st", sh=None):
         raise ValueError(f"unknown vq mode {mode}")
     counts = torch.bincount(q_z_x.reshape(-1), minlength=k).float()
     if sh is not None:
-        all_reduce_(counts, sh)
-        distances_mean = all_reduce_(distances_mean.detach().reshape(1),
-                                     sh)[0] / sh.world
+        replicated_sum_(counts, sh)
+        distances_mean = replicated_sum_(
+            distances_mean.detach().reshape(1).clone(), sh)[0] / sh.data_world
     avg_probs = counts / counts.sum().clamp_min(1.0)
     perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
     return {"z_q": z_q, "e_k": e_k, "q_z_x": q_z_x, "perplexity": perplexity,
@@ -78,8 +80,8 @@ def ema_codebook_update(params, state, z_e: torch.Tensor,
     cluster_size = onehot.sum(dim=0)
     dw = onehot.T @ flat
     if sh is not None:
-        all_reduce_(cluster_size, sh)
-        all_reduce_(dw, sh)
+        replicated_sum_(cluster_size, sh)
+        replicated_sum_(dw, sh)
     new_cluster_size = (decay * state["ema_cluster_size"]
                         + (1 - decay) * cluster_size)
     new_means = decay * state["ema_means"] + (1 - decay) * dw

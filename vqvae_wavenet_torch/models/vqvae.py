@@ -29,11 +29,13 @@ import torch
 
 from vqvae_wavenet_torch.models import encoders as enc
 from vqvae_wavenet_torch.models import vq as vq_mod
-from vqvae_wavenet_torch.models.wavenet import (wavenet_forward,
+from vqvae_wavenet_torch.models.wavenet import (split_decoder,
+                                                wavenet_forward,
                                                 wavenet_logits, wavenet_loss)
 from vqvae_wavenet_torch.ops.conv import conv1d
 from vqvae_wavenet_torch.ops.epilogue_kernels import fused_epilogue
 from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
+from vqvae_wavenet_torch.parallel.comm import gather_replicated
 
 
 def speaker_vector(params, cfg, y: Optional[torch.Tensor]):
@@ -110,8 +112,12 @@ def vqvae_forward(params, state, cfg, x: torch.Tensor,
     individual losses, the metrics, the new model state (BN running
     statistics; the VQ EMA state passes through) and z_e, z_q, q_z_x.
     ``sh`` (parallel.Shards): x is this rank's slice of a data-parallel
-    batch; the batch norms and the VQ statistics span every rank
-    (vqvae.py:123-147 with axis_name), the losses stay this rank's.
+    batch; the batch norms and the VQ statistics span the data group
+    (vqvae.py:123-147 with axis_name), the losses stay this rank's.  On a
+    data x model mesh the params are the rank's shards (parallel/mesh.py):
+    the encoder and the decoder split their products over the model row,
+    and under bf16 the loss head takes the whole skip sum and
+    postprocess1's rows joined over the row.
     ``jitter``: the time jitter's moves [B, T_cond] (``jitter_moves``),
     applied when cfg.time_jitter and train (JAX's rng)."""
     bf16 = cfg.train_dtype == "bf16"
@@ -148,12 +154,15 @@ def vqvae_forward(params, state, cfg, x: torch.Tensor,
         labels = mu_law_encode(x, Q, to_int=True)[..., 0]          # [B, T]
         lc16 = lc.to(torch.bfloat16)
         skip = wavenet_logits(dec16, cfg.wavenet, x.to(torch.bfloat16), lc16,
-                              return_skip=True)
-        recon = fused_epilogue(dec16["postprocess1"], dec16["postprocess2"],
-                               skip, lc16, None, labels)
+                              return_skip=True, sh=sh)
+        pp1 = dec16["postprocess1"]
+        if split_decoder(dec16, sh):
+            pp1 = dict(pp1, kernel=gather_replicated(pp1["kernel"], 1, sh))
+        recon = fused_epilogue(pp1, dec16["postprocess2"], skip, lc16, None,
+                               labels)
     else:
         logits, labels = wavenet_forward(params["decoder"], cfg.wavenet, x,
-                                         lc)
+                                         lc, sh=sh)
         recon = wavenet_loss(logits, labels)
     loss = recon
     aux["reconstruction_loss"] = recon

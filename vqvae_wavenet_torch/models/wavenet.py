@@ -6,6 +6,15 @@ skip-start 1x1 -> the L-layer residual stack (``fused_residual_stack``:
 the CUDA kernels on the card) -> relu -> 1x1 (+ per-frame condition) ->
 relu -> 1x1 logits; loss = mean sparse softmax CE over B*T.
 
+Under tensor parallelism (``sh.n_model`` > 1, parallel/mesh.py) the decoder
+holds this rank's columns of ``layers/skip_kernel`` and rows of
+``postprocess1/kernel``: skip_start makes the rank's S columns, the stack
+kernel runs on them (ops/train_kernels.py), and the heads compute
+postprocess1 row-parallel, relu(skip_local) @ pp1_rows summed over the
+model row, before the bias, the conditions, relu and postprocess2, which
+every rank of the row repeats.  With ``return_skip`` (the bf16 loss head)
+the skip sum comes back whole, joined inside the stack.
+
 The compute type follows the input: float32, or bfloat16 under
 ``train_dtype='bf16'`` (the caller casts the decoder parameters and the
 input), with float32 sums and an f32 skip path and logits.  The stack
@@ -27,42 +36,62 @@ from vqvae_wavenet_torch.ops.conv import (add_condition, causal_conv1d,
                                           shift_right)
 from vqvae_wavenet_torch.ops.mu_law import mu_law_encode
 from vqvae_wavenet_torch.ops.train_kernels import fused_residual_stack
+from vqvae_wavenet_torch.parallel.comm import (copy_model, model_slice,
+                                              reduce_model)
+
+
+def split_decoder(params, sh) -> bool:
+    """The decoder holds this rank's skip columns (tensor parallelism)."""
+    lp = params["layers"]
+    return (sh is not None and sh.n_model > 1
+            and lp["skip_kernel"].shape[-1] != lp["skip_bias"].shape[-1])
 
 
 def wavenet_logits(params, cfg, inputs: torch.Tensor,
                    local_condition: Optional[torch.Tensor] = None,
                    global_condition: Optional[torch.Tensor] = None, *,
                    gate_order: str = "tanh_first",
-                   return_skip: bool = False) -> torch.Tensor:
+                   return_skip: bool = False, sh=None) -> torch.Tensor:
     """Teacher-forced logits [B, T, Q] f32 for the waveform inputs
     [B, T, 1] (in the compute type), or with ``return_skip`` the pre-relu
-    skip sum [B, T, S] f32 that ``fused_epilogue`` consumes."""
+    skip sum [B, T, S] f32 that ``fused_epilogue`` consumes.  ``sh``: a
+    tensor-parallel rank's place (module docstring)."""
     cd = inputs.dtype
     net = mu_law_encode(shift_right(inputs), cfg.quantization_channels).to(cd)
     net = causal_conv1d(net, params["preprocess"]["kernel"],
                         params["preprocess"]["bias"])
-    skip = (net.float() @ params["skip_start"]["kernel"][0].float()
-            + params["skip_start"]["bias"].float())
+    tp = sh if split_decoder(params, sh) else None
+    ss_in, ss_k, ss_b = (net, params["skip_start"]["kernel"][0],
+                         params["skip_start"]["bias"])
+    if tp is not None and not return_skip:      # the rank's S columns
+        ss_in = copy_model(net, tp)
+        ss_k, ss_b = model_slice(ss_k, 1, tp), model_slice(ss_b, 0, tp)
+    skip = ss_in.float() @ ss_k.float() + ss_b.float()
     lp = params["layers"]
     gc = global_condition if "gc_kernel" in lp else None
     skip = skip + fused_residual_stack(lp, cfg, net, local_condition, gc,
-                                       gate_order=gate_order)
+                                       gate_order=gate_order, sh=tp,
+                                       whole=return_skip)
     if return_skip:
         return skip
-    return wavenet_heads(params, skip, local_condition, global_condition, cd)
+    return wavenet_heads(params, skip, local_condition, global_condition, cd,
+                         sh=tp)
 
 
 def wavenet_heads(params, skip: torch.Tensor,
                   local_condition: Optional[torch.Tensor],
                   global_condition: Optional[torch.Tensor],
-                  cd: torch.dtype) -> torch.Tensor:
+                  cd: torch.dtype, sh=None) -> torch.Tensor:
     """relu -> 1x1 (+ conditions) -> relu -> 1x1: the logits [B, T, Q] f32
     from the skip sum [B, T, S] f32, activations rounded to the compute
     type ``cd`` (wavenet.py:286-301; timeshard.py:490-509 runs the same
-    tail on a time shard)."""
+    tail on a time shard).  With ``sh`` the skip sum and postprocess1's
+    rows are this rank's, and the product is summed over the model row."""
     pp1, pp2 = params["postprocess1"], params["postprocess2"]
-    net = torch.relu(skip).to(cd).float() @ pp1["kernel"][0].float() \
-        + pp1["bias"].float()
+    net = torch.relu(skip).to(cd).float() @ pp1["kernel"][0].float()
+    if sh is not None:
+        net = reduce_model(net, sh)
+    net = net + pp1["bias"].float()
     if "lc_kernel" in pp1 and local_condition is not None:
         net = add_condition(net, local_condition, pp1["lc_kernel"])
     if "gc_kernel" in pp1 and global_condition is not None:
@@ -76,13 +105,13 @@ def wavenet_heads(params, skip: torch.Tensor,
 def wavenet_forward(params, cfg, inputs: torch.Tensor,
                     local_condition: Optional[torch.Tensor] = None,
                     global_condition: Optional[torch.Tensor] = None, *,
-                    gate_order: str = "tanh_first"):
+                    gate_order: str = "tanh_first", sh=None):
     """(logits [B*T, Q], labels [B*T] int64): the mu-law bins of the
     inputs are the targets (wavenet.py:84-105)."""
     labels = mu_law_encode(inputs, cfg.quantization_channels,
                            to_int=True).reshape(-1)
     logits = wavenet_logits(params, cfg, inputs, local_condition,
-                            global_condition, gate_order=gate_order)
+                            global_condition, gate_order=gate_order, sh=sh)
     return logits.reshape(-1, cfg.quantization_channels), labels
 
 

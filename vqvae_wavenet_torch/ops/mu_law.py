@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -31,3 +32,11 @@ def mu_law_decode(y: torch.Tensor,
     y = 2.0 * y.float() / mu - 1.0
     x = torch.sign(y) * (torch.pow(1.0 + mu, torch.abs(y)) - 1.0) / mu
     return torch.clamp(x, -1.0, 1.0)
+
+
+def mu_law_decode_np(y, quantization_channels: int = 256) -> np.ndarray:
+    """``mu_law_decode`` on the host in numpy float32, without the clip
+    (vqvae_wavenet_tpu/ops/mu_law.py:58-61)."""
+    mu = np.float32(quantization_channels - 1)
+    y = (2.0 * np.asarray(y, dtype=np.float32) / mu) - 1.0
+    return np.sign(y) * ((1.0 + mu) ** np.abs(y) - 1.0) / mu

@@ -38,6 +38,17 @@ options (train_pallas.py:1198, :739, :1561-1593):
 Calls with start > 0 or with_xout count in ``fwd_sp_launches`` /
 ``bwd_sp_launches``, the others in ``fwd_launches`` / ``bwd_launches``.
 
+Under tensor parallelism (``sh``: parallel/mesh.py's model axis) skipw is
+the rank's S/n_model columns of ``layers/skip_kernel``.  The forward kernel
+runs on them (a skip column depends on its own skipw column alone, so the
+rank's skip sum is exact), and with ``whole`` the skip sum is joined over
+the model row inside the Function.  The backward kernel forms dg from
+[dX | dskip] . [resw^T ; skipw^T] in one sum and walks every layer in one
+launch, so a rank's partial sum could not be reduced between layers: it
+runs on the whole dskip (joined over the row unless it arrived whole) and
+the whole skipw, and keeps its columns of dsk.  Every other gradient then
+comes out whole, the same on every rank of the row.
+
 Rounding points (kernel and plain version alike), in the compute type T
 (bfloat16 or float32) with float32 sums:
   forward   pre = conv + lc_encb (f32); f, g = gate(pre) each rounded to T
@@ -61,6 +72,8 @@ import torch
 from torch.profiler import record_function
 
 from vqvae_wavenet_torch.ops import _build
+from vqvae_wavenet_torch.parallel.comm import (all_gather_, model_slice,
+                                              own_slice)
 
 # kernel launches: one added where each wrapper launches, nowhere else;
 # the sequence-parallel variants (start > 0 or the stream output) apart
@@ -553,11 +566,13 @@ def stack_dk(*args, **kw):
 class _Stack(torch.autograd.Function):
     """skip_sum (, xout) = stack(kernel, skipw, resw, res_b, lc_encb, x0);
     the backward is the backward kernel (or its plain version on the CPU).
-    Only the kernel's own saved tensors (act, xs) are kept."""
+    Only the kernel's own saved tensors (act, xs) are kept.  ``tp`` (a
+    tensor-parallel rank's Shards, or None) and ``whole``: the module
+    docstring."""
 
     @staticmethod
     def forward(ctx, kernel, skipw, resw, res_b, lc_encb, x0, dils,
-                gate_order, start, with_xout):
+                gate_order, start, with_xout, tp=None, whole=False):
         out = stack_forward(kernel, skipw, resw, res_b, lc_encb, x0, dils,
                             gate_order, start=start, with_xout=with_xout)
         act, xs = out[1], out[2]
@@ -565,11 +580,20 @@ class _Stack(torch.autograd.Function):
         ctx.dils, ctx.gate_order = dils, gate_order
         ctx.start, ctx.with_xout = start, with_xout
         ctx.frames, ctx.res_b_dtype = lc_encb.shape[1], res_b.dtype
-        return (out[0], out[3]) if with_xout else out[0]
+        ctx.tp, ctx.whole = tp, whole
+        skip = out[0]
+        if tp is not None and whole:
+            skip = all_gather_(skip, tp, -1, tp.model_group)
+        return (skip, out[3]) if with_xout else skip
 
     @staticmethod
     def backward(ctx, dskip, dxout=None):
         kernel, skipw, resw, act, xs = ctx.saved_tensors
+        tp = ctx.tp
+        if tp is not None:          # the whole dskip and skipw
+            if not ctx.whole:
+                dskip = all_gather_(dskip, tp, -1, tp.model_group)
+            skipw = all_gather_(skipw, tp, -1, tp.model_group)
         if BWD_FUSED_DK not in ("auto", "off"):
             raise ValueError(f"BWD_FUSED_DK {BWD_FUSED_DK!r}: want 'auto' "
                              f"or 'off'")
@@ -586,8 +610,11 @@ class _Stack(torch.autograd.Function):
                 ctx.gate_order)
             dk = stack_dk(dpre_all, xs, ctx.dils, kernel.shape[1])
             del dpre_all
+        if tp is not None:          # this rank's columns
+            dsk = own_slice(dsk, -1, tp).contiguous()
         return (dk.to(kernel.dtype), dsk.to(skipw.dtype), drs.to(resw.dtype),
-                drb.to(ctx.res_b_dtype), dlc, dx0, None, None, None, None)
+                drb.to(ctx.res_b_dtype), dlc, dx0, None, None, None, None,
+                None, None)
 
 
 def fused_residual_stack(lp, cfg, x0: torch.Tensor,
@@ -596,7 +623,8 @@ def fused_residual_stack(lp, cfg, x0: torch.Tensor,
                          gate_order: str = "tanh_first",
                          start_rows: int = 0,
                          layer_range: Optional[Tuple[int, int]] = None,
-                         with_xout: bool = False):
+                         with_xout: bool = False, sh=None,
+                         whole: bool = False):
     """The residual stack over x0 [B, T, R] (the preprocess output, in the
     compute type) with the stacked layer parameters ``lp`` (JAX layouts:
     kernel [L, K, R, 2D], bias [L, 2D], lc_kernel [L, C, 2D], skip_kernel
@@ -606,7 +634,10 @@ def fused_residual_stack(lp, cfg, x0: torch.Tensor,
     float32 including the summed skip biases (train_pallas.py:1782-1850),
     or (skip sum, xout [B, T, R]) with ``with_xout``.  ``start_rows`` (a
     per-shard int) and ``layer_range`` (lo, hi) select the
-    sequence-parallel variants of the module docstring."""
+    sequence-parallel variants of the module docstring.  ``sh``: a
+    tensor-parallel rank's place, skip_kernel holding its S/n_model
+    columns; the skip sum is then the rank's columns, or with ``whole``
+    all S of them (module docstring)."""
     B, T, _ = x0.shape
     lo, hi = layer_range if layer_range is not None else (
         0, lp["bias"].shape[0])
@@ -637,7 +668,10 @@ def fused_residual_stack(lp, cfg, x0: torch.Tensor,
         lp["kernel"], lp["skip_kernel"], lp["res_kernel"], lp["res_bias"],
         lc_encb.contiguous(), x0,
         tuple(int(d) for d in cfg.dilation_rates[lo:hi]), gate_order,
-        int(start_rows), with_xout)
+        int(start_rows), with_xout, sh, whole)
     skip_sum, xout = out if with_xout else (out, None)
-    skip = skip_sum.float() + lp["skip_bias"].float().sum(dim=0)
+    skip_b = lp["skip_bias"]
+    if sh is not None and not whole:
+        skip_b = model_slice(skip_b, 1, sh)
+    skip = skip_sum.float() + skip_b.float().sum(dim=0)
     return (skip, xout) if with_xout else skip

@@ -21,6 +21,26 @@ value), so every exchange built from it is differentiable:
   sum_grads(grads)          the gradients summed over the ranks in f32, in
                             one flat buffer (SP and DP steps alike)
 
+Tensor parallelism (TP) exchanges along a model row (``sh.model_group``),
+each the transpose of another, so that a split product's gradient comes
+out whole (the collectives GSPMD inserts for JAX's 'model' axis):
+
+  gather_split(x, dim)      the row's shards joined on ``dim``, for what
+                            feeds a split product: its gradient arrives
+                            partial on each rank, so the backward sums it
+                            over the row and keeps this rank's slice
+  gather_replicated(x, dim) the same join, for what feeds replicated work:
+                            the backward keeps this rank's slice
+  model_slice(x, dim)       this rank's slice of a replicated x; the
+                            backward joins the row's slices
+  reduce_model(x)           the sum over the row; the backward passes the
+                            cotangent on
+  copy_model(x)             x, for a replicated x that feeds a split
+                            product; the backward sums the cotangent over
+                            the row
+  replicated_sum_(t)        model rank 0's t summed over the data group,
+                            the same bits on every rank of a row
+
 Tensors are [B, T_l, C] with time on axis 1.  Under gloo a CUDA tensor is
 staged through host memory (gloo moves CUDA tensors only for collectives,
 and not point to point).  Every rank must make the same calls in the same
@@ -135,6 +155,111 @@ def sharded_shift_right(x: torch.Tensor, sh: Shards) -> torch.Tensor:
     return torch.cat([left_halo(x, 1, sh), x], dim=1)[:, :-1]
 
 
+def all_gather_(t: torch.Tensor, sh: Shards, dim: int,
+                group=None) -> torch.Tensor:
+    """The ranks' ``t`` (of ``group``: every rank if None; one shape on
+    every rank) joined on ``dim`` in rank order; no gradient."""
+    buf = _host(t.detach().contiguous(), sh)
+    parts = [torch.empty_like(buf)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def own_slice(t: torch.Tensor, dim: int, sh: Shards) -> torch.Tensor:
+    """This rank's contiguous slice m of n_model of ``t`` along ``dim`` (a
+    view; no gradient rule of its own)."""
+    n = t.shape[dim] // sh.n_model
+    return t.narrow(dim, sh.model_rank * n, n)
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, sh: Shards, partial: bool):
+        ctx.dim, ctx.sh, ctx.partial = dim, sh, partial
+        return all_gather_(x, sh, dim, sh.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = all_reduce_(g.contiguous().clone(), ctx.sh,
+                            ctx.sh.model_group)
+        return own_slice(g, ctx.dim, ctx.sh).contiguous(), None, None, None
+
+
+def gather_split(x: torch.Tensor, dim: int, sh: Shards) -> torch.Tensor:
+    """The model row's shards of x joined on ``dim``, feeding a product
+    split over the row (backward: summed over the row, this rank's
+    slice)."""
+    return _GatherModel.apply(x, dim, sh, True)
+
+
+def gather_replicated(x: torch.Tensor, dim: int, sh: Shards) -> torch.Tensor:
+    """The model row's shards of x joined on ``dim``, feeding work every
+    rank of the row repeats (backward: this rank's slice)."""
+    return _GatherModel.apply(x, dim, sh, False)
+
+
+class _SliceModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, sh: Shards):
+        ctx.dim, ctx.sh = dim, sh
+        return own_slice(x, dim, sh).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_(g, ctx.sh, ctx.dim, ctx.sh.model_group), None,
+                None)
+
+
+def model_slice(x: torch.Tensor, dim: int, sh: Shards) -> torch.Tensor:
+    """This rank's slice of a replicated x along ``dim`` (backward: the
+    row's slices joined, so x's gradient is whole on every rank)."""
+    return _SliceModel.apply(x, dim, sh)
+
+
+class _ReduceModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sh: Shards):
+        return all_reduce_(x.detach().clone(), sh, sh.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_model(x: torch.Tensor, sh: Shards) -> torch.Tensor:
+    """x summed over the model row (backward: the identity)."""
+    return _ReduceModel.apply(x, sh)
+
+
+class _CopyModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sh: Shards):
+        ctx.sh = sh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.sh,
+                           ctx.sh.model_group), None
+
+
+def copy_model(x: torch.Tensor, sh: Shards) -> torch.Tensor:
+    """x (backward: the cotangent summed over the model row)."""
+    return _CopyModel.apply(x, sh)
+
+
+def replicated_sum_(t: torch.Tensor, sh: Shards) -> torch.Tensor:
+    """The sum of ``t`` over the data group, in place, as the same bits on
+    every rank of a model row: model rank 0's ``t`` summed over every rank,
+    the others adding zeros (for a value each rank of the row computes
+    alike; one collective, so no row can drift from another)."""
+    if sh.model_rank:
+        t.zero_()
+    return all_reduce_(t, sh)
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sh: Shards, group):
@@ -152,10 +277,14 @@ def pmean(x: torch.Tensor, sh: Shards, group=None) -> torch.Tensor:
     return _AllReduceSum.apply(x, sh, group) / dist.get_world_size(group)
 
 
-def sum_grads(grads: List[torch.Tensor], sh: Shards) -> List[torch.Tensor]:
-    """Each tensor summed over the ranks: one all-reduce of a float32 flat
-    buffer holding them all; returned in their shapes and types."""
-    flat = all_reduce_(torch.cat([g.reshape(-1).float() for g in grads]), sh)
+def sum_grads(grads: List[torch.Tensor], sh: Shards,
+              reduce=all_reduce_) -> List[torch.Tensor]:
+    """Each tensor summed over the ranks: one ``reduce(flat, sh)`` (an
+    all-reduce over every rank by default) of a float32 flat buffer
+    holding them all; returned in their shapes and types."""
+    if not grads:
+        return []
+    flat = reduce(torch.cat([g.reshape(-1).float() for g in grads]), sh)
     out, i = [], 0
     for g in grads:
         out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
@@ -165,12 +294,13 @@ def sum_grads(grads: List[torch.Tensor], sh: Shards) -> List[torch.Tensor]:
 
 def gather_global(t: torch.Tensor, sh: Shards) -> torch.Tensor:
     """The global tensor of every rank's ``t`` [b, f, ...] (its rows of
-    data row d, its frames of time shard t; every rank's of one shape):
-    the time shards joined on axis 1 in time order, the data rows on axis
-    0 in data order.  A collective: every rank calls it; no gradient."""
+    data row d, its frames of time shard t; every rank's of one shape, the
+    same on the ranks of a model row): the time shards joined on axis 1 in
+    time order, the data rows on axis 0 in data order.  A collective over
+    the data group: every rank calls it; no gradient."""
     buf = _host(t.detach().contiguous(), sh)
-    parts = [torch.empty_like(buf) for _ in range(sh.world)]
-    dist.all_gather(parts, buf)
+    parts = [torch.empty_like(buf) for _ in range(sh.data_world)]
+    dist.all_gather(parts, buf, group=sh.data_group)
     n = sh.n_time
     rows = [torch.cat(parts[d * n:(d + 1) * n], dim=1) if n > 1
             else parts[d] for d in range(sh.n_data)]

@@ -20,19 +20,34 @@ builds it on every rank, and a restored one is rank 0's, broadcast
 models (``sh`` arguments), in ``training/train_loop.py::dp_loss_and_grads``
 and in ``parallel/timeshard.py``.
 
-The 'model' axis (tensor parallelism, mesh.py:47-85) is not ported: no CLI
-of the JAX package reaches it (ROADMAP.md queue A).
+The 'model' axis (tensor parallelism, TP, mesh.py:27-36, :47-85): n_data
+x n_model ranks (``tp_mesh``, JAX's make_mesh), rank d * n_model + m on
+data row d and model column m (``parallel.layout``).  ``param_specs`` is
+JAX's ``_param_spec`` / ``param_shardings``: WaveNet ``layers/skip_kernel``
+split on its output (S) axis, ``postprocess1/kernel`` on its input axis,
+an encoder's rank-3 kernels at least 512 wide on their output channel; a
+leaf whose axis n_model does not divide, and everything else, whole on
+every rank.  ``shard_state`` cuts a single-device train state into a
+rank's (params, EMA shadows and the Adam moments split alike; the model
+state and the counts whole), and ``gather_state`` joins the shards again
+into the single-device state, which rank 0 can save with
+``training/checkpoint.py``.  The models run the split products through
+the exchanges of ``parallel/comm.py``; ``training/train_loop.py`` holds
+the step.  No CLI reaches TP, as none of the JAX package does (its
+train.py builds its mesh with num_model=1); ``vqvae_wavenet_torch.dryrun``
+and the tests drive it.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vqvae_wavenet_torch.parallel import Shards
-from vqvae_wavenet_torch.parallel.comm import broadcast_
+from vqvae_wavenet_torch.parallel.comm import (all_gather_, broadcast_,
+                                              own_slice)
 from vqvae_wavenet_torch.training.optimizer import tree_leaves, tree_unflatten
 
 
@@ -118,3 +133,103 @@ def replicate_(ts, sh: Shards):
                            for t in leaves])
     rest["opt_state"]["count"] = int(ints[1])
     return dict(rest, step=int(ints[0]))
+
+
+def tp_mesh(n: int, num_data: Optional[int] = None,
+            num_model: int = 1) -> Tuple[int, int]:
+    """(num_data, num_model) of a data x model mesh of ``n`` ranks:
+    num_data defaults to n // num_model, and the product must be n (JAX's
+    make_mesh, mesh.py:27-36)."""
+    if num_data is None:
+        num_data = n // num_model
+    if num_data * num_model != n:
+        raise ValueError(f"mesh {num_data}x{num_model} != {n} devices")
+    return num_data, num_model
+
+
+def param_spec(path: str, shape: Sequence[int]) -> Optional[int]:
+    """The axis the tensor-parallel rules split a leaf on, or None (JAX's
+    _param_spec, mesh.py:48-67): ``layers/skip_kernel`` of rank 3 on its
+    last axis, ``postprocess1/kernel`` of rank 3 on its input (middle)
+    axis, a rank-3 leaf under ``encoder`` on its last axis when that is at
+    least 512 wide."""
+    if len(shape) == 0 or min(shape) == 0:
+        return None
+    if "layers/skip_kernel" in path and len(shape) == 3:
+        return 2
+    if "postprocess1/kernel" in path and len(shape) == 3:
+        return 1
+    if "encoder" in path and len(shape) == 3 and shape[-1] >= 512:
+        return 2
+    return None
+
+
+def _with_paths(tree, fn, path=""):
+    if isinstance(tree, dict):
+        return {k: _with_paths(v, fn, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_with_paths(v, fn, f"{path}/{i}") for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_specs(params, n_model: int):
+    """The split axis (or None) of every leaf of a single-device parameter
+    tree (anything with a ``shape``) on a model axis of ``n_model`` ranks:
+    ``param_spec``, with a leaf whose axis ``n_model`` does not divide kept
+    whole, and every leaf whole when n_model is 1 (JAX's param_shardings,
+    mesh.py:70-85)."""
+    def spec(path, leaf):
+        axis = param_spec(path, tuple(leaf.shape)) if n_model > 1 else None
+        if axis is None or leaf.shape[axis] % n_model:
+            return None
+        return axis
+    return _with_paths(params, spec)
+
+
+def _zip_specs(tree, specs, fn):
+    """fn(leaf, axis) over the leaves of ``tree`` and their ``specs``."""
+    if isinstance(tree, dict):
+        return {k: _zip_specs(v, specs[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zip_specs(v, a, fn) for v, a in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+def _param_trees(ts, fn):
+    """ts with fn(tree) applied to its params, EMA shadows and Adam
+    moments: the trees shaped like the parameters."""
+    opt = dict(ts["opt_state"], mu=fn(ts["opt_state"]["mu"]),
+               nu=fn(ts["opt_state"]["nu"]))
+    return dict(ts, params=fn(ts["params"]),
+                ema_params=fn(ts["ema_params"]), opt_state=opt)
+
+
+def gather_tree(tree, sh: Shards, specs):
+    """The whole tree from the ranks' shards of a tree shaped like the
+    parameters: every leaf ``specs`` splits joined over the model row on
+    its axis.  A collective."""
+    def join(leaf, axis):
+        if axis is None:
+            return leaf
+        return all_gather_(leaf, sh, axis, sh.model_group)
+    return _zip_specs(tree, specs, join)
+
+
+def shard_state(ts, sh: Shards, specs):
+    """This rank's train state from a single-device one: in the params,
+    the EMA shadows and the Adam moments every leaf ``specs``
+    (``param_specs`` of ts["params"]) splits cut to the rank's contiguous
+    slice m of n_model on its axis (a copy); the rest, the model state and
+    the counts as they are."""
+    def cut(leaf, axis):
+        return leaf if axis is None else \
+            own_slice(leaf, axis, sh).contiguous().clone()
+    return _param_trees(ts, lambda t: _zip_specs(t, specs, cut))
+
+
+def gather_state(ts, sh: Shards, specs):
+    """The single-device train state from the ranks' ``shard_state``
+    shards (``gather_tree`` of its params, EMA shadows and Adam moments).
+    A collective: every rank calls it and gets the whole state."""
+    return _param_trees(ts, lambda t: gather_tree(t, sh, specs))

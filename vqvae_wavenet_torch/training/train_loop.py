@@ -17,9 +17,16 @@ the Magenta family 0.5, train_loop.py:85), keeps the new BN statistics,
 and under vq_mode 'ema' moves the codebook by its EMA after the optimizer
 step, with the EMA shadow following the updated codebook
 (train_loop.py:89-98).  The Magenta family has no model state.
+
+On a data x model mesh (tensor parallelism, TP; parallel/mesh.py) a rank's
+train state holds its shards of the leaves ``param_specs`` splits, in the
+params, the EMA shadows and the Adam moments alike (the update is
+elementwise, so the shards step as the whole would), and the rest whole;
+``mesh_train_step`` is JAX's make_jit_train_step(cfg, mesh).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -28,7 +35,8 @@ from torch.profiler import record_function
 from vqvae_wavenet_torch.models import vq as vq_mod
 from vqvae_wavenet_torch.models.magenta import magenta_forward
 from vqvae_wavenet_torch.models.vqvae import vqvae_forward
-from vqvae_wavenet_torch.parallel.comm import all_reduce_, sum_grads
+from vqvae_wavenet_torch.parallel.comm import (all_reduce_, replicated_sum_,
+                                              sum_grads)
 from vqvae_wavenet_torch.training.optimizer import (
     ema_update, fused_adam_ema_step, piecewise_constant_schedule,
     tree_leaves, tree_unflatten)
@@ -88,37 +96,54 @@ def loss_and_grads(params, model_state, cfg, batch):
 _RANK_MEANS = ("loss", "reconstruction_loss", "vq_loss", "commitment_loss")
 
 
-def dp_loss_and_grads(params, model_state, cfg, batch, sh):
+def _data_sum_(t, sh):
+    return all_reduce_(t, sh, sh.data_group)
+
+
+def dp_loss_and_grads(params, model_state, cfg, batch, sh, specs=None):
     """loss_and_grads under data parallelism (DP): batch is this rank's
     contiguous slice of the global batch (parallel/mesh.py), every slice
     of one size.  Each rank backpropagates its SHARE of the global loss,
-    its local loss / N; the batch norms' statistics and the VQ statistics
-    span every rank (``sh``), and the gradients are summed over the ranks
-    in float32 in one flat buffer: the gradient of the mean of the local
-    losses, which is the single-device loss on the global batch
-    (train_loop.py:143-176 with a mesh: one program over the 'data' axis).
+    its local loss / N (N the ranks of the data group); the batch norms'
+    statistics and the VQ statistics span the data group (``sh``), and the
+    gradients are summed over it in float32 in one flat buffer: the
+    gradient of the mean of the local losses, which is the single-device
+    loss on the global batch (train_loop.py:143-176 with a mesh: one
+    program over the 'data' axis).  On a data x model mesh ``params`` are
+    the rank's shards and ``specs`` their ``param_specs``: a split leaf's
+    gradient is summed over the data group, and a whole leaf's, which
+    every rank of a model row computes alike (the split products' partial
+    sums are joined in the models), is model rank 0's summed over the data
+    group, the same bits on every rank (``comm.replicated_sum_``).
     Returns (the global loss, aux with the batch means averaged over the
     ranks, grads), the same on every rank; ``train_step(..., grads_fn=
-    functools.partial(dp_loss_and_grads, sh=sh), sh=sh)`` is the DP step."""
+    functools.partial(dp_loss_and_grads, sh=sh), sh=sh)`` is the DP step,
+    ``mesh_train_step`` the TP one."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     p = tree_unflatten(params, leaves)
     with torch.enable_grad():
         loss, aux = _forward(p, model_state, cfg, batch, sh)
-        grads = torch.autograd.grad(loss / sh.world, leaves,
+        grads = torch.autograd.grad(loss / sh.data_world, leaves,
                                     allow_unused=True)
-    grads = sum_grads([torch.zeros_like(t) if g is None else g
-                       for t, g in zip(leaves, grads)], sh)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    split = ([a is not None for a in tree_leaves(specs)] if specs is not None
+             else [False] * len(grads))
+    parts = {s: iter(sum_grads([g for g, t in zip(grads, split) if t == s],
+                               sh, _data_sum_ if s else replicated_sum_))
+             for s in (False, True)}
+    grads = [next(parts[s]) for s in split]
     aux = dict(_detach(aux), loss=loss.detach())
     names = [n for n in _RANK_MEANS if n in aux]
-    means = all_reduce_(torch.stack([aux[n].float() for n in names]),
-                        sh) / sh.world
+    means = replicated_sum_(torch.stack([aux[n].float() for n in names]),
+                            sh) / sh.data_world
     aux.update({n: means[i] for i, n in enumerate(names)})
     return aux["loss"], aux, grads
 
 
 def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
                grads_fn=loss_and_grads, sh=None,
-               with_summaries: bool = False):
+               with_summaries: bool = False, specs=None):
     """One optimizer step.  batch = {"x": [B, T, 1], "y": [B, 1, S] or
     None, and under time_jitter "jitter": the moves [B, T_cond]
     (models/vqvae.py::jitter_moves)} on the parameters' device.  Returns (new train state, metrics);
@@ -126,14 +151,16 @@ def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
     ``grads_fn(params, model_state, cfg, batch)`` gives (loss, aux, grads):
     ``loss_and_grads`` here, ``dp_loss_and_grads`` under data parallelism,
     the sequence-parallel one under -time_shards (parallel/timeshard.py).
-    ``sh``: a parallel rank's place (data x time), over whose ranks the
-    EMA codebook's statistics are summed.  The gradients and the update run in
+    ``sh``: a parallel rank's place (data x time or data x model), over
+    whose data group the EMA codebook's statistics are summed.  The gradients and the update run in
     the profiler ranges "loss_and_grads" and "optimizer".
     ``with_summaries``: metrics["summaries"] holds the TensorBoard tensor
     set (train_loop.py:120-139): z_e, the gradient tree and its global
     norm, q_z_x, e_k and the distances of z_e's first 1,024 rows to every
     code; under ``sh`` z_e, q_z_x and e_k are gathered from every rank
-    into the global batch's (a collective at summary steps only)."""
+    into the global batch's, and on a data x model mesh (``specs``: the
+    params' ``param_specs``) the split leaves' gradients are joined over
+    the model row (collectives at summary steps only)."""
     schedule = piecewise_constant_schedule(cfg.learning_rate_schedule)
     with record_function("loss_and_grads"):
         loss, aux, grads = grads_fn(ts["params"], ts["model_state"], cfg,
@@ -166,15 +193,32 @@ def train_step(ts, batch, cfg, *, ema_decay: float = 0.999,
         if k in aux:
             metrics[k] = aux[k]
     if with_summaries:
-        metrics["summaries"] = _summaries(ts, aux, grads, cfg, sh)
+        metrics["summaries"] = _summaries(ts, aux, grads, cfg, sh, specs)
     return new_ts, metrics
 
 
-def _summaries(ts, aux, grads, cfg, sh):
+def mesh_train_step(cfg, sh, specs, *, ema_decay: float = 0.999,
+                    with_summaries: bool = False):
+    """The train step of a rank of a data x model mesh (JAX's
+    make_jit_train_step(cfg, mesh), train_loop.py:143-176): step(ts,
+    batch) -> (new ts, metrics) on the rank's ``shard_state`` of a train
+    state whose params have ``param_specs`` ``specs`` and on its
+    ``rank_rows`` of the global batch; any family and encoder.  Also the
+    DP step (specs None or n_model 1)."""
+    return functools.partial(
+        train_step, cfg=cfg, ema_decay=ema_decay,
+        grads_fn=functools.partial(dp_loss_and_grads, sh=sh, specs=specs),
+        sh=sh, with_summaries=with_summaries, specs=specs)
+
+
+def _summaries(ts, aux, grads, cfg, sh, specs=None):
     """The summary tensors of a step from the parameters before it."""
     gtree = tree_unflatten(ts["params"], [
         torch.zeros_like(p) if g is None else g
         for p, g in zip(tree_leaves(ts["params"]), grads)])
+    if specs is not None and sh.n_model > 1:
+        from vqvae_wavenet_torch.parallel.mesh import gather_tree
+        gtree = gather_tree(gtree, sh, specs)
     norm = torch.sqrt(sum(g.float().pow(2).sum()
                           for g in tree_leaves(gtree)))
     e_k = aux.get("e_k", aux.get("encoding"))
